@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``pointnet2_tpu_torch``).
 
-Drives the port's serving path, ``Predictor("pointnet2_cls_ssg")`` at full
-width (1024 points, 40 classes, buckets 1/4/16/64, bf16 and f32, 12-vote
-``predict_votes``), on one NVIDIA GPU, through the port's three
-hand-written CUDA kernels (FPS, ball query, row gather). Phases:
+Drives the port's two paths at full width on one NVIDIA GPU through its
+four hand-written CUDA kernels (FPS, ball query, row gather, row
+scatter-add): serving, ``Predictor("pointnet2_cls_ssg")`` (1024 points, 40
+classes, buckets 1/4/16/64, bf16 and f32, 12-vote ``predict_votes``), and
+training, ``Trainer.fit`` (batch 16, 1024 points, on-device augmentation,
+Adam). Phases:
 
 1. build the kernels from ``pointnet2_tpu_torch/csrc/`` with nvcc, one
    process per source, all at once;
@@ -19,7 +21,22 @@ hand-written CUDA kernels (FPS, ball query, row gather). Phases:
    the same for the same seed;
 5. time each kernel, its plain version and (for the gather) one PyTorch
    call computing the same function, the serving forward and the vote
-   call, and break a bf16 forward's device time down by kernel.
+   call, and break a bf16 forward's device time down by kernel;
+6. hold the scatter-add kernel against its plain version at the train
+   path's shapes (the backward of the SA1 and SA2 gathers at B=16, f32
+   and bf16), at C=3 and C=5, on a hot row, out-of-range indices and K=0,
+   and check that two launches give the same bits;
+7. one full-width train step through the kernels and through the plain
+   versions on the card, from the same weights, batch and generator seed:
+   loss, gradients and running statistics, f32 and bf16; and whether two
+   runs of the kernel path give the same bits;
+8. train with ``Trainer.fit`` (synthetic 40-class clouds, 1024 points,
+   batch 16, ``augment="cls"``, bf16 and f32) with every launch counter set
+   to 0 just before and read just after; the loss must fall; the trained
+   weights then serve through ``Predictor.predict_votes``;
+9. time the train step (ms/step, examples/s, device busy share, device
+   time by host op, peak memory) and the scatter kernel per launch beside
+   its bound, its plain version and ``Tensor.index_add_``.
 
 Prints the GPU's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
@@ -35,6 +52,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -52,12 +70,17 @@ REPLACES = {
     "fps": "pointnet2_tpu/ops/pallas/fps.py:103",
     "ball_query": "pointnet2_tpu/ops/pallas/ball_query.py:237",
     "gather_rows": "pointnet2_tpu/ops/pallas/group.py:189",
+    "scatter_rows": "pointnet2_tpu/ops/pallas/group.py:227",
 }
 SOURCES = {
     "fps": "pointnet2_tpu_torch/csrc/fps.cu",
     "ball_query": "pointnet2_tpu_torch/csrc/ball_query.cu",
     "gather_rows": "pointnet2_tpu_torch/csrc/gather.cu",
+    "scatter_rows": "pointnet2_tpu_torch/csrc/scatter.cu",
 }
+BOUND_BY = {"fps": "operations", "ball_query": "operations",
+            "gather_rows": "bytes", "scatter_rows": "bytes"}
+TRAIN_EPOCHS = 4  # per dtype in phase 8
 # the serving path's kernel shapes: (B, N) -> npoint, then the ball query
 # (radius, nsample) and the width of the lifted rows group_point moves
 SA = ({"n": 1024, "npoint": 512, "radius": 0.2, "nsample": 32, "width": 64},
@@ -246,28 +269,30 @@ def drive_main_path(torch, predictors: dict, clouds: np.ndarray) -> dict:
     return out
 
 
-def time_kernels(torch, dev, gpu: str, launches: dict, errs: dict) -> list:
+def add_time(rows: dict, name, shape, ms, plain, bound, library=None):
+    """Add one launch's times to a kernel's row of the table, and log
+    them."""
+    r = rows[name]
+    r["ms"] += ms
+    r["plain_ms"] += plain
+    r["bound_ms"] += bound
+    if library is not None:
+        r["library_ms"] = (r["library_ms"] or 0.0) + library
+    lib = "" if library is None else f" library {library:.6f} ms"
+    log(f"  {name:<12} {shape:<44} kernel {ms:.6f} ms  plain "
+        f"{plain:.6f} ms  bound {bound:.6f} ms{lib}")
+
+
+def time_kernels(torch, dev, gpu: str, rows: dict) -> None:
     """Phase 5a: per-forward kernel, plain and library times at B=16 bf16,
     and the least time the card could take for the same work."""
     from pointnet2_tpu_torch.ops import grouping, sampling
 
     B = 16
     levels = kernel_inputs(torch, dev, B)
-    rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                "library_ms": 0.0} for k in REPLACES}
-    bound_by = {"fps": "operations", "ball_query": "operations",
-                "gather_rows": "bytes"}
 
-    def add(name, shape, ms, plain, bound, library=None):
-        r = rows[name]
-        r["ms"] += ms
-        r["plain_ms"] += plain
-        r["bound_ms"] += bound
-        if library is not None:
-            r["library_ms"] += library
-        lib = "" if library is None else f" library {library:.6f} ms"
-        log(f"  {name:<11} {shape:<44} kernel {ms:.6f} ms  plain "
-            f"{plain:.6f} ms  bound {bound:.6f} ms{lib}")
+    def add(*args, **kwargs):
+        add_time(rows, *args, **kwargs)
 
     log(f"phase 5: kernel times at B=16 on {gpu} (per launch, CUDA events; "
         "kernel and library with the queue pre-filled, plain with the host in "
@@ -318,35 +343,36 @@ def time_kernels(torch, dev, gpu: str, launches: dict, errs: dict) -> list:
                 f"{tuple(ix.shape)}", ms, plain,
                 byts / HBM_BYTES_PER_S * 1e3, library)
 
-    table = []
-    for name in REPLACES:
-        r = rows[name]
-        table.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": errs[name], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": bound_by[name],
-            "library_ms": r["library_ms"] if name == "gather_rows" else None,
-        })
-    return table
+
+def kernel_table(rows: dict, launches: dict, errs: dict) -> list:
+    """The {"kernels": [...]} entries: launches from the main-path runs,
+    every time measured in this run, the bound computed from its inputs."""
+    return [{
+        "name": name, "route": "cuda", "source": SOURCES[name],
+        "replaces": REPLACES[name], "launches": launches[name],
+        "max_abs_err": errs[name], "ms": rows[name]["ms"],
+        "plain_ms": rows[name]["plain_ms"],
+        "bound_ms": rows[name]["bound_ms"], "bound_by": BOUND_BY[name],
+        "library_ms": rows[name]["library_ms"],
+    } for name in REPLACES]
 
 
-def profile_forward(torch, pred, clouds: np.ndarray, b: int,
-                    reps: int = 5) -> None:
-    """Phase 5c: where one bucketed forward's time goes, by torch.profiler:
-    device time by kernel per forward, and the share of the wall time the
-    device was busy (the profiler's own cost inflates the wall time)."""
+def profile_device(torch, fn, reps: int, label: str, unit: str,
+                   ours=tuple(REPLACES)) -> None:
+    """Where the device time of `reps` calls of `fn` goes, by
+    torch.profiler: device time by host op and by kernel per call, and the
+    share of the wall time the device was busy (the profiler's own cost
+    inflates the wall time)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
-        pred(clouds[:b])
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            pred(clouds[:b])
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6 / reps
     kernels, ops_ = [], []
@@ -360,21 +386,307 @@ def profile_forward(torch, pred, clouds: np.ndarray, b: int,
             ops_.append((us / reps, e.count / reps, e.key))
     busy = sum(r[0] for r in kernels)
     if busy == 0:
-        log(f"  profile B={b}: the profiler saw no device time (not measured)")
+        log(f"  profile {label}: the profiler saw no device time (not "
+            "measured)")
         return
-    log(f"  profile bf16 B={b}: wall {wall_us:.1f} us/forward under the "
+    log(f"  profile {label}: wall {wall_us:.1f} us/{unit} under the "
         f"profiler, device busy {busy:.1f} us ({busy / wall_us:.1%}), "
-        f"{sum(r[1] for r in kernels):.0f} device ops/forward")
+        f"{sum(r[1] for r in kernels):.0f} device ops/{unit}")
     for title, rows in (("by host op", ops_), ("by kernel", kernels)):
-        log(f"   device time {title} (us/forward, calls/forward):")
-        for us, count, key in sorted(rows, reverse=True)[:10]:
+        log(f"   device time {title} (us/{unit}, calls/{unit}):")
+        for us, count, key in sorted(rows, reverse=True)[:12]:
             log(f"    {us:10.1f} us {count:6.1f}x  {key[:80]}")
-    ours = [r for r in kernels
-            if any(f"{k}_kernel" in r[2] for k in REPLACES)]
-    log(f"   the port's CUDA kernels: {sum(r[0] for r in ours):.1f} us/forward "
-        f"({sum(r[0] for r in ours) / busy:.1%} of device time)")
-    for us, count, key in sorted(ours, reverse=True):
+    mine = [r for r in kernels if any(f"{k}_kernel" in r[2] for k in ours)]
+    log(f"   the port's CUDA kernels: {sum(r[0] for r in mine):.1f} us/{unit} "
+        f"({sum(r[0] for r in mine) / busy:.1%} of device time)")
+    for us, count, key in sorted(mine, reverse=True):
         log(f"    {us:10.1f} us {count:6.1f}x  {key[:80]}")
+
+
+def profile_forward(torch, pred, clouds: np.ndarray, b: int,
+                    reps: int = 5) -> None:
+    """Phase 5c: where one bucketed bf16 forward's time goes."""
+    profile_device(torch, lambda: pred(clouds[:b]), reps, f"bf16 B={b}",
+                   "forward")
+
+
+# --- the train path ---------------------------------------------------------
+
+
+def bf16_ulp(torch, x):
+    """One bf16 ulp at |x| (8 significant bits), the smallest normal's for
+    0."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def check_scatter(torch, dev, check: Checks, errs: dict) -> None:
+    """Phase 6: the scatter kernel against its plain version. Bound of the
+    f32 difference: two sums of the same m terms in different orders each
+    lie within (m-1)*2^-24*sum|terms| of the exact sum, so they differ by
+    at most 2*m*2^-24*sum|terms| per output element (m its count of
+    contributions). bf16: within one bf16 ulp of the plain version's f32
+    sum, plus that bound."""
+    from pointnet2_tpu_torch import ops
+    from pointnet2_tpu_torch.ops import grouping
+
+    log("phase 6: the scatter-add kernel vs its plain version on the card")
+    B = 16
+    levels = kernel_inputs(torch, dev, B)
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    sa1, sa2 = levels
+    idx1, idx2 = sa1["idx"].reshape(B, -1), sa2["idx"].reshape(B, -1)
+    oob = idx1.clone()
+    oob[:, 3::11] = -1
+    oob[:, 5::13] = sa1["n"]
+    cases = [  # (name, K-source idx, n, C)
+        ("SA1 backward", idx1, sa1["n"], sa1["width"]),
+        ("SA2 backward", idx2, sa2["n"], sa2["width"]),
+        ("C=3 (xyz, FPS indices)", sa1["fidx"], sa1["n"], 3),
+        ("C=5", idx1, sa1["n"], 5),
+        ("hot row", torch.full_like(idx1, 7), sa1["n"], 64),
+        ("out-of-range indices", oob, sa1["n"], 64),
+        ("K=0", idx1[:, :0].contiguous(), sa1["n"], 64),
+    ]
+    for name, idx, n, C in cases:
+        gf = torch.randn((B, idx.shape[1], C), generator=g, device=dev)
+        ones = torch.ones_like(gf[..., :1])
+        cnt = grouping.scatter_rows_plain(ones, idx, n)
+        abs_sum = grouping.scatter_rows_plain(gf.abs(), idx, n)
+        exact = grouping.scatter_rows_plain(gf, idx, n)  # f32 sums
+        order = 2 * cnt * 2.0 ** -24 * abs_sum
+        for dt in (torch.float32, torch.bfloat16):
+            gd = gf.to(dt)
+            if dt == torch.bfloat16:  # the same terms, rounded to bf16
+                exact = grouping.scatter_rows_plain(gd.float(), idx, n)
+                abs_sum = grouping.scatter_rows_plain(gd.float().abs(), idx,
+                                                      n)
+                order = 2 * cnt * 2.0 ** -24 * abs_sum
+            before = ops.scatter_rows_kernel.launches
+            got = ops.scatter_rows_kernel(gd, idx, n)
+            again = ops.scatter_rows_kernel(gd, idx, n)
+            launched = ops.scatter_rows_kernel.launches - before
+            view = torch.int16 if dt == torch.bfloat16 else torch.int32
+            same = torch.equal(got.view(view), again.view(view))
+            bound = order + (bf16_ulp(torch, exact) if dt == torch.bfloat16
+                             else 0.0)
+            diff = (got.float() - exact).abs()
+            err = float(diff.max()) if diff.numel() else 0.0
+            if dt == torch.float32:  # bf16's own rounding is not an error
+                errs["scatter_rows"] = max(errs["scatter_rows"], err)
+            ok = bool((diff <= bound).all()) and same and launched == 2
+            if name == "K=0":
+                ok = ok and not bool(got.any())
+            if name == "hot row":
+                ok = ok and not bool(got[:, :7].any() or got[:, 8:].any())
+            check(ok, f"scatter_rows {name} {str(dt)[6:]} g {tuple(gd.shape)} "
+                      f"-> n={n}: max abs diff {err:.3e} within the bound, two "
+                      f"launches bitwise equal, {launched} launches")
+    torch.cuda.synchronize()
+
+
+def make_trainer(torch, dtype: str, log_dir: str, epochs: int, seed=SEED):
+    from pointnet2_tpu_torch.train import TrainConfig, Trainer
+
+    cfg = TrainConfig(batch_size=16, num_point=N_POINT, max_epoch=epochs,
+                      learning_rate=1e-3, optimizer="adam", augment="cls",
+                      compute_dtype=dtype, log_dir=log_dir, seed=seed)
+    return Trainer(cfg, device="cuda")
+
+
+def train_batch(torch, dev, B: int = 16) -> dict:
+    labels = np.arange(B) % NUM_CLASSES
+    return {"points": torch.from_numpy(make_clouds(B, N_POINT, SEED + 7)).to(
+        dev), "label": torch.from_numpy(labels).to(dev),
+        "mask": torch.ones(B, device=dev)}
+
+
+def one_step(torch, trainer, batch: dict, impl: str, gen_seed: int = 5):
+    """A fresh state (the seed's weights), one step on `batch` with the
+    generator at `gen_seed`; returns loss, grads, buffers and params."""
+    from pointnet2_tpu_torch import config
+    from pointnet2_tpu_torch.train.steps import run_one_step
+
+    state = trainer.init_state()
+    trainer.generator.manual_seed(gen_seed)
+    with config.default_impl(impl):
+        m = run_one_step(state, batch, trainer.loss_fn, trainer.bn_schedule,
+                         trainer.augment_fn, trainer.generator)
+    model = state.model
+    return (float(m["loss"]),
+            {k: p.grad.clone() for k, p in model.named_parameters()},
+            {k: b.clone() for k, b in model.named_buffers()},
+            {k: p.detach().clone() for k, p in model.named_parameters()})
+
+
+def bn_fed_bias(name: str) -> bool:
+    """A dense bias in front of a train-mode BN: its gradient is zero in
+    exact arithmetic (BN subtracts the batch mean) and what is computed is
+    the rounding residue of cancelling sums, not compared."""
+    return name.endswith("dense.bias") and not name.startswith("fc3.")
+
+
+def check_train_step(torch, dev, check: Checks, log_dir: str) -> None:
+    """Phase 7: one full-width step (B=16, N=1024, augment on) through the
+    kernels and through the plain versions. The forward is the same bits
+    (identical indices, exact gathers), so loss and running statistics
+    must be equal; gradients differ only by the scatter's summation order
+    (atomic index_add_ in the plain path): each within 1e-4 (f32) or 1e-2
+    (bf16) of its norm."""
+    log("phase 7: one train step, kernel path vs plain path on the card")
+    batch = train_batch(torch, dev)
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", 1e-2)):
+        with make_trainer(torch, dtype, os.path.join(log_dir, "step"),
+                          1) as tr:
+            la, ga, ba, pa = one_step(torch, tr, batch, "auto")
+            lb, gb, bb, _ = one_step(torch, tr, batch, "torch")
+            lc, gc, _, pc = one_step(torch, tr, batch, "auto")
+        stats_equal = all(torch.equal(ba[k], bb[k]) for k in ba)
+        worst, worst_k = 0.0, ""
+        for k in ga:
+            if bn_fed_bias(k):
+                continue
+            rel = float((ga[k] - gb[k]).float().norm()
+                        / gb[k].float().norm().clamp_min(1e-30))
+            if rel > worst:
+                worst, worst_k = rel, k
+        check(la == lb and stats_equal and worst <= tol,
+              f"{dtype}: loss {la:.6f} (plain {lb:.6f}), running statistics "
+              f"equal: {stats_equal}, largest gradient difference {worst:.2e} "
+              f"of its norm ({worst_k}), bound {tol:g}")
+        differ = [k for k in pa if not torch.equal(pa[k], pc[k])]
+        gdiffer = [k for k in ga if not torch.equal(ga[k], gc[k])]
+        if not differ and lc == la:
+            log(f"  {dtype}: two runs of the kernel path give bitwise equal "
+                "loss, gradients and parameters")
+        else:
+            log(f"  {dtype}: two runs of the kernel path differ: loss equal "
+                f"{lc == la}, {len(gdiffer)} gradients and {len(differ)} "
+                f"parameters differ; first differing gradient (backward "
+                f"order, the op that produced it): "
+                f"{gdiffer[-1] if gdiffer else 'none'}")
+    torch.cuda.synchronize()
+
+
+def train_fit(torch, check: Checks, log_dir: str) -> dict:
+    """Phase 8: the train path's main-path run through Trainer.fit, bf16
+    then f32, from the launch counters' zero; returns the counts, the
+    trained bf16 state and the steps taken."""
+    from pointnet2_tpu_torch import ops
+    from pointnet2_tpu_torch.data import SyntheticClassification
+
+    log(f"phase 8: Trainer.fit pointnet2_cls_ssg, N={N_POINT}, batch 16, "
+        f"augment='cls', Adam lr 1e-3, {TRAIN_EPOCHS} epochs each in bf16 "
+        "and f32")
+    datasets = [SyntheticClassification(num_classes=NUM_CLASSES,
+                                        samples_per_class=8, npoints=N_POINT,
+                                        batch_size=16, seed=s)
+                for s in (0, 1)]
+    for w in ops.KERNELS.values():
+        w.launches = 0
+    states, steps, evals = {}, 0, 0
+    for dtype in ("bfloat16", "float32"):
+        run_dir = os.path.join(log_dir, f"fit_{dtype}")
+        t0 = time.perf_counter()
+        with make_trainer(torch, dtype, run_dir, TRAIN_EPOCHS) as tr:
+            states[dtype] = tr.fit(datasets[0], eval_dataset=datasets[1])
+            best = tr.best_score
+        torch.cuda.synchronize()
+        steps += states[dtype].step
+        evals += TRAIN_EPOCHS * datasets[1].num_batches()
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in rows if r["split"] == "train"]
+        accs = [r["accuracy"] for r in rows if r["split"] == "eval"]
+        check(len(losses) == TRAIN_EPOCHS and losses[-1] < losses[0]
+              and all(np.isfinite(losses)),
+              f"{dtype}: train loss by epoch {[round(x, 4) for x in losses]} "
+              f"falls (eval accuracy {[round(x, 4) for x in accs]}, best "
+              f"{best:.4f}); {time.perf_counter() - t0:.1f} s")
+    counts = {k: w.launches for k, w in ops.KERNELS.items()}
+    log(f"  launches in the train main-path run ({steps} steps, {evals} eval "
+        f"forwards): {counts}")
+    check(counts["scatter_rows"] == 2 * steps,
+          "scatter_rows launched 2 times per train step")
+    for name, per_fwd in (("fps", 2), ("ball_query", 2), ("gather_rows", 4)):
+        check(counts[name] == per_fwd * (steps + evals),
+              f"{name} launched {per_fwd} times per forward, as in serving")
+    return {"counts": counts, "state": states["bfloat16"], "steps": steps}
+
+
+def serve_trained(torch, state, clouds: np.ndarray, check: Checks) -> None:
+    from pointnet2_tpu_torch import Predictor
+
+    pred = Predictor("pointnet2_cls_ssg", state.model.state_dict(),
+                     dtype=torch.bfloat16)
+    votes = pred.predict_votes(clouds[:16], 12, rng=SEED)
+    check(votes.shape == (16, NUM_CLASSES) and bool(np.isfinite(votes).all()),
+          "the trained bf16 weights serve through Predictor.predict_votes: "
+          f"(16, 40), finite, argmax {votes.argmax(-1)[:8].tolist()}...")
+
+
+def time_train(torch, dev, gpu: str, rows: dict, log_dir: str) -> None:
+    """Phase 9: train-step times at B=16 and the scatter kernel per
+    launch."""
+    from pointnet2_tpu_torch.ops import grouping
+    from pointnet2_tpu_torch.train.steps import run_one_step
+
+    log(f"phase 9: train-step times at B=16, N={N_POINT}, on {gpu}")
+    batch = train_batch(torch, dev)
+    for dtype in ("bfloat16", "float32"):
+        with make_trainer(torch, dtype, os.path.join(log_dir, "time"),
+                          1) as tr:
+            state = tr.init_state()
+
+            def step():
+                run_one_step(state, batch, tr.loss_fn, tr.bn_schedule,
+                             tr.augment_fn, tr.generator)
+
+            ms = host_ms(torch, step, 20, warmup=3)
+            torch.cuda.reset_peak_memory_stats()
+            step()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"  train step {dtype}: {ms:.3f} ms median of 20, "
+                f"{16 / ms * 1e3:.1f} examples/s, peak device memory "
+                f"{peak:.2f} GiB")
+            profile_device(torch, step, 5, f"train step {dtype} B=16",
+                           "step")
+
+    log(f"phase 9: scatter_rows per launch at B=16 on {gpu} (kernel and "
+        "index_add_ with the queue pre-filled, plain with the host in the "
+        "loop)")
+    B = 16
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    for lv in kernel_inputs(torch, dev, B):
+        idx = lv["idx"].reshape(B, -1)
+        n, C, K = lv["n"], lv["width"], idx.shape[1]
+        flat = (idx.long() + torch.arange(B, device=dev)[:, None] * n
+                ).reshape(-1)
+        for dt in (torch.bfloat16, torch.float32):
+            gd = torch.randn((B, K, C), generator=g, device=dev).to(dt)
+            out = torch.empty((B, n, C), dtype=dt, device=dev)
+            lib_out = torch.zeros((B * n, C), dtype=dt, device=dev)
+            g2 = gd.reshape(B * K, C)
+            ms = event_ms(torch, lambda: grouping.launch_scatter_rows(
+                gd, idx, out), 50, prefill=True)
+            plain = event_ms(torch, lambda: grouping.scatter_rows_plain(
+                gd, idx, n), 20)
+            library = event_ms(torch, lambda: lib_out.index_add_(0, flat, g2),
+                               50, prefill=True)
+            byts = (gd.numel() * gd.element_size() + idx.numel() * 4
+                    + out.numel() * out.element_size())
+            bound = byts / HBM_BYTES_PER_S * 1e3
+            shape = f"g {tuple(gd.shape)} {str(dt)[6:]} -> n={n}"
+            if dt == torch.bfloat16:  # the table holds the bf16 train step
+                add_time(rows, "scatter_rows", shape, ms, plain, bound,
+                         library)
+            else:
+                log(f"  scatter_rows {shape:<44} kernel {ms:.6f} ms  plain "
+                    f"{plain:.6f} ms  bound {bound:.6f} ms library "
+                    f"{library:.6f} ms")
+            log(f"  scatter_rows {shape}: {bound / ms:.1%} of the memory "
+                "roofline")
 
 
 def main() -> int:
@@ -409,7 +721,8 @@ def main() -> int:
     log(f"  built {', '.join(_build.SOURCES)} in "
         f"{time.perf_counter() - t0:.2f} s into {_build.BUILD_DIR.name}/")
 
-    errs = {"fps": 0, "ball_query": 0, "gather_rows": 0.0}
+    errs = {"fps": 0, "ball_query": 0, "gather_rows": 0.0,
+            "scatter_rows": 0.0}
     for B in (16, 768):
         check_kernels(torch, dev, B, check, errs)
 
@@ -431,6 +744,8 @@ def main() -> int:
     for name, per_fwd in (("fps", 2), ("ball_query", 2), ("gather_rows", 4)):
         check(launches[name] == per_fwd * n_fwd,
               f"{name} launched {per_fwd} times per forward")
+    check(launches["scatter_rows"] == 0,
+          "scatter_rows launched 0 times in serving (no backward)")
 
     # Kernel path vs the same requests on the plain versions, same card:
     # indices are bit-identical and gathers exact, so the two runs share
@@ -488,7 +803,9 @@ def main() -> int:
           f"12 votes on the card vs views stacked on the host: max abs diff "
           f"{err:.3e}")
 
-    table = time_kernels(torch, dev, gpu, launches, errs)
+    rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "library_ms": None} for k in REPLACES}
+    time_kernels(torch, dev, gpu, rows)
     log(f"phase 5: serving times (host clock, numpy in and out) on {gpu}")
     for name in ("bf16", "f32"):
         pred = predictors[name]
@@ -506,6 +823,19 @@ def main() -> int:
         f"{gpu}")
     for b in (16, 64):
         profile_forward(torch, predictors["bf16"], clouds, b)
+
+    # the Trainer's logs, in the checkout's git-ignored log/ directory
+    log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "log", "chip_smoke_train")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    check_scatter(torch, dev, check, errs)
+    check_train_step(torch, dev, check, log_dir)
+    fit = train_fit(torch, check, log_dir)
+    serve_trained(torch, fit["state"], clouds, check)
+    time_train(torch, dev, gpu, rows, log_dir)
+    # launches of each kernel over both main-path runs (serving, training)
+    launches = {k: launches[k] + fit["counts"][k] for k in REPLACES}
+    table = kernel_table(rows, launches, errs)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if check.failed:

@@ -6,18 +6,23 @@ hand-written CUDA kernel here (``csrc/``, built with nvcc at first use) on
 CUDA tensors, and a plain PyTorch version on CPU tensors. Nothing is built
 or launched at import.
 
-Ported so far: the ``pointnet2_cls_ssg`` eval forward and the bucketed
-serving ``Predictor``.
+Ported so far: ``pointnet2_cls_ssg`` with its bucketed serving
+``Predictor`` and its training (``train.Trainer``: on-device augmentation,
+train-mode BN and dropout, the scatter-add gradient of the row gather,
+Adam or momentum on the scheduled LR).
 """
 
 from pointnet2_tpu_torch.convert import flax_to_torch
 from pointnet2_tpu_torch.models import MODEL_REGISTRY, PointNet2ClsSSG, get_model
 from pointnet2_tpu_torch.serving import Predictor
+from pointnet2_tpu_torch.train import TrainConfig, Trainer
 
 __all__ = [
     "MODEL_REGISTRY",
     "PointNet2ClsSSG",
     "Predictor",
+    "TrainConfig",
+    "Trainer",
     "flax_to_torch",
     "get_model",
 ]

@@ -1,8 +1,10 @@
-"""Host-side point-cloud rotations for vote ensembling (numpy).
+"""Host-side point-cloud augmentations (numpy).
 
-The port's copy of pointnet2_tpu/data/augment.py:21-30,63-69,103-106:
-the deterministic y-rotation by a fixed angle, row-vector convention
-(points @ R), normal-aware for 6-channel clouds.
+The port's copy of pointnet2_tpu/data/augment.py:21-30,63-69,103-106,
+141-150: the deterministic y-rotation by a fixed angle for vote
+ensembling, row-vector convention (points @ R), normal-aware for 6-channel
+clouds; and the per-point jitter of the synthetic dataset's host
+augmentation.
 """
 
 from __future__ import annotations
@@ -35,3 +37,15 @@ def rotate_point_cloud_by_angle(batch: np.ndarray, angle: float) -> np.ndarray:
     """Deterministic y-rotation by a fixed angle (vote ensembling)."""
     angles = np.full(batch.shape[0], angle)
     return _apply_rot(batch, _rot_y(angles))
+
+
+def jitter_point_cloud(batch: np.ndarray, rng: np.random.Generator,
+                       sigma: float = 0.01, clip: float = 0.05) -> np.ndarray:
+    """Per-point Gaussian jitter, clipped (xyz channels only)."""
+    if clip <= 0:
+        raise ValueError(f"clip must be positive, got {clip}")
+    out = batch.astype(np.float32).copy()
+    noise = np.clip(sigma * rng.standard_normal(out[:, :, 0:3].shape),
+                    -clip, clip).astype(np.float32)
+    out[:, :, 0:3] += noise
+    return out

@@ -1,0 +1,142 @@
+"""On-device point-cloud augmentation for classification training.
+
+Counterpart of pointnet2_tpu/data/augment_jax.py:19-134: the ModelNet40
+training chain rotate_y -> rotate_perturbation -> random_scale -> shift ->
+jitter -> shuffle_points (modelnet_h5_dataset.py:72-79), run on the batch's
+device inside the train step.
+
+Each transform is split in two: ``draw_<name>(generator, batch)`` draws its
+parameters from a ``torch.Generator`` on the batch's device, and
+``<name>(batch, params)`` applies given parameters. ``torch`` and
+``jax.random`` give different numbers from one seed, so tests hand both
+sides the same parameters. Rotations are float32 matmuls in full float32
+(TF32 off, ``config.disable_tf32``), row-vector convention (points @ R),
+normal-aware for 6-channel clouds.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _rot_y(angles: torch.Tensor) -> torch.Tensor:
+    c, s = torch.cos(angles), torch.sin(angles)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack([torch.stack([c, z, s], -1),
+                        torch.stack([z, o, z], -1),
+                        torch.stack([-s, z, c], -1)], dim=-2)
+
+
+def _rot_xyz(angles: torch.Tensor) -> torch.Tensor:
+    ax, ay, az = angles[:, 0], angles[:, 1], angles[:, 2]
+    cx, sx = torch.cos(ax), torch.sin(ax)
+    cy, sy = torch.cos(ay), torch.sin(ay)
+    cz, sz = torch.cos(az), torch.sin(az)
+    z, o = torch.zeros_like(ax), torch.ones_like(ax)
+    Rx = torch.stack([torch.stack([o, z, z], -1),
+                      torch.stack([z, cx, -sx], -1),
+                      torch.stack([z, sx, cx], -1)], dim=-2)
+    Ry = torch.stack([torch.stack([cy, z, sy], -1),
+                      torch.stack([z, o, z], -1),
+                      torch.stack([-sy, z, cy], -1)], dim=-2)
+    Rz = torch.stack([torch.stack([cz, -sz, z], -1),
+                      torch.stack([sz, cz, z], -1),
+                      torch.stack([z, z, o], -1)], dim=-2)
+    return Rz @ (Ry @ Rx)
+
+
+def _apply_rot(batch: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    parts = [batch[..., 0:3] @ R]
+    if batch.shape[-1] >= 6:
+        parts += [batch[..., 3:6] @ R, batch[..., 6:]]
+    else:
+        parts.append(batch[..., 3:])
+    return torch.cat(parts, dim=-1)
+
+
+def _uniform(generator, shape, device, low, high) -> torch.Tensor:
+    u = torch.rand(shape, generator=generator, device=device)
+    return u * (high - low) + low
+
+
+def draw_rotate_y(generator, batch):
+    return _uniform(generator, (batch.shape[0],), batch.device, 0.0,
+                    2 * math.pi)
+
+
+def rotate_y(batch, angles):
+    """Rotate each cloud about the up axis by its angle (B,)."""
+    return _apply_rot(batch, _rot_y(angles))
+
+
+def draw_rotate_perturbation(generator, batch, angle_sigma=0.06,
+                             angle_clip=0.18):
+    a = torch.randn((batch.shape[0], 3), generator=generator,
+                    device=batch.device)
+    return torch.clamp(angle_sigma * a, -angle_clip, angle_clip)
+
+
+def rotate_perturbation(batch, angles):
+    """Small rotation about x, then y, then z, by angles (B, 3)."""
+    return _apply_rot(batch, _rot_xyz(angles))
+
+
+def draw_random_scale(generator, batch, scale_low=0.8, scale_high=1.25):
+    return _uniform(generator, (batch.shape[0], 1, 1), batch.device,
+                    scale_low, scale_high)
+
+
+def random_scale(batch, scales):
+    """Scale each cloud's xyz by its factor (B, 1, 1)."""
+    return torch.cat([batch[..., 0:3] * scales, batch[..., 3:]], dim=-1)
+
+
+def draw_shift(generator, batch, shift_range=0.1):
+    return _uniform(generator, (batch.shape[0], 1, 3), batch.device,
+                    -shift_range, shift_range)
+
+
+def shift(batch, shifts):
+    """Translate each cloud's xyz by its offset (B, 1, 3)."""
+    return torch.cat([batch[..., 0:3] + shifts, batch[..., 3:]], dim=-1)
+
+
+def draw_jitter(generator, batch, sigma=0.01, clip=0.05):
+    noise = torch.randn(batch[..., 0:3].shape, generator=generator,
+                        device=batch.device)
+    return torch.clamp(sigma * noise, -clip, clip)
+
+
+def jitter(batch, noise):
+    """Add per-point noise (B, N, 3) to xyz."""
+    return torch.cat([batch[..., 0:3] + noise, batch[..., 3:]], dim=-1)
+
+
+def draw_shuffle_points(generator, batch):
+    return torch.randperm(batch.shape[1], generator=generator,
+                          device=batch.device)
+
+
+def shuffle_points(batch, perm):
+    """Reorder the points of every cloud by one permutation (N,)."""
+    return batch[:, perm, :]
+
+
+CLS_CHAIN = (
+    (draw_rotate_y, rotate_y),
+    (draw_rotate_perturbation, rotate_perturbation),
+    (draw_random_scale, random_scale),
+    (draw_shift, shift),
+    (draw_jitter, jitter),
+    (draw_shuffle_points, shuffle_points),
+)
+
+
+def augment_cls(generator: torch.Generator, batch: torch.Tensor):
+    """rotate -> perturb -> scale -> shift -> jitter -> shuffle, each
+    transform's parameters drawn from ``generator`` in that order."""
+    for draw, apply in CLS_CHAIN:
+        batch = apply(batch, draw(generator, batch))
+    return batch

@@ -6,10 +6,12 @@ Holds what has been ported; the JAX package's registry
 
 from __future__ import annotations
 
+from collections.abc import Callable
 from dataclasses import dataclass
 from typing import Any
 
 from pointnet2_tpu_torch.models.cls_ssg import PointNet2ClsSSG
+from pointnet2_tpu_torch.models.losses import classification_loss
 
 __all__ = ["MODEL_REGISTRY", "ModelSpec", "PointNet2ClsSSG", "get_model"]
 
@@ -17,11 +19,13 @@ __all__ = ["MODEL_REGISTRY", "ModelSpec", "PointNet2ClsSSG", "get_model"]
 @dataclass(frozen=True)
 class ModelSpec:
     cls: type
+    loss: Callable
     task: str  # "cls"
 
 
 MODEL_REGISTRY: dict[str, ModelSpec] = {
-    "pointnet2_cls_ssg": ModelSpec(PointNet2ClsSSG, "cls"),
+    "pointnet2_cls_ssg": ModelSpec(PointNet2ClsSSG, classification_loss,
+                                   "cls"),
 }
 
 

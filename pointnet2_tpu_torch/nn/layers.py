@@ -1,5 +1,5 @@
-"""Base layers for eval: batch norm on running statistics, Dense+BN+ReLU
-blocks and the shared point MLP.
+"""Base layers: batch norm with scheduled momentum, Dense+BN+ReLU blocks
+and the shared point MLP.
 
 Port of pointnet2_tpu/nn/layers.py:48-134,137-272. Parity notes:
 
@@ -7,17 +7,23 @@ Port of pointnet2_tpu/nn/layers.py:48-134,137-272. Parity notes:
   and each dense runs in its layer's dtype (``flax.linen.Dense(dtype=...,
   param_dtype=float32)``).
 - BatchNorm: eps 1e-3, ``(x.f32 - mean) * rsqrt(var + eps) * scale + bias``
-  computed in float32 and cast back to the layer dtype. Not
-  ``torch.nn.BatchNorm*``: its momentum convention and unbiased running
-  variance differ from the JAX package's. Train mode (batch statistics and
-  the scheduled-momentum update) comes with the training slice; calling a
-  BatchNorm in train mode raises.
+  computed in float32 (float64 for a float64 model) and cast back to the
+  layer dtype. In train mode (``module.train()``) mean and var are the
+  batch statistics, the mean and mean square over all axes but the channel
+  with ``var = max(E[x^2] - E[x]^2, 0)``, and gradients flow through them;
+  the running statistics are updated in place, outside autograd, as
+  ``running*m + batch*(1-m)`` with the call-time momentum ``m`` (the
+  bn_decay schedule, train/schedules.py). Not ``torch.nn.BatchNorm*``: its momentum
+  convention is the opposite and its running variance unbiased.
+- ``bn_momentum`` is a call-time argument of every block, as in the JAX
+  package, and is read only in train mode.
 """
 
 from __future__ import annotations
 
 from collections.abc import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -46,8 +52,31 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+def _stat_dtype(x: torch.Tensor) -> torch.dtype:
+    """BN arithmetic runs in at least float32: f32 for bf16 and f32 inputs
+    (as the JAX package), f64 for a float64 model (a test reference)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _batch_stats(x: torch.Tensor):
+    """Batch mean and biased var over all axes but the last, in at least
+    float32, as pointnet2_tpu/nn/layers.py:48-62 (single device: no
+    cross-replica average yet)."""
+    xf = x.to(_stat_dtype(x))
+    dims = tuple(range(x.dim() - 1))
+    mean = xf.mean(dim=dims)
+    meansq = xf.square().mean(dim=dims)
+    return mean, torch.clamp_min(meansq - mean.square(), 0.0)
+
+
+def _f32(v) -> float:
+    """A momentum as the float32 value the JAX package computes with
+    (``jnp.asarray(m, float32)``)."""
+    return float(np.float32(v))
+
+
 class BatchNorm(nn.Module):
-    """Batch normalization over the last axis, eval mode."""
+    """Batch normalization over the last axis with call-time momentum."""
 
     def __init__(self, num_features: int, epsilon: float = 1e-3, dtype=None):
         super().__init__()
@@ -58,24 +87,36 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def _check_eval(self) -> None:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm in train mode is not ported yet; call .eval()")
+    def _stats(self, x: torch.Tensor, momentum):
+        """(mean, var) to normalize with: in train mode the batch's, after
+        folding them into the running statistics; in eval the running
+        ones."""
+        if not self.training:
+            return self.running_mean, self.running_var
+        mean, var = _batch_stats(x)
+        m = _f32(momentum)
+        one_minus = _f32(np.float32(1.0) - np.float32(m))
+        with torch.no_grad():
+            self.running_mean.copy_(self.running_mean * m
+                                    + mean.detach() * one_minus)
+            self.running_var.copy_(self.running_var * m
+                                   + var.detach() * one_minus)
+        return mean, var
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self._check_eval()
-        y = (x.float() - self.running_mean) * torch.rsqrt(
-            self.running_var + self.epsilon)
+    def forward(self, x: torch.Tensor, momentum=0.9) -> torch.Tensor:
+        mean, var = self._stats(x, momentum)
+        y = (x.to(_stat_dtype(x)) - mean) * torch.rsqrt(var + self.epsilon)
         y = y * self.weight + self.bias
         return y.to(self.dtype or x.dtype)
 
-    def affine_coeffs(self):
-        """The BN transform as per-channel f32 coefficients (a, b), with
-        BN(x) == x*a + b up to float reassociation."""
-        self._check_eval()
-        a = self.weight * torch.rsqrt(self.running_var + self.epsilon)
-        return a, self.bias - self.running_mean * a
+    def affine_coeffs(self, x: torch.Tensor, momentum=0.9):
+        """The BN transform of ``x`` as per-channel f32 coefficients (a, b),
+        with BN(x) == x*a + b up to float reassociation. In train mode the
+        statistics are x's and the running ones are updated, as by
+        ``forward``."""
+        mean, var = self._stats(x, momentum)
+        a = self.weight * torch.rsqrt(var + self.epsilon)
+        return a, self.bias - mean * a
 
 
 class ConvBN(nn.Module):
@@ -93,29 +134,32 @@ class ConvBN(nn.Module):
         if bn:
             self.norm = BatchNorm(features, dtype=dtype)
 
-    def post(self, x: torch.Tensor) -> torch.Tensor:
+    def post(self, x: torch.Tensor, bn_momentum=0.9) -> torch.Tensor:
         """The non-linear tail (BN + activation) after the dense."""
         if self.bn:
-            x = self.norm(x)
+            x = self.norm(x, bn_momentum)
         if self.relu:
             x = torch.relu(x)
         return x
 
-    def post_pooled_max(self, y: torch.Tensor, dim: int = -2) -> torch.Tensor:
+    def post_pooled_max(self, y: torch.Tensor, dim: int = -2,
+                        bn_momentum=0.9) -> torch.Tensor:
         """``max_pool(post(y), dim)`` with the pool commuted before the BN:
         ``max relu(y*a+b) == relu(max_or_min(y)*a + b)`` exactly, max where
         a > 0 and min where a < 0, so the widest activation skips the
-        normalize+ReLU pass. Requires bn=True and ReLU."""
+        normalize+ReLU pass. Requires bn=True and ReLU. The gradient routes
+        through the first-occurrence max and min (ops.max_pool), and in
+        train mode through y's batch statistics."""
         if not (self.bn and self.relu):
             raise ValueError("post_pooled_max needs BN and ReLU")
-        a, b = self.norm.affine_coeffs()
+        a, b = self.norm.affine_coeffs(y, bn_momentum)
         hi = max_pool(y, dim)
         lo = -max_pool(-y, dim)
-        sel = torch.where(a > 0, hi.float(), lo.float())
+        sel = torch.where(a > 0, hi.to(a.dtype), lo.to(a.dtype))
         return torch.relu(sel * a + b).to(self.dtype or y.dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.post(self.dense(x))
+    def forward(self, x: torch.Tensor, bn_momentum=0.9) -> torch.Tensor:
+        return self.post(self.dense(x), bn_momentum)
 
 
 # The reference distinguishes conv (on point grids) from fully_connected;
@@ -148,37 +192,39 @@ class SharedMLP(nn.Module):
         which amplifies rounding."""
         return self.blocks[0].dense(x)
 
-    def finish_first(self, x: torch.Tensor) -> torch.Tensor:
+    def finish_first(self, x: torch.Tensor, bn_momentum=0.9) -> torch.Tensor:
         """Layer 0's BN+activation, then the remaining layers."""
-        x = self.blocks[0].post(x)
+        x = self.blocks[0].post(x, bn_momentum)
         for block in self.blocks[1:]:
-            x = block(x)
+            x = block(x, bn_momentum)
         return x
 
     def pooled_max_supported(self) -> bool:
         """Whether the pool-before-affine tail applies (BN + ReLU chain)."""
         return self.bn and config.pooled_max_enabled()
 
-    def finish_first_pooled(self, x: torch.Tensor, dim: int = -2):
+    def finish_first_pooled(self, x: torch.Tensor, dim: int = -2,
+                            bn_momentum=0.9):
         """``max_pool(finish_first(x), dim)`` with the last layer's BN+ReLU
         commuted after the pool (ConvBN.post_pooled_max)."""
         if len(self.blocks) == 1:
             # single layer: x is already that layer's pre-BN dense output
-            return self.blocks[0].post_pooled_max(x, dim)
-        x = self.blocks[0].post(x)
+            return self.blocks[0].post_pooled_max(x, dim, bn_momentum)
+        x = self.blocks[0].post(x, bn_momentum)
         for block in self.blocks[1:-1]:
-            x = block(x)
+            x = block(x, bn_momentum)
         last = self.blocks[-1]
-        return last.post_pooled_max(last.dense(x), dim)
+        return last.post_pooled_max(last.dense(x), dim, bn_momentum)
 
-    def call_pooled(self, x: torch.Tensor, dim: int = -2) -> torch.Tensor:
+    def call_pooled(self, x: torch.Tensor, dim: int = -2,
+                    bn_momentum=0.9) -> torch.Tensor:
         """``max_pool(self(x), dim)`` with the pool-before-affine tail."""
         for block in self.blocks[:-1]:
-            x = block(x)
+            x = block(x, bn_momentum)
         last = self.blocks[-1]
-        return last.post_pooled_max(last.dense(x), dim)
+        return last.post_pooled_max(last.dense(x), dim, bn_momentum)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_momentum=0.9) -> torch.Tensor:
         for block in self.blocks:
-            x = block(x)
+            x = block(x, bn_momentum)
         return x

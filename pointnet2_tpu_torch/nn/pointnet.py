@@ -1,4 +1,4 @@
-"""PointNet++ set abstraction, eval forward.
+"""PointNet++ set abstraction, train and eval forward.
 
 Port of pointnet2_tpu/nn/pointnet.py:74-234 for what the single-scale
 classifier runs: the ``fuse_first`` layout with max pooling, and the
@@ -89,7 +89,7 @@ class SetAbstraction(nn.Module):
         in_features = feature_channels + (3 if with_xyz else 0)
         self.mlp_mod = SharedMLP(in_features, mlp, dtype=dtype)
 
-    def _fused_forward(self, xyz, points):
+    def _fused_forward(self, xyz, points, bn_momentum):
         """Sample/group with the first dense lifted through the gather."""
         new_xyz = gather_point(xyz, farthest_point_sample(xyz, self.npoint))
         idx, _ = query_ball_point(self.radius, self.nsample, xyz, new_xyz)
@@ -112,20 +112,24 @@ class SetAbstraction(nn.Module):
         if self.mlp_mod.pooled_max_supported():
             # pool commuted before the last BN affine: the widest tensor
             # skips its normalize+ReLU pass (ConvBN.post_pooled_max)
-            pooled = self.mlp_mod.finish_first_pooled(grouped, dim=2)
+            pooled = self.mlp_mod.finish_first_pooled(grouped, 2, bn_momentum)
         else:
-            pooled = max_pool(self.mlp_mod.finish_first(grouped), 2)
+            pooled = max_pool(self.mlp_mod.finish_first(grouped, bn_momentum),
+                              2)
         return new_xyz, pooled, idx
 
-    def forward(self, xyz: torch.Tensor, points: torch.Tensor | None):
+    def forward(self, xyz: torch.Tensor, points: torch.Tensor | None,
+                bn_momentum=0.9):
+        """BN runs on batch statistics in train mode (``.train()``), where
+        ``bn_momentum`` weights the running update; in eval it is unused."""
         if not self.group_all:
-            return self._fused_forward(xyz, points)
+            return self._fused_forward(xyz, points, bn_momentum)
         new_xyz, new_points, idx, _ = sample_and_group_all(xyz, points,
                                                            self.use_xyz)
         if self.dtype is not None:
             new_points = new_points.to(self.dtype)
         if self.mlp_mod.pooled_max_supported():
-            new_points = self.mlp_mod.call_pooled(new_points, dim=2)
+            new_points = self.mlp_mod.call_pooled(new_points, 2, bn_momentum)
         else:
-            new_points = max_pool(self.mlp_mod(new_points), 2)
+            new_points = max_pool(self.mlp_mod(new_points, bn_momentum), 2)
         return new_xyz, new_points, idx

@@ -1,4 +1,5 @@
-"""Point ops of the port: FPS, ball query, row gathers and max pooling.
+"""Point ops of the port: FPS, ball query, row gathers with their
+scatter-add gradient, and max pooling.
 
 ``KERNELS`` names each hand-written CUDA kernel's wrapper; a wrapper's
 ``launches`` attribute counts its launches.
@@ -9,6 +10,8 @@ from pointnet2_tpu_torch.ops.grouping import (
     gather_rows_kernel,
     group_point,
     query_ball_point,
+    scatter_rows,
+    scatter_rows_kernel,
 )
 from pointnet2_tpu_torch.ops.pooling import max_pool
 from pointnet2_tpu_torch.ops.sampling import (
@@ -21,6 +24,7 @@ KERNELS = {
     "fps": fps_kernel,
     "ball_query": ball_query_kernel,
     "gather_rows": gather_rows_kernel,
+    "scatter_rows": scatter_rows_kernel,
 }
 
 __all__ = [
@@ -30,4 +34,5 @@ __all__ = [
     "group_point",
     "max_pool",
     "query_ball_point",
+    "scatter_rows",
 ]

@@ -1,14 +1,17 @@
-"""Grouping ops: fixed-radius ball query and the neighbour row gather
-(forward only).
+"""Grouping ops: fixed-radius ball query, the neighbour row gather and its
+gradient, the deterministic row scatter-add.
 
-Port of pointnet2_tpu/ops/grouping.py:38-83,226-245:
+Port of pointnet2_tpu/ops/grouping.py:38-83,194-245 and
+ops/pallas/group.py:261-298:
 
 - ``query_ball_point``: for each query, the indices of the FIRST `nsample`
   dataset points (in scan order) with squared distance < float32(radius)**2;
   remaining slots are padded with the first hit, an empty ball gives index
   0; also the number of in-ball points, capped at nsample. No gradient.
 - ``group_point``: gathers (B,M,S,C) neighbour rows from (B,N,C) by (B,M,S)
-  indices, an exact copy.
+  indices, an exact copy. Its gradient with respect to the points is the
+  deterministic scatter-add ``scatter_rows`` (accumulated in f32, cast
+  once), through the autograd Function ``GatherRows``; idx gets none.
 
 Each op runs its CUDA kernel on CUDA tensors and its plain PyTorch version
 on CPU tensors (``config.use_kernel``). The kernel wrappers count their
@@ -135,7 +138,7 @@ def query_ball_point(radius: float, nsample: int, xyz1: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# row gather
+# row gather (forward)
 # ---------------------------------------------------------------------------
 
 
@@ -183,13 +186,106 @@ def gather_rows_kernel(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 gather_rows_kernel.launches = 0
 
 
-def gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Row gather (B, n, C) by (B, K) -> (B, K, C): the kernel on CUDA
-    tensors, advanced indexing on CPU tensors."""
+def _gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if config.use_kernel(points):
-        return gather_rows_kernel(points.contiguous(),
-                                  idx.to(torch.int32).contiguous())
+        return gather_rows_kernel(points.contiguous(), idx)
     return gather_rows_plain(points, idx)
+
+
+# ---------------------------------------------------------------------------
+# row scatter-add (the gather's backward)
+# ---------------------------------------------------------------------------
+
+
+def scatter_rows_plain(g: torch.Tensor, idx: torch.Tensor,
+                       n: int) -> torch.Tensor:
+    """Plain PyTorch scatter-add (ops/grouping.py:194-202): g (B, K, C),
+    idx (B, K) -> (B, n, C), summed by ``index_add_`` into a zero f32
+    buffer (f64 for a float64 g) and cast once to g's dtype. An index
+    outside [0, n) lands in a spare row that is dropped. On a CUDA tensor
+    ``index_add_`` sums with atomics, in no fixed order."""
+    B, K, C = g.shape
+    acc = torch.promote_types(g.dtype, torch.float32)
+    ix = idx.long()
+    ix = torch.where((ix >= 0) & (ix < n), ix, n)
+    ix = ix + torch.arange(B, device=g.device)[:, None] * (n + 1)
+    out = torch.zeros((B * (n + 1), C), dtype=acc, device=g.device)
+    out.index_add_(0, ix.reshape(-1), g.reshape(B * K, C).to(acc))
+    return out.reshape(B, n + 1, C)[:, :n].to(g.dtype).contiguous()
+
+
+def launch_scatter_rows(g, idx, out) -> None:
+    """Launch csrc/scatter.cu on checked, preallocated buffers (no launch
+    count: :func:`scatter_rows_kernel` counts)."""
+    B, K, C = g.shape
+    fn = _build.bind("scatter", "pn2_scatter_rows",
+                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                     + [ctypes.c_void_p])
+    with torch.cuda.device(g.device):
+        err = fn(g.data_ptr(), idx.data_ptr(), out.data_ptr(), B, K,
+                 out.shape[1], C, g.element_size(), _stream(g))
+    _build.check("scatter", err, "scatter_rows launch")
+
+
+def scatter_rows_kernel(g: torch.Tensor, idx: torch.Tensor,
+                        n: int) -> torch.Tensor:
+    """CUDA scatter-add (csrc/scatter.cu): g (B, K, C) contiguous f32 or
+    bf16, idx (B, K) contiguous int32 -> (B, n, C) in g's dtype, summed in
+    f32 in ascending k (bitwise the same from launch to launch); indices
+    outside [0, n) add nothing."""
+    _check_cuda(g, "g", (torch.float32, torch.bfloat16), 3)
+    _check_cuda(idx, "idx", (torch.int32,), 2)
+    B, K, C = g.shape
+    if tuple(idx.shape) != (B, K) or idx.device != g.device:
+        raise ValueError(f"idx {tuple(idx.shape)} does not index g "
+                         f"{tuple(g.shape)} on {g.device}")
+    if n < 0 or B > 65535:
+        raise ValueError(f"need n >= 0 and B <= 65535, got n={n}, B={B}")
+    out = torch.empty((B, n, C), dtype=g.dtype, device=g.device)
+    if out.numel() == 0:
+        return out
+    launch_scatter_rows(g, idx, out)  # K = 0 writes zeros
+    scatter_rows_kernel.launches += 1
+    return out
+
+
+scatter_rows_kernel.launches = 0
+
+
+def scatter_rows(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Scatter-add (B, K, C) by (B, K) into (B, n, C): the kernel on CUDA
+    tensors, ``index_add_`` on CPU tensors."""
+    if config.use_kernel(g):
+        return scatter_rows_kernel(g.contiguous(),
+                                   idx.to(torch.int32).contiguous(), n)
+    return scatter_rows_plain(g, idx, n)
+
+
+class GatherRows(torch.autograd.Function):
+    """Row gather (B, n, C) by (B, K) -> (B, K, C) inside autograd: forward
+    is the gather, backward the scatter-add of the output's gradient into
+    the n rows (the custom VJP of group.py:261-298). idx gets no gradient,
+    and nothing is launched backwards unless the points need a gradient."""
+
+    @staticmethod
+    def forward(ctx, points, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = points.shape[1]
+        return _gather_rows(points, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (idx,) = ctx.saved_tensors
+        return scatter_rows(grad.contiguous(), idx, ctx.n), None
+
+
+def gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row gather (B, n, C) by (B, K) -> (B, K, C), differentiable in
+    points: the kernels on CUDA tensors, the plain versions on CPU
+    tensors."""
+    return GatherRows.apply(points, idx.to(torch.int32).contiguous())
 
 
 def group_point(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

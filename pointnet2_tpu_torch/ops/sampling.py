@@ -1,4 +1,4 @@
-"""Sampling ops: farthest point sampling and point gather (forward only).
+"""Sampling ops: farthest point sampling and point gather.
 
 Port of pointnet2_tpu/ops/sampling.py:33-132:
 
@@ -6,7 +6,8 @@ Port of pointnet2_tpu/ops/sampling.py:33-132:
   point with the maximum min squared distance to the selected set; ties
   broken by lowest index. Index-producing, no gradient.
 - ``gather_point``: gathers (B,M,C) from (B,N,C) by (B,M) indices, an exact
-  copy (the row gather of ops/grouping.py).
+  copy (the row gather of ops/grouping.py), whose gradient is the
+  scatter-add.
 
 FPS runs its CUDA kernel on CUDA tensors and its plain PyTorch version on
 CPU tensors (``config.use_kernel``); ``fps_kernel.launches`` counts the

@@ -1,0 +1,123 @@
+"""Training state and the optimizers, with optax's semantics.
+
+Port of pointnet2_tpu/train/state.py:12-26. The JAX package's TrainState
+holds (step, params, batch_stats, opt_state); here the model module holds
+the parameters and the BN running statistics, and the optimizer its own
+moments, so the state is (step, model, optimizer).
+
+The optimizers follow optax's update, in its order of float32 operations
+(written out here rather than through ``torch.optim``, whose Adam orders
+the bias correction differently):
+
+- ``adam`` (optax.adam): mu = 0.1*g + 0.9*mu, nu = 0.001*g^2 + 0.999*nu,
+  bias-corrected by 1 - b^t with the count t counted from 1, update
+  mu_hat / (sqrt(nu_hat) + 1e-8), eps outside the sqrt;
+- ``momentum`` (optax.sgd with momentum): trace = g + 0.9*trace, no
+  dampening, no Nesterov;
+- both scale by -lr with lr = ``schedule(count)``, the count of earlier
+  updates (optax's ``count``, 0 at the first step), then add to the
+  parameters.
+
+They run on every parameter tensor at once through ``torch._foreach_*``
+(the multi-tensor kernels ``torch.optim`` itself uses), updating the
+parameters and moments in place.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+_F32 = np.float32
+
+
+def _c(v) -> float:
+    """A python scalar as optax sees it: rounded to float32 first."""
+    return float(_F32(v))
+
+
+class _Optimizer:
+    def __init__(self, params, lr_schedule):
+        self.params = [p for p in params if p.requires_grad]
+        self.lr_schedule = lr_schedule
+        self.count = 0  # updates applied so far (optax's count)
+
+    def _grads(self):
+        grads = []
+        for p in self.params:
+            if p.grad is None:
+                raise RuntimeError("a parameter has no gradient; run "
+                                   "backward before the optimizer step")
+            grads.append(p.grad)
+        return grads
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        lr = _c(self.lr_schedule(self.count))
+        updates = torch._foreach_mul(self._updates(self._grads()), -lr)
+        torch._foreach_add_(self.params, updates)
+        self.count += 1
+
+
+class Adam(_Optimizer):
+    """optax.adam(lr_schedule) with b1 0.9, b2 0.999, eps 1e-8."""
+
+    def __init__(self, params, lr_schedule, b1=0.9, b2=0.999, eps=1e-8):
+        super().__init__(params, lr_schedule)
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def _updates(self, grads):
+        b1, b2 = self.b1, self.b2
+        # mu = (1-b1)*g + b1*mu; nu = (1-b2)*g**2 + b2*nu
+        new_mu = torch._foreach_mul(grads, _c(1 - b1))
+        torch._foreach_add_(new_mu, torch._foreach_mul(self.mu, _c(b1)))
+        sq = torch._foreach_mul(grads, grads)
+        new_nu = torch._foreach_mul(sq, _c(1 - b2))
+        torch._foreach_add_(new_nu, torch._foreach_mul(self.nu, _c(b2)))
+        self.mu, self.nu = new_mu, new_nu
+        t = _F32(self.count + 1)
+        bc1 = float(_F32(1) - np.power(_F32(b1), t))
+        bc2 = float(_F32(1) - np.power(_F32(b2), t))
+        mu_hat = torch._foreach_div(new_mu, bc1)
+        nu_hat = torch._foreach_div(new_nu, bc2)
+        den = torch._foreach_sqrt(nu_hat)
+        torch._foreach_add_(den, _c(self.eps))
+        return torch._foreach_div(mu_hat, den)
+
+
+class Momentum(_Optimizer):
+    """optax.sgd(lr_schedule, momentum=0.9): trace = g + 0.9*trace."""
+
+    def __init__(self, params, lr_schedule, momentum=0.9):
+        super().__init__(params, lr_schedule)
+        self.momentum = momentum
+        self.trace = [torch.zeros_like(p) for p in self.params]
+
+    def _updates(self, grads):
+        self.trace = torch._foreach_mul(self.trace, _c(self.momentum))
+        torch._foreach_add_(self.trace, grads)
+        return self.trace
+
+
+def make_optimizer(name: str, params, lr_schedule, momentum: float = 0.9):
+    """adam | momentum, matching train.py:133-138 (lr is scheduled)."""
+    if name == "adam":
+        return Adam(params, lr_schedule)
+    if name == "momentum":
+        return Momentum(params, lr_schedule, momentum)
+    raise ValueError(f"unknown optimizer {name!r} (want 'adam' or 'momentum')")
+
+
+@dataclass
+class TrainState:
+    step: int
+    model: torch.nn.Module
+    optimizer: _Optimizer

@@ -1,0 +1,257 @@
+"""The trainer: one host loop of train epochs and periodic eval.
+
+Port of pointnet2_tpu/train/trainer.py:44-331,371-441 for one device:
+``TrainConfig`` keeps the JAX package's field names and defaults for what
+is ported (``pointnet2_cls_ssg`` defaults: batch 16, 1024 points, Adam at
+1e-3 on the clipped staircase LR, BN momentum 0.5 -> 0.99). A field that is
+not ported yet (``num_devices``, ``steps_per_call``, ``remat``,
+``watchdog_secs``) raises when given anything but its default.
+
+``Trainer(config, device="cuda")`` runs on the card; without one it raises
+unless ``device="cpu"`` is passed, which runs the plain PyTorch versions of
+the kernels. Each run writes ``config.json`` (never overwritten),
+``log_train.txt`` and ``metrics.jsonl`` into ``log_dir``. Checkpoints and
+resume are not ported yet: ``fit`` saves none.
+
+Usage::
+
+    from pointnet2_tpu_torch.data import SyntheticClassification
+    from pointnet2_tpu_torch.train import TrainConfig, Trainer
+
+    ds = SyntheticClassification(num_classes=40, npoints=1024,
+                                 batch_size=16)
+    with Trainer(TrainConfig(augment="cls", max_epoch=10)) as trainer:
+        state = trainer.fit(ds, eval_dataset=ds)
+    torch.save(state.model.state_dict(), "cls_ssg.pt")  # -> Predictor
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import inspect
+import json
+import os
+import shutil
+import time
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+import torch
+
+from pointnet2_tpu_torch import config as port_config
+from pointnet2_tpu_torch.models import get_spec
+from pointnet2_tpu_torch.train.schedules import (
+    bn_momentum_schedule,
+    exponential_decay_clipped,
+)
+from pointnet2_tpu_torch.train.state import TrainState, make_optimizer
+from pointnet2_tpu_torch.train.steps import (
+    AUGMENTATIONS,
+    eval_counts,
+    run_one_step,
+)
+
+
+@dataclass
+class TrainConfig:
+    model: str = "pointnet2_cls_ssg"
+    num_point: int = 1024
+    batch_size: int = 16
+    max_epoch: int = 251
+    learning_rate: float = 1e-3
+    momentum: float = 0.9
+    optimizer: str = "adam"
+    decay_step: int = 200000
+    decay_rate: float = 0.7
+    bn_init_decay: float = 0.5
+    bn_decay_rate: float = 0.5
+    bn_decay_clip: float = 0.99
+    augment: str = "none"  # none | cls (on the device)
+    host_augment: bool = False  # the dataset's numpy augmentation instead
+    steps_per_call: int = 1  # not ported: one step per dispatch
+    num_devices: int | None = None  # not ported: one device
+    log_dir: str = "log"
+    eval_every: int = 1  # epochs between evals
+    seed: int = 0
+    compute_dtype: str = "float32"  # float32 | bfloat16 (params stay f32)
+    model_kwargs: dict = field(default_factory=dict)
+    watchdog_secs: float | None = None  # not ported
+    remat: str = "none"  # not ported
+
+
+# fields whose other values need code that is not ported yet
+_NOT_PORTED = {"steps_per_call": 1, "num_devices": None,
+               "watchdog_secs": None, "remat": "none"}
+
+
+def _check_config(cfg: TrainConfig) -> None:
+    for name, default in _NOT_PORTED.items():
+        if getattr(cfg, name) != default:
+            raise NotImplementedError(
+                f"TrainConfig.{name}={getattr(cfg, name)!r} is not ported "
+                f"yet; leave it at {default!r}")
+    if cfg.augment not in AUGMENTATIONS:
+        raise NotImplementedError(
+            f"augment={cfg.augment!r} is not ported; ported: "
+            f"{sorted(AUGMENTATIONS)}")
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
+                         f"{cfg.compute_dtype!r}")
+
+
+class Trainer:
+    """Train-epoch / eval-epoch / fit loop around ``run_one_step``."""
+
+    def __init__(self, config: TrainConfig, device="cuda"):
+        self.device = port_config.check_device(device)
+        _check_config(config)
+        self.config = config
+        spec = get_spec(config.model)
+        if spec.task != "cls":
+            raise NotImplementedError(f"task {spec.task!r} is not ported")
+        self.task = spec.task
+        self.model_cls = spec.cls
+        self.loss_fn = spec.loss
+        self.model_kwargs = dict(config.model_kwargs)
+        if config.compute_dtype == "bfloat16":
+            self.model_kwargs.setdefault("dtype", torch.bfloat16)
+        self.lr_schedule = exponential_decay_clipped(
+            config.learning_rate, config.batch_size, config.decay_step,
+            config.decay_rate)
+        self.bn_schedule = bn_momentum_schedule(
+            config.batch_size, config.decay_step, config.bn_init_decay,
+            config.bn_decay_rate, config.bn_decay_clip)
+        self.augment_fn = AUGMENTATIONS[config.augment]
+        # augmentation parameters and dropout masks, on the device
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(config.seed)
+        os.makedirs(config.log_dir, exist_ok=True)
+        self._snapshot_sources()
+        self._log_file = open(os.path.join(config.log_dir, "log_train.txt"),
+                              "a")
+        self._metrics_file = open(
+            os.path.join(config.log_dir, "metrics.jsonl"), "a")
+        self.best_score = -float("inf")
+
+    def _snapshot_sources(self) -> None:
+        """The model's source file and the run's config.json (written once,
+        so a rerun in the same log_dir keeps the first record)."""
+        cfg = self.config
+        src = inspect.getsourcefile(self.model_cls)
+        if src and os.path.isfile(src):
+            shutil.copyfile(src, os.path.join(cfg.log_dir,
+                                              os.path.basename(src)))
+        cfg_path = os.path.join(cfg.log_dir, "config.json")
+        if not os.path.exists(cfg_path):
+            with open(cfg_path, "w") as f:
+                json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+
+    def close(self) -> None:
+        self._log_file.close()
+        self._metrics_file.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # ------------------------------------------------------------------
+    def log(self, msg: str) -> None:
+        print(msg, flush=True)
+        self._log_file.write(msg + "\n")
+        self._log_file.flush()
+
+    def log_metrics(self, **kv: Any) -> None:
+        self._metrics_file.write(json.dumps(kv) + "\n")
+        self._metrics_file.flush()
+
+    # ------------------------------------------------------------------
+    def init_state(self) -> TrainState:
+        """A fresh model (Xavier-uniform dense weights from ``seed``, on the
+        device, in train mode) and optimizer, at step 0."""
+        model = self.model_cls(device=self.device, seed=self.config.seed,
+                               **self.model_kwargs).train()
+        opt = make_optimizer(self.config.optimizer, model.parameters(),
+                             self.lr_schedule, self.config.momentum)
+        return TrainState(step=0, model=model, optimizer=opt)
+
+    def _to_device(self, batch: dict) -> dict:
+        """Upload a host batch; ``nvalid`` becomes a validity mask so the
+        padded rows of a final batch drop out of the loss and counts."""
+        bsz = batch["points"].shape[0]
+        mask = (np.arange(bsz) < batch["nvalid"]).astype(np.float32)
+        return {
+            "points": torch.from_numpy(batch["points"]).to(self.device),
+            "label": torch.from_numpy(batch["label"]).long().to(self.device),
+            "mask": torch.from_numpy(mask).to(self.device),
+        }
+
+    def train_epoch(self, state: TrainState, dataset, epoch: int):
+        losses, accs, n = [], [], 0
+        t0 = time.time()
+        for batch in dataset.epoch(augment=self.config.host_augment):
+            n += batch["nvalid"]
+            metrics = run_one_step(state, self._to_device(batch),
+                                   self.loss_fn, self.bn_schedule,
+                                   self.augment_fn, self.generator)
+            losses.append(metrics["loss"])
+            accs.append(metrics["accuracy"])
+        # one device->host fetch per epoch, not one per step
+        loss = float(torch.stack(losses).mean()) if losses else float("nan")
+        acc = float(torch.stack(accs).mean()) if accs else float("nan")
+        dt = time.time() - t0
+        self.log(f"epoch {epoch}: train loss {loss:.4f} acc {acc:.4f} "
+                 f"({n / max(dt, 1e-9):.1f} ex/s)")
+        self.log_metrics(epoch=epoch, split="train", loss=loss, accuracy=acc,
+                         examples_per_sec=n / max(dt, 1e-9), step=state.step,
+                         learning_rate=float(self.lr_schedule(state.step)),
+                         bn_momentum=float(self.bn_schedule(state.step)))
+        return state
+
+    def eval_epoch(self, state: TrainState, dataset, epoch: int) -> float:
+        """Accuracy and avg-class accuracy (over the classes present) of
+        the eval-mode model, padded rows excluded."""
+        counts = [eval_counts(state.model, self._to_device(b))
+                  for b in dataset.epoch()]
+        state.model.train()
+        if counts:
+            correct, total, cls_c, cls_t = (torch.stack(c).sum(0).cpu()
+                                             for c in zip(*counts))
+            correct, total = float(correct), float(total)
+            cls_c, cls_t = cls_c.numpy(), cls_t.numpy()
+        else:
+            correct = total = 0.0
+            cls_c = cls_t = np.zeros(1)
+        acc = correct / max(total, 1.0)
+        present = cls_t > 0
+        avg_cls = (float(np.mean(cls_c[present] / cls_t[present]))
+                   if present.any() else 0.0)
+        self.log(f"epoch {epoch}: eval accuracy {acc:.4f}")
+        self.log(f"epoch {epoch}: eval avg class acc {avg_cls:.4f}")
+        self.log_metrics(epoch=epoch, split="eval", accuracy=acc,
+                         avg_class_accuracy=avg_cls)
+        return acc
+
+    # ------------------------------------------------------------------
+    def fit(self, train_dataset, eval_dataset=None,
+            max_epoch: int | None = None) -> TrainState:
+        """Train from a fresh state for ``max_epoch`` epochs (the config's
+        by default), evaluating every ``eval_every`` epochs and after the
+        last, and tracking the best eval accuracy in ``best_score``. Saves
+        no checkpoint: checkpoint and resume are not ported yet. Returns
+        the final state; its ``model.state_dict()`` loads into
+        ``Predictor``."""
+        max_epoch = max_epoch or self.config.max_epoch
+        state = self.init_state()
+        every = max(1, self.config.eval_every)
+        for epoch in range(max_epoch):
+            state = self.train_epoch(state, train_dataset, epoch)
+            if eval_dataset is not None and (epoch % every == 0
+                                             or epoch == max_epoch - 1):
+                score = self.eval_epoch(state, eval_dataset, epoch)
+                if score > self.best_score:
+                    self.best_score = score
+                    self.log(f"epoch {epoch}: new best score {score:.4f}")
+        return state

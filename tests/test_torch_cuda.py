@@ -116,3 +116,167 @@ def test_predictor_on_card_matches_cpu(dev, rs):
     cpu = Predictor("pointnet2_cls_ssg", dtype=None, buckets=(4,),
                     device="cpu")
     np.testing.assert_allclose(gpu(pts), cpu(pts), rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the scatter-add kernel and the train path
+# ---------------------------------------------------------------------------
+
+from pointnet2_tpu_torch.ops import grouping  # noqa: E402
+
+
+def _scatter_inputs(rs, dev, B, K, n, C, dtype):
+    g = torch.from_numpy(rs.randn(B, K, C).astype(np.float32)).to(dev, dtype)
+    idx = rs.randint(0, n, (B, K)).astype(np.int32)
+    idx[:, ::5] = 2  # a hot row
+    idx[:, 1::17] = -3  # out of range: adds nothing
+    idx[:, 2::19] = n + 4
+    return g, torch.from_numpy(idx).to(dev)
+
+
+def _check_scatter(got, g, idx, n):
+    """f32: within 1e-5 of the largest row sum (atomic sums in another
+    order); bf16: within one bf16 ulp (2^-7 relative) of the plain
+    version's f32 sum, which is rounded once as the kernel's is."""
+    want = grouping.scatter_rows_plain(g, idx, n)
+    assert got.dtype == g.dtype and got.shape == want.shape
+    tol = 1e-5 if g.dtype == torch.float32 else 2.0 ** -7
+    scale = float(want.float().abs().max()) if want.numel() else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,n,C", [(2, 300, 64, 3), (2, 300, 64, 5),
+                                     (2, 300, 64, 64), (3, 5000, 100, 128),
+                                     (2, 16384, 1024, 64), (1, 40, 7, 200)])
+def test_scatter_kernel_matches_plain_and_is_deterministic(dev, rs, dtype, B,
+                                                           K, n, C):
+    g, idx = _scatter_inputs(rs, dev, B, K, n, C, dtype)
+    before = ops.scatter_rows_kernel.launches
+    got = ops.scatter_rows(g, idx, n)
+    again = ops.scatter_rows(g, idx, n)
+    assert ops.scatter_rows_kernel.launches == before + 2
+    _check_scatter(got, g, idx, n)
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(view), again.view(view))
+
+
+def test_scatter_kernel_edge_cases(dev):
+    g = torch.ones(2, 0, 4, device=dev)
+    out = ops.scatter_rows(g, torch.zeros(2, 0, dtype=torch.int32,
+                                          device=dev), 6)
+    assert out.shape == (2, 6, 4) and not out.any()
+    g = torch.ones(1, 3, 2, device=dev)
+    out = ops.scatter_rows(g, torch.tensor([[-1, 4, 9]], dtype=torch.int32,
+                                           device=dev), 4)
+    assert not out.any()
+    hot = torch.full((1, 4096 * 3 + 5, 8), 0.5, device=dev)
+    out = ops.scatter_rows(hot, torch.full((1, hot.shape[1]), 3,
+                                           dtype=torch.int32, device=dev), 5)
+    assert float(out[0, 3, 0]) == 0.5 * hot.shape[1]
+    assert not out[0, :3].any() and not out[0, 4].any()
+    with pytest.raises(TypeError):
+        ops.scatter_rows_kernel(hot.double(), torch.zeros(
+            1, hot.shape[1], dtype=torch.int32, device=dev), 5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_grad_goes_through_the_scatter_kernel(dev, rs, dtype):
+    pts = torch.from_numpy(rs.randn(2, 300, 64).astype(np.float32)).to(
+        dev, dtype)
+    idx = torch.from_numpy(rs.randint(0, 300, (2, 40, 16)).astype(
+        np.int32)).to(dev)
+    ct = torch.from_numpy(rs.randn(2, 40, 16, 64).astype(np.float32)).to(
+        dev, dtype)
+    x = pts.clone().requires_grad_()
+    before = ops.scatter_rows_kernel.launches
+    ops.group_point(x, idx).backward(ct)
+    assert ops.scatter_rows_kernel.launches == before + 1
+    assert x.grad is not None
+    y = pts.clone().requires_grad_()
+    with config.default_impl("torch"):
+        ops.group_point(y, idx).backward(ct)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(x.grad.float(), y.grad.float(), rtol=tol,
+                               atol=tol * float(y.grad.float().abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_max_pool_grad_first_occurrence_on_card(dev, rs, dtype):
+    x = torch.from_numpy((rs.randint(-3, 4, (4, 64, 32, 16)) * 0.5).astype(
+        np.float32)).to(dev, dtype).requires_grad_()
+    out = ops.max_pool(x, 2)
+    out.backward(torch.ones_like(out))
+    xc = x.detach().cpu().float()
+    first = xc.argmax(2, keepdim=True)  # CPU argmax: first occurrence
+    want = torch.zeros_like(xc).scatter_(2, first, 1.0)
+    torch.testing.assert_close(x.grad.cpu().float(), want, rtol=0, atol=0)
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(
+        1e-30))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_kernels_vs_plain(dev, rs, dtype, tmp_path):
+    """One train step at B=4, N=512 through the kernels and through the
+    plain versions on the card, from the same weights, batch and generator
+    seed. The forward is the same bits (exact gathers, identical indices),
+    so loss and running statistics are equal; gradients differ by the
+    scatter's summation order (atomic index_add_ in the plain path): each
+    within 1e-4 (f32) or 1e-2 (bf16) of its norm."""
+    from pointnet2_tpu_torch.train import TrainConfig, Trainer
+    from pointnet2_tpu_torch.train.steps import run_one_step
+
+    batch = {"points": torch.from_numpy(rs.rand(4, 512, 3).astype(
+        np.float32)).to(dev),
+        "label": torch.from_numpy(rs.randint(0, 40, 4)).to(dev),
+        "mask": torch.ones(4, device=dev)}
+    out = {}
+    for impl in ("auto", "torch"):
+        with Trainer(TrainConfig(log_dir=str(tmp_path / impl),
+                                 compute_dtype=dtype,
+                                 augment="cls"), device=dev) as tr:
+            state = tr.init_state()
+            tr.generator.manual_seed(5)
+            with config.default_impl(impl):
+                m = run_one_step(state, batch, tr.loss_fn, tr.bn_schedule,
+                                 tr.augment_fn, tr.generator)
+            model = state.model
+            out[impl] = (float(m["loss"]),
+                         {k: p.grad.clone() for k, p in
+                          model.named_parameters()},
+                         {k: b.clone() for k, b in model.named_buffers()})
+    (la, ga, ba), (lb, gb, bb) = out["auto"], out["torch"]
+    assert la == lb
+    for k in ba:
+        torch.testing.assert_close(ba[k], bb[k], rtol=0, atol=0, msg=k)
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    for k in ga:
+        if _bn_fed_bias(k):
+            continue
+        assert _rel(ga[k], gb[k]) <= tol, (k, _rel(ga[k], gb[k]))
+
+
+def _bn_fed_bias(name: str) -> bool:
+    """A dense bias that feeds a train-mode BN: BN subtracts the batch mean,
+    so its gradient is zero in exact arithmetic and what either side
+    computes is the rounding residue of cancelling sums, not compared."""
+    return name.endswith("dense.bias") and not name.startswith("fc3.")
+
+
+def test_trainer_on_card_takes_steps(dev, tmp_path):
+    from pointnet2_tpu_torch.data import SyntheticClassification
+    from pointnet2_tpu_torch.train import TrainConfig, Trainer
+
+    ds = SyntheticClassification(num_classes=4, samples_per_class=4,
+                                 npoints=256, batch_size=8)
+    before = ops.scatter_rows_kernel.launches
+    with Trainer(TrainConfig(batch_size=8, augment="cls",
+                             log_dir=str(tmp_path))) as tr:
+        state = tr.fit(ds, eval_dataset=ds, max_epoch=2)
+    assert state.step == 4
+    assert ops.scatter_rows_kernel.launches == before + 2 * state.step
+    assert all(p.device.type == "cuda" for p in state.model.parameters())

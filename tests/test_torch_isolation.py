@@ -22,9 +22,11 @@ _SCRIPT = textwrap.dedent("""
     assert not bad, bad
     import torch
     assert not torch.cuda.is_available()
-    from pointnet2_tpu_torch import Predictor, PointNet2ClsSSG
+    from pointnet2_tpu_torch import (Predictor, PointNet2ClsSSG,
+                                     TrainConfig, Trainer)
     for make in (lambda: Predictor("pointnet2_cls_ssg"),
-                 lambda: PointNet2ClsSSG()):
+                 lambda: PointNet2ClsSSG(),
+                 lambda: Trainer(TrainConfig())):
         try:
             make()
         except RuntimeError as e:

@@ -229,6 +229,19 @@ def test_shared_mlp_finish_first_pooled_matches_jax(rng, features):
 
 
 def test_batchnorm_refuses_train_mode():
+    """Train mode is ported: BatchNorm no longer refuses it, and normalises
+    with the batch's statistics (biased var) while updating the running
+    ones by running*m + batch*(1-m); eval uses and keeps the running
+    ones."""
     bn = tnn.BatchNorm(4)
-    with pytest.raises(NotImplementedError):
-        bn(torch.zeros(2, 4))
+    x = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+    y = bn(x, 0.25)
+    mean, var = x.mean(0), x.var(0, unbiased=False)
+    torch.testing.assert_close(y, (x - mean) / torch.sqrt(var + 1e-3))
+    torch.testing.assert_close(bn.running_mean, 0.75 * mean)
+    torch.testing.assert_close(bn.running_var, 0.25 + 0.75 * var)
+    bn.eval()
+    before = bn.running_mean.clone()
+    with torch.no_grad():
+        bn(x, 0.25)
+    torch.testing.assert_close(bn.running_mean, before, rtol=0, atol=0)
