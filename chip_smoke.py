@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``pointnet2_tpu_torch``).
 
-Drives the port's two paths at full width on one NVIDIA GPU through its
-four hand-written CUDA kernels (FPS, ball query, row gather, row
-scatter-add): serving, ``Predictor("pointnet2_cls_ssg")`` (1024 points, 40
-classes, buckets 1/4/16/64, bf16 and f32, 12-vote ``predict_votes``), and
-training, ``Trainer.fit`` (batch 16, 1024 points, on-device augmentation,
-Adam). Phases:
+Drives the port's paths at full width on one NVIDIA GPU through its five
+hand-written CUDA kernels (FPS, ball query, row gather, row scatter-add,
+three-NN): classifier serving, ``Predictor("pointnet2_cls_ssg")`` (1024
+points, 40 classes, buckets 1/4/16/64, bf16 and f32, 12-vote
+``predict_votes``); training, ``Trainer.fit`` (batch 16, 1024 points,
+on-device augmentation, Adam); and segmentation serving,
+``Predictor("pointnet2_sem_seg")`` (8192-point ScanNet blocks, 21 classes,
+and ``predict_scene`` on a whole room) and ``Predictor("pointnet2_part_seg")``
+(2048 points with normals, 50 parts). Phases:
 
 1. build the kernels from ``pointnet2_tpu_torch/csrc/`` with nvcc, one
    process per source, all at once;
@@ -36,14 +39,29 @@ Adam). Phases:
    weights then serve through ``Predictor.predict_votes``;
 9. time the train step (ms/step, examples/s, device busy share, device
    time by host op, peak memory) and the scatter kernel per launch beside
-   its bound, its plain version and ``Tensor.index_add_``.
+   its bound, its plain version and ``Tensor.index_add_``;
+10. hold the three-NN kernel against its plain version, bit for bit, at
+    every FP shape of the two segmentation models at B=16 (part_seg's FP1
+    has one known point), and check that two launches give the same bits;
+11. serve sem_seg (requests of 1, 16, 64 and 100 blocks, and
+    ``predict_scene`` on a generated room of 100000 points, 6 x 5 m) and
+    part_seg (16 and 64 clouds) in bf16 and f32, each model's run with
+    every launch counter set to 0 just before and read just after;
+    compare with the plain versions on the card at B <= 16, with the CPU
+    on 2 inputs, and ``predict_scene`` kernel vs plain in f32;
+12. time three-NN per launch beside its bound, its plain version and
+    ``cdist`` + ``topk``, ``three_interpolate``, the seg forwards at B=16
+    and 64, ``predict_scene``, peak memory, and a bf16 B=16 forward's
+    device time by op.
 
 Prints the GPU's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
 if any phase fails, if there is no CUDA device, or if the port is not
 beside this script. Weights are random (Xavier-uniform dense weights and
 randomised BN statistics from a seed); clouds are surface samples of
-random primitives, normalised into the unit sphere as ModelNet40's are.
+random primitives, normalised into the unit sphere as ModelNet40's are
+(with their surface normals for part_seg); ScanNet blocks are 1.5 m
+columns of a generated room (floor, ceiling, walls, box furniture).
 
 Usage (from the repository root, one GPU):  python3 chip_smoke.py
 """
@@ -71,15 +89,18 @@ REPLACES = {
     "ball_query": "pointnet2_tpu/ops/pallas/ball_query.py:237",
     "gather_rows": "pointnet2_tpu/ops/pallas/group.py:189",
     "scatter_rows": "pointnet2_tpu/ops/pallas/group.py:227",
+    "three_nn": "pointnet2_tpu/ops/pallas/three_nn.py:67",
 }
 SOURCES = {
     "fps": "pointnet2_tpu_torch/csrc/fps.cu",
     "ball_query": "pointnet2_tpu_torch/csrc/ball_query.cu",
     "gather_rows": "pointnet2_tpu_torch/csrc/gather.cu",
     "scatter_rows": "pointnet2_tpu_torch/csrc/scatter.cu",
+    "three_nn": "pointnet2_tpu_torch/csrc/three_nn.cu",
 }
 BOUND_BY = {"fps": "operations", "ball_query": "operations",
-            "gather_rows": "bytes", "scatter_rows": "bytes"}
+            "gather_rows": "bytes", "scatter_rows": "bytes",
+            "three_nn": "operations"}
 TRAIN_EPOCHS = 4  # per dtype in phase 8
 # the serving path's kernel shapes: (B, N) -> npoint, then the ball query
 # (radius, nsample) and the width of the lifted rows group_point moves
@@ -91,43 +112,58 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def make_clouds(n_clouds: int, n_points: int, seed: int) -> np.ndarray:
+def make_clouds(n_clouds: int, n_points: int, seed: int,
+                normals: bool = False) -> np.ndarray:
     """Surface samples of spheres, boxes, cylinders and tori with random
-    anisotropic scale, centred and normalised into the unit sphere."""
+    anisotropic scale, centred and normalised into the unit sphere:
+    (n_clouds, n_points, 3), or with ``normals`` (n_clouds, n_points, 6)
+    with the unit surface normals (scaled by the inverse scale)."""
     rng = np.random.default_rng(seed)
-    out = np.empty((n_clouds, n_points, 3), np.float32)
+    out = np.empty((n_clouds, n_points, 6 if normals else 3), np.float32)
+    n = n_points
     for i in range(n_clouds):
         kind = i % 4
         if kind == 0:
-            p = rng.normal(size=(n_points, 3))
+            p = rng.normal(size=(n, 3))
             p /= np.linalg.norm(p, axis=1, keepdims=True)
+            nrm = p.copy()
         elif kind == 1:
-            p = rng.uniform(-1, 1, (n_points, 3))
-            face = rng.integers(0, 3, n_points)
-            p[np.arange(n_points), face] = rng.choice([-1.0, 1.0], n_points)
+            p = rng.uniform(-1, 1, (n, 3))
+            face = rng.integers(0, 3, n)
+            side = rng.choice([-1.0, 1.0], n)
+            p[np.arange(n), face] = side
+            nrm = np.zeros((n, 3))
+            nrm[np.arange(n), face] = side
         elif kind == 2:
-            t = rng.uniform(0, 2 * np.pi, n_points)
-            p = np.stack([np.cos(t), np.sin(t), rng.uniform(-1, 1, n_points)],
-                         1)
+            t = rng.uniform(0, 2 * np.pi, n)
+            p = np.stack([np.cos(t), np.sin(t), rng.uniform(-1, 1, n)], 1)
+            nrm = np.stack([np.cos(t), np.sin(t), np.zeros(n)], 1)
         else:
-            t, s = rng.uniform(0, 2 * np.pi, (2, n_points))
+            t, s = rng.uniform(0, 2 * np.pi, (2, n))
             ring = 1.0 + 0.35 * np.cos(s)
             p = np.stack([ring * np.cos(t), ring * np.sin(t),
                           0.35 * np.sin(s)], 1)
-        p = p * rng.uniform(0.4, 1.0, 3)
+            nrm = np.stack([np.cos(s) * np.cos(t), np.cos(s) * np.sin(t),
+                            np.sin(s)], 1)
+        scale = rng.uniform(0.4, 1.0, 3)
+        p = p * scale
         p -= p.mean(0)
-        out[i] = p / np.linalg.norm(p, axis=1).max()
+        out[i, :, :3] = p / np.linalg.norm(p, axis=1).max()
+        if normals:
+            nrm = nrm / scale
+            out[i, :, 3:] = nrm / np.linalg.norm(nrm, axis=1, keepdims=True)
     return out
 
 
-def random_state_dict(torch, seed: int) -> dict:
-    """Seeded weights for pointnet2_cls_ssg: the model's own Xavier-uniform
-    dense weights, then BN scale |s| in [0.5, 1.5] (~20% negative), BN
-    bias, dense bias and running mean ~N(0, 0.1^2), running var in
-    [0.5, 1.5], so that eval BN is not the identity."""
-    from pointnet2_tpu_torch import PointNet2ClsSSG
+def random_state_dict(torch, seed: int,
+                      name: str = "pointnet2_cls_ssg") -> dict:
+    """Seeded weights for a registered model: its own Xavier-uniform dense
+    weights, then BN scale |s| in [0.5, 1.5] (~20% negative), BN bias,
+    dense bias and running mean ~N(0, 0.1^2), running var in [0.5, 1.5],
+    so that eval BN is not the identity."""
+    from pointnet2_tpu_torch import get_model
 
-    sd = PointNet2ClsSSG(device="cpu", seed=seed).state_dict()
+    sd = get_model(name, device="cpu", seed=seed).state_dict()
     g = torch.Generator().manual_seed(seed + 1)
     for key, t in sd.items():
         if key.endswith("norm.weight"):
@@ -358,28 +394,44 @@ def kernel_table(rows: dict, launches: dict, errs: dict) -> list:
 
 
 def profile_device(torch, fn, reps: int, label: str, unit: str,
-                   ours=tuple(REPLACES)) -> None:
+                   ours=tuple(REPLACES), host_us: float | None = None) -> None:
     """Where the device time of `reps` calls of `fn` goes, by
     torch.profiler: device time by host op and by kernel per call, and the
-    share of the wall time the device was busy (the profiler's own cost
-    inflates the wall time)."""
-    from torch.profiler import ProfilerActivity, profile
+    share of the wall time the device was busy under the profiler (whose
+    own cost inflates the wall time) and, given `host_us`, of that
+    unprofiled wall time of one call. One warm-up step runs inside the
+    profiler before the recorded ones (without it the trace loses the
+    first kernels of its window), and the trace's launches of the port's
+    kernels are held against the wrappers' counters."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from pointnet2_tpu_torch import ops
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=reps,
+                                   repeat=1)) as prof:
+        fn()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6 / reps
+        prof.step()
+        before = {k: f.launches for k, f in ops.KERNELS.items()}
+        t0 = time.perf_counter()
+        for i in range(reps):
+            fn()
+            if i == reps - 1:
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6 / reps
+            prof.step()
+    launched = {k: f.launches - before[k] for k, f in ops.KERNELS.items()}
     kernels, ops_ = [], []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
+        if e.key.startswith("ProfilerStep"):  # the schedule's step ranges
+            continue
         if str(e.device_type).endswith("CUDA"):
             kernels.append((us / reps, e.count / reps, e.key))
         elif us > 0:  # a host op, charged with the kernels it launched
@@ -392,6 +444,17 @@ def profile_device(torch, fn, reps: int, label: str, unit: str,
     log(f"  profile {label}: wall {wall_us:.1f} us/{unit} under the "
         f"profiler, device busy {busy:.1f} us ({busy / wall_us:.1%}), "
         f"{sum(r[1] for r in kernels):.0f} device ops/{unit}")
+    if host_us is not None:
+        log(f"   device busy {busy / host_us:.1%} of the unprofiled "
+            f"{host_us:.1f} us/{unit} (idle {1 - busy / host_us:.1%})")
+    seen = {k: round(sum(r[1] for r in kernels if f"{k}_kernel" in r[2])
+                     * reps) for k in ours}
+    missed = {k: (seen[k], launched[k]) for k in ours
+              if seen[k] != launched[k]}
+    log("   the trace saw every launch of the port's kernels" if not missed
+        else "   the trace saw " + ", ".join(
+            f"{k} {s} of {n}" for k, (s, n) in missed.items())
+        + " launches: its device times are short by the missed ones")
     for title, rows in (("by host op", ops_), ("by kernel", kernels)):
         log(f"   device time {title} (us/{unit}, calls/{unit}):")
         for us, count, key in sorted(rows, reverse=True)[:12]:
@@ -689,6 +752,325 @@ def time_train(torch, dev, gpu: str, rows: dict, log_dir: str) -> None:
                 "roofline")
 
 
+# --- the segmentation serving path -------------------------------------------
+
+SEM, PART = "pointnet2_sem_seg", "pointnet2_part_seg"
+SEM_N, PART_N = 8192, 2048  # points per ScanNet block / ShapeNet-part cloud
+# launches per forward of each model's main path
+SEG_PER_FWD = {SEM: {"fps": 4, "ball_query": 4, "gather_rows": 12,
+                     "scatter_rows": 0, "three_nn": 4},
+               PART: {"fps": 2, "ball_query": 2, "gather_rows": 7,
+                      "scatter_rows": 0, "three_nn": 3}}
+
+
+def make_room(n_points: int, seed: int, size=(6.0, 5.0, 2.7)) -> np.ndarray:
+    """A generated room of about n_points surface samples, z up, metres:
+    floor, ceiling, four walls and 8 boxes of furniture standing on the
+    floor, sampled uniformly by area."""
+    rng = np.random.default_rng(seed)
+    W, D, H = size
+    boxes = []
+    for _ in range(8):
+        w, d = rng.uniform(0.4, 1.6, 2)
+        h = rng.uniform(0.4, 1.9)
+        x, y = rng.uniform(0.1, W - w - 0.1), rng.uniform(0.1, D - d - 0.1)
+        boxes.append((x, y, w, d, h))
+    # (origin, edge u, edge v) of every rectangle
+    rects = [((0, 0, 0), (W, 0, 0), (0, D, 0)),  # floor
+             ((0, 0, H), (W, 0, 0), (0, D, 0)),  # ceiling
+             ((0, 0, 0), (W, 0, 0), (0, 0, H)),
+             ((0, D, 0), (W, 0, 0), (0, 0, H)),
+             ((0, 0, 0), (0, D, 0), (0, 0, H)),
+             ((W, 0, 0), (0, D, 0), (0, 0, H))]
+    for x, y, w, d, h in boxes:
+        rects += [((x, y, h), (w, 0, 0), (0, d, 0)),
+                  ((x, y, 0), (w, 0, 0), (0, 0, h)),
+                  ((x, y + d, 0), (w, 0, 0), (0, 0, h)),
+                  ((x, y, 0), (0, d, 0), (0, 0, h)),
+                  ((x + w, y, 0), (0, d, 0), (0, 0, h))]
+    o, u, v = (np.array([r[k] for r in rects], np.float64) for k in range(3))
+    area = np.linalg.norm(np.cross(u, v), axis=1)
+    which = rng.choice(len(rects), n_points, p=area / area.sum())
+    a, b = rng.uniform(0, 1, (2, n_points, 1))
+    pts = o[which] + a * u[which] + b * v[which]
+    pts += rng.normal(0, 0.005, pts.shape)  # scanner noise
+    return pts.astype(np.float32)
+
+
+def room_blocks(room: np.ndarray, n_blocks: int, seed: int) -> np.ndarray:
+    """(n_blocks, 8192, 3) training-style ScanNet blocks: the points of a
+    random 1.5 m column of the room, sampled to 8192 (with replacement
+    where the column holds fewer), in room coordinates."""
+    rng = np.random.default_rng(seed)
+    lo, hi = room.min(0), room.max(0)
+    out = np.empty((n_blocks, SEM_N, 3), np.float32)
+    for i in range(n_blocks):
+        c = rng.uniform(lo[:2] + 0.75, hi[:2] - 0.75)
+        inside = np.flatnonzero((np.abs(room[:, :2] - c) <= 0.75).all(1))
+        pick = rng.choice(inside, SEM_N, replace=len(inside) < SEM_N)
+        out[i] = room[pick]
+    return out
+
+
+def fp_shapes(torch, dev, blocks: np.ndarray, parts: np.ndarray) -> list:
+    """The (unknown, known) clouds of every FP of the two models on these
+    inputs, from the FPS chain through the kernels: sem_seg fp1-fp4, then
+    part_seg fp1 (the group_all centre, M=1), fp2, fp3."""
+    from pointnet2_tpu_torch import ops
+
+    out = []
+    for name, pc, npoints in ((SEM, blocks, (1024, 256, 64, 16)),
+                              (PART, parts, (512, 128))):
+        levels = [torch.from_numpy(np.ascontiguousarray(pc[..., :3])).to(dev)]
+        for npt in npoints:
+            levels.append(ops.gather_rows_kernel(
+                levels[-1], ops.fps_kernel(levels[-1], npt)))
+        if name == PART:  # the group_all centre
+            levels.append(torch.zeros_like(levels[-1][:, :1]))
+        for k in range(len(levels) - 1, 0, -1):
+            out.append((f"{name[10:]} fp{len(levels) - k}", levels[k - 1],
+                        levels[k]))
+    return out
+
+
+def check_three_nn(torch, shapes: list, check: Checks, errs: dict) -> None:
+    """Phase 10: the three_nn kernel against its plain version at every FP
+    shape, bit for bit, and two launches give the same bits."""
+    from pointnet2_tpu_torch.ops import interpolate
+
+    log("phase 10: three_nn kernel vs plain version on the card, every FP "
+        "shape at B=16")
+    for tag, xyz1, xyz2 in shapes:
+        d, i = interpolate.three_nn_kernel(xyz1, xyz2)
+        d2, i2 = interpolate.three_nn_kernel(xyz1, xyz2)
+        wd, wi = interpolate.three_nn_plain(xyz1, xyz2)
+        same = (torch.equal(i, wi) and torch.equal(d.view(torch.int32),
+                                                   wd.view(torch.int32)))
+        again = torch.equal(i, i2) and torch.equal(d.view(torch.int32),
+                                                   d2.view(torch.int32))
+        errs["three_nn"] = max(errs["three_nn"],
+                               int((i - wi).abs().max()),
+                               float((d - wd).nan_to_num(0.0).abs().max()))
+        zero = float((d[..., 0] == 0).float().mean())
+        check(same and again, f"three_nn {tag} N={xyz1.shape[1]} "
+              f"M={xyz2.shape[1]}: bit-identical to plain, two launches "
+              f"equal ({zero:.1%} of nearest distances exactly 0)")
+    torch.cuda.synchronize()
+
+
+def drive_seg(torch, preds: dict, blocks, parts, room) -> dict:
+    """Phase 11's main-path runs, one per model, each from the launch
+    counters' zero: sem_seg requests of 1, 16, 64 and 100 blocks and
+    predict_scene on the room (bf16) and part_seg requests of 16 and 64
+    clouds, each in bf16 and f32. Returns outputs, launches and forward
+    calls by model."""
+    from pointnet2_tpu_torch import ops
+
+    out = {"launches": {}, "forwards": {}}
+    for name, reqs, data in ((SEM, (1, 16, 64, 100), blocks),
+                             (PART, (16, 64), parts)):
+        for w in ops.KERNELS.values():
+            w.launches = 0
+        before = {dt: preds[(name, dt)].calls[0] for dt in ("bf16", "f32")}
+        for dt in ("bf16", "f32"):
+            for b in reqs:
+                out[(name, dt, b)] = preds[(name, dt)].pred(data[:b])
+        if name == SEM:
+            out["scene"] = preds[(SEM, "bf16")].pred.predict_scene(
+                room, seed=SEED)
+        torch.cuda.synchronize()
+        out["launches"][name] = {k: w.launches for k, w in ops.KERNELS.items()}
+        out["forwards"][name] = sum(preds[(name, dt)].calls[0] - before[dt]
+                                    for dt in ("bf16", "f32"))
+    return out
+
+
+class Served:
+    """A Predictor and the count of its model's forward calls."""
+
+    def __init__(self, name, sd, dtype):
+        from pointnet2_tpu_torch import Predictor
+
+        self.pred = Predictor(name, sd, dtype=dtype)
+        self.calls = [0]  # incremented by a forward hook on the model
+        self.pred.model.register_forward_hook(
+            lambda *_: self.calls.__setitem__(0, self.calls[0] + 1))
+
+
+def close(got, want, rel: float) -> tuple:
+    """(max abs diff, range of want, whether within rel of the range)."""
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    return err, scale, err <= rel * scale
+
+
+def check_seg(torch, preds, run, blocks, parts, room, sds,
+              check: Checks) -> None:
+    """Phase 11's checks on the main-path run."""
+    from pointnet2_tpu_torch import Predictor, config
+
+    for name, per in SEG_PER_FWD.items():
+        n = run["forwards"][name]
+        got = run["launches"][name]
+        log(f"  {name}: launches in its main-path run ({n} forwards): {got}")
+        for k, per_fwd in per.items():
+            check(got[k] == per_fwd * n,
+                  f"{name}: {k} launched {per_fwd} times per forward")
+    K = {SEM: 21, PART: 50}
+    for key, lg in run.items():
+        if isinstance(key, tuple):
+            name, _, b = key
+            n_pts = SEM_N if name == SEM else PART_N
+            check(lg.shape == (b, n_pts, K[name])
+                  and bool(np.isfinite(lg).all()),
+                  f"{key}: shape {lg.shape}, finite")
+    # kernel path vs the same requests on the plain versions at B <= 16:
+    # identical indices and exact gathers, so expected difference 0; bound
+    # 1e-5 of the range for a cuBLAS algorithm choice that might differ
+    with config.default_impl("torch"):
+        for (name, dt), sv in preds.items():
+            data = blocks if name == SEM else parts
+            for b in ((1, 16) if name == SEM else (16,)):
+                want = sv.pred(data[:b])
+                got = run[(name, dt, b)]
+                err, scale, ok = close(got, want, 1e-5)
+                agree = bool((got.argmax(-1) == want.argmax(-1)).all())
+                check(ok and agree, f"{name} {dt} B={b}: kernel vs plain max "
+                      f"abs diff {err:.3e} (logit range {scale:.3f}), argmax "
+                      "agrees")
+    # f32 on the card vs the CPU's plain path, 2 inputs: geometry bit for
+    # bit, matmul order differs; bound 1e-4 of the range as the CPU tests
+    for name, data in ((SEM, blocks), (PART, parts)):
+        cpu = Predictor(name, sds[name], dtype=torch.float32, device="cpu")
+        err, scale, ok = close(run[(name, "f32", 16)][:2], cpu(data[:2]), 1e-4)
+        check(ok, f"{name} f32 on the card vs the CPU, 2 inputs: max abs "
+              f"diff {err:.3e} (range {scale:.3f})")
+        err, scale, ok = close(run[(name, "bf16", 64)],
+                               run[(name, "f32", 64)], 0.05)
+        check(ok, f"{name} bf16 vs f32, 64 inputs: max abs diff {err:.3e} "
+              f"(range {scale:.3f})")
+
+    scene = run["scene"]
+    n = len(room)
+    log(f"  predict_scene on a room of {n} points: votes per point "
+        f"{int(scene['votes'].min())}-{int(scene['votes'].max())}, mean "
+        f"{scene['votes'].mean():.2f}")
+    again = preds[(SEM, "bf16")].pred.predict_scene(room, seed=SEED)
+    check(scene["logits"].shape == (n, 21) and scene["labels"].shape == (n,)
+          and int(scene["votes"].min()) >= 1
+          and all(np.array_equal(scene[k], again[k]) for k in scene),
+          "predict_scene bf16: every point votes >= 1, finite "
+          f"{bool(np.isfinite(scene['logits']).all())}, the same for the "
+          "same seed")
+    # f32, kernel path vs plain path, buckets up to 16 so the plain
+    # versions run at B <= 16
+    f32 = Predictor(SEM, sds[SEM], dtype=torch.float32, buckets=(1, 4, 16))
+    a = f32.predict_scene(room, seed=SEED)
+    with config.default_impl("torch"):
+        b = f32.predict_scene(room, seed=SEED)
+    err, scale, ok = close(a["logits"], b["logits"], 1e-5)
+    top2 = np.sort(b["logits"], -1)[:, -2:]
+    sure = top2[:, 1] - top2[:, 0] > 2e-5 * scale
+    check(np.array_equal(a["votes"], b["votes"]) and ok
+          and np.array_equal(a["labels"][sure], b["labels"][sure]),
+          f"predict_scene f32 kernel vs plain: votes equal, summed logits "
+          f"max abs diff {err:.3e} (range {scale:.3f}), labels equal on "
+          f"the {sure.mean():.1%} of points whose top-2 margin exceeds 2e-5 "
+          "of the range")
+    torch.cuda.synchronize()
+
+
+def time_seg(torch, gpu: str, preds, shapes, blocks, parts, room,
+             rows: dict) -> None:
+    """Phase 12: three_nn per launch at every FP shape beside its bound,
+    its plain version and cdist + topk; three_interpolate at sem_seg fp4;
+    seg forwards, predict_scene, peak memory, and where a bf16 B=16
+    forward's device time goes."""
+    from pointnet2_tpu_torch import ops
+    from pointnet2_tpu_torch.ops import interpolate
+
+    log(f"phase 12: three_nn per launch at B=16 on {gpu} (kernel and "
+        "cdist+topk with the queue pre-filled, plain with the host in the "
+        "loop; cdist+topk computes Euclidean, not squared, distances and is "
+        "a yardstick only)")
+    for tag, xyz1, xyz2 in shapes:
+        B, N, M = xyz1.shape[0], xyz1.shape[1], xyz2.shape[1]
+        dist = torch.empty((B, N, 3), device=xyz1.device)
+        idx = torch.empty((B, N, 3), dtype=torch.int32, device=xyz1.device)
+        ms = event_ms(torch, lambda: interpolate.launch_three_nn(
+            xyz1, xyz2, dist, idx), 50, prefill=True)
+        plain = event_ms(torch, lambda: interpolate.three_nn_plain(xyz1, xyz2),
+                         5)
+        k = min(3, M)
+        library = event_ms(torch, lambda: torch.topk(
+            torch.cdist(xyz1, xyz2), k, largest=False), 50, prefill=True)
+        ops_ = B * N * M * 9  # 3 sub, 3 mul, 2 add, 1 compare per pair
+        byts = (xyz1.numel() + xyz2.numel()) * 4 + B * N * 3 * 8
+        bound = max(ops_ / F32_OPS_PER_S, byts / HBM_BYTES_PER_S) * 1e3
+        shape = f"{tag} ({B},{N},3) x ({B},{M},3)"
+        if tag.startswith("sem"):  # the table holds the sem_seg forward
+            add_time(rows, "three_nn", shape, ms, plain, bound, library)
+        else:
+            log(f"  {'three_nn':<12} {shape:<44} kernel {ms:.6f} ms  plain "
+                f"{plain:.6f} ms  bound {bound:.6f} ms library "
+                f"{library:.6f} ms")
+        # F32_OPS_PER_S counts an FMA as two operations; sq_dist forbids
+        # contraction, so this kernel issues at most half that rate
+        log(f"  three_nn {tag}: {bound / ms:.1%} of the operations roofline "
+            f"at {F32_OPS_PER_S:.3g} op/s (an FMA counted as two); "
+            f"{2 * bound / ms:.1%} of the {F32_OPS_PER_S / 2:.3g} op/s "
+            "without FMA")
+
+    # three_interpolate at sem_seg fp4 (B=16, bf16, the 128-wide lifted
+    # rows): one gather of the (B, 3N, C) rows, then the f32 combine
+    _, xyz1, xyz2 = shapes[3]
+    d, i = ops.three_nn(xyz1, xyz2)
+    w = 1.0 / d.clamp_min(1e-10)
+    w = w / w.sum(-1, keepdim=True)
+    g = torch.Generator(device=xyz1.device).manual_seed(SEED + 12)
+    rows_ = torch.randn((16, xyz2.shape[1], 128), generator=g,
+                        device=xyz1.device).bfloat16()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = event_ms(torch, lambda: ops.three_interpolate(rows_, i, w), 20)
+    extra = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    inter = 16 * 3 * xyz1.shape[1] * 128 * 2 / 2 ** 20
+    log(f"  three_interpolate sem fp4 (16,{xyz1.shape[1]},3) from "
+        f"(16,{xyz2.shape[1]},128) bf16: {ms:.6f} ms a call, its gathered "
+        f"(B,3N,C) rows {inter:.1f} MiB, peak extra device memory "
+        f"{extra:.1f} MiB")
+
+    log(f"phase 12: segmentation serving times (host clock, numpy in and "
+        f"out) on {gpu}")
+    host = {}
+    for (name, dt), sv in preds.items():
+        data = blocks if name == SEM else parts
+        for b in (16, 64):
+            ms = host[name, dt, b] = host_ms(torch,
+                                             lambda: sv.pred(data[:b]), 10)
+            torch.cuda.reset_peak_memory_stats()
+            sv.pred(data[:b])
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"  {name} {dt} B={b}: {ms:.3f} ms, {b / ms * 1e3:.1f} "
+                f"inputs/s, peak device memory {peak:.2f} GiB")
+    pred = preds[(SEM, "bf16")].pred
+    torch.cuda.reset_peak_memory_stats()
+    ms = host_ms(torch, lambda: pred.predict_scene(room, seed=SEED), 3,
+                 warmup=1)
+    log(f"  predict_scene bf16, room of {len(room)} points: {ms:.3f} ms, "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        " GiB")
+    log(f"phase 12: where a bf16 B=16 forward's device time goes "
+        f"(torch.profiler) on {gpu}")
+    for name, data in ((SEM, blocks), (PART, parts)):
+        sv = preds[(name, "bf16")]
+        profile_device(torch, lambda: sv.pred(data[:16]), 3,
+                       f"{name} bf16 B=16", "forward",
+                       host_us=host[name, "bf16", 16] * 1e3)
+
+
 def main() -> int:
     try:
         import torch
@@ -722,7 +1104,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s into {_build.BUILD_DIR.name}/")
 
     errs = {"fps": 0, "ball_query": 0, "gather_rows": 0.0,
-            "scatter_rows": 0.0}
+            "scatter_rows": 0.0, "three_nn": 0}
     for B in (16, 768):
         check_kernels(torch, dev, B, check, errs)
 
@@ -833,8 +1215,28 @@ def main() -> int:
     fit = train_fit(torch, check, log_dir)
     serve_trained(torch, fit["state"], clouds, check)
     time_train(torch, dev, gpu, rows, log_dir)
-    # launches of each kernel over both main-path runs (serving, training)
-    launches = {k: launches[k] + fit["counts"][k] for k in REPLACES}
+
+    t0 = time.perf_counter()
+    room = make_room(100_000, SEED + 10)
+    blocks = room_blocks(room, 100, SEED + 11)
+    parts = make_clouds(64, PART_N, SEED + 12, normals=True)
+    log(f"  generated a room of {len(room)} points, 100 blocks of {SEM_N} "
+        f"and 64 part clouds of {PART_N} in {time.perf_counter() - t0:.2f} s")
+    shapes = fp_shapes(torch, dev, blocks[:16], parts[:16])
+    check_three_nn(torch, shapes, check, errs)
+    log("phase 11: serve pointnet2_sem_seg (N=8192) and pointnet2_part_seg "
+        "(N=2048, normals) through the kernels")
+    sds = {name: random_state_dict(torch, SEED, name) for name in (SEM, PART)}
+    preds = {(name, dt): Served(name, sds[name], t)
+             for name in (SEM, PART)
+             for dt, t in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    seg = drive_seg(torch, preds, blocks, parts, room)
+    check_seg(torch, preds, seg, blocks, parts, room, sds, check)
+    time_seg(torch, gpu, preds, shapes, blocks, parts, room, rows)
+    # launches of each kernel over every main-path run (classifier serving,
+    # training, sem_seg serving, part_seg serving)
+    launches = {k: launches[k] + fit["counts"][k] + seg["launches"][SEM][k]
+                + seg["launches"][PART][k] for k in REPLACES}
     table = kernel_table(rows, launches, errs)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -9,17 +9,28 @@ or launched at import.
 Ported so far: ``pointnet2_cls_ssg`` with its bucketed serving
 ``Predictor`` and its training (``train.Trainer``: on-device augmentation,
 train-mode BN and dropout, the scatter-add gradient of the row gather,
-Adam or momentum on the scheduled LR).
+Adam or momentum on the scheduled LR); the segmentation models
+``pointnet2_sem_seg`` and ``pointnet2_part_seg`` with their serving
+(per-point logits from ``Predictor``, whole scenes from
+``Predictor.predict_scene``).
 """
 
 from pointnet2_tpu_torch.convert import flax_to_torch
-from pointnet2_tpu_torch.models import MODEL_REGISTRY, PointNet2ClsSSG, get_model
+from pointnet2_tpu_torch.models import (
+    MODEL_REGISTRY,
+    PointNet2ClsSSG,
+    PointNet2PartSeg,
+    PointNet2SemSeg,
+    get_model,
+)
 from pointnet2_tpu_torch.serving import Predictor
 from pointnet2_tpu_torch.train import TrainConfig, Trainer
 
 __all__ = [
     "MODEL_REGISTRY",
     "PointNet2ClsSSG",
+    "PointNet2PartSeg",
+    "PointNet2SemSeg",
     "Predictor",
     "TrainConfig",
     "Trainer",

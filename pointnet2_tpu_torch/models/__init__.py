@@ -11,21 +11,32 @@ from dataclasses import dataclass
 from typing import Any
 
 from pointnet2_tpu_torch.models.cls_ssg import PointNet2ClsSSG
-from pointnet2_tpu_torch.models.losses import classification_loss
+from pointnet2_tpu_torch.models.losses import (
+    classification_loss,
+    segmentation_loss,
+    weighted_segmentation_loss,
+)
+from pointnet2_tpu_torch.models.part_seg import PointNet2PartSeg
+from pointnet2_tpu_torch.models.sem_seg import PointNet2SemSeg
 
-__all__ = ["MODEL_REGISTRY", "ModelSpec", "PointNet2ClsSSG", "get_model"]
+__all__ = ["MODEL_REGISTRY", "ModelSpec", "PointNet2ClsSSG",
+           "PointNet2PartSeg", "PointNet2SemSeg", "get_model"]
 
 
 @dataclass(frozen=True)
 class ModelSpec:
     cls: type
     loss: Callable
-    task: str  # "cls"
+    task: str  # "cls" | "part_seg" | "sem_seg"
 
 
 MODEL_REGISTRY: dict[str, ModelSpec] = {
     "pointnet2_cls_ssg": ModelSpec(PointNet2ClsSSG, classification_loss,
                                    "cls"),
+    "pointnet2_part_seg": ModelSpec(PointNet2PartSeg, segmentation_loss,
+                                    "part_seg"),
+    "pointnet2_sem_seg": ModelSpec(PointNet2SemSeg,
+                                   weighted_segmentation_loss, "sem_seg"),
 }
 
 

@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from pointnet2_tpu_torch import config
-from pointnet2_tpu_torch.nn.layers import Dense, DenseBN
+from pointnet2_tpu_torch.nn.layers import DenseBN, init_dense
 from pointnet2_tpu_torch.nn.pointnet import SetAbstraction
 
 
@@ -73,10 +73,7 @@ class PointNet2ClsSSG(nn.Module):
         # in the promotion of its bf16 input and its f32 weights
         self.fc3 = DenseBN(256, num_classes, bn=False, relu=False)
 
-        gen = torch.Generator().manual_seed(seed)
-        for m in self.modules():
-            if isinstance(m, Dense):
-                m.reset_parameters(gen)
+        init_dense(self, seed)
         self.to(device)
         self.eval()
 

@@ -51,6 +51,24 @@ class Dense(nn.Linear):
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
+    def forward_columns(self, x: torch.Tensor, start: int, stop: int,
+                        bias: bool = True) -> torch.Tensor:
+        """The dense on the input features [start, stop) alone, ``x @
+        W[:, start:stop]^T`` plus the bias if ``bias``: a split of the dense
+        around a concat, without multiplying the other block's zeros."""
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        b = self.bias.to(dt) if bias else None
+        return F.linear(x.to(dt), self.weight[:, start:stop].to(dt), b)
+
+
+def init_dense(model: nn.Module, seed: int) -> None:
+    """Xavier-uniform weights and zero biases for every Dense of `model`,
+    drawn in module order from one generator seeded with `seed`."""
+    gen = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, Dense):
+            m.reset_parameters(gen)
+
 
 def _stat_dtype(x: torch.Tensor) -> torch.dtype:
     """BN arithmetic runs in at least float32: f32 for bf16 and f32 inputs

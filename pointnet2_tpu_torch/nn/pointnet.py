@@ -1,15 +1,18 @@
-"""PointNet++ set abstraction, train and eval forward.
+"""PointNet++ set abstraction and feature propagation, train and eval
+forward.
 
-Port of pointnet2_tpu/nn/pointnet.py:74-234 for what the single-scale
-classifier runs: the ``fuse_first`` layout with max pooling, and the
-group_all module. The first MLP layer's dense is linear, so it commutes
-with the neighbour gather and the centre subtraction:
+Port of pointnet2_tpu/nn/pointnet.py:74-234,330-398 for what the
+single-scale models run: the ``fuse_first`` layout with max pooling, the
+group_all module, and feature propagation. The first MLP layer's dense is
+linear, so it commutes with the neighbour gather and the centre
+subtraction:
 
     Dense(concat[gather(xyz) - c, gather(pts)])
       == gather(Dense(concat[xyz, pts])) - c @ W_xyz
 
 The dense therefore runs on the N un-gathered points, the gather moves
-mlp[0]-wide rows, and only BN+ReLU touch the grouped tensor.
+mlp[0]-wide rows, and only BN+ReLU touch the grouped tensor. Feature
+propagation splits its first dense the same way around the interpolation.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from pointnet2_tpu_torch.ops import (
     group_point,
     max_pool,
     query_ball_point,
+    three_interpolate,
+    three_nn,
 )
 
 
@@ -133,3 +138,46 @@ class SetAbstraction(nn.Module):
         else:
             new_points = max_pool(self.mlp_mod(new_points, bn_momentum), 2)
         return new_xyz, new_points, idx
+
+
+class FeaturePropagation(nn.Module):
+    """PointNet++ FP module: inverse-distance 3-NN upsampling of the known
+    points' features to the unknown points, a skip connection, and a
+    shared MLP (pointnet2_tpu/nn/pointnet.py:330-398, ``fuse_first``).
+
+    ``known_channels`` is C2, the width of ``points2``; ``skip_channels``
+    is C1, the width of ``points1`` (0 without a skip). The child is named
+    ``mlp``, as the Flax scope, and keeps one first dense of width C2 + C1
+    (the state_dict matches Flax's). That dense is applied by column
+    slices: ``p2 @ W[:, :C2]^T + b`` on the M known points, interpolated,
+    plus ``p1 @ W[:, C2:]^T`` on the N unknown points. The interpolation
+    weights sum to 1, so this equals the dense on the concat up to float
+    reassociation, and the bias counts once.
+
+    forward(xyz1 (B,N,3), xyz2 (B,M,3), points1 (B,N,C1) | None,
+    points2 (B,M,C2)) -> (B, N, mlp[-1])."""
+
+    def __init__(self, known_channels: int, skip_channels: int,
+                 mlp: Sequence[int], dtype=None):
+        super().__init__()
+        self.known_channels = known_channels
+        self.dtype = dtype
+        self.mlp = SharedMLP(known_channels + skip_channels, mlp, dtype=dtype)
+
+    def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor,
+                points1: torch.Tensor | None, points2: torch.Tensor,
+                bn_momentum=0.9) -> torch.Tensor:
+        dist, idx = three_nn(xyz1, xyz2)
+        # no gradient into the weights: the reference defines none
+        dist = torch.clamp_min(dist, 1e-10)
+        inv = 1.0 / dist
+        weight = inv / ((inv[..., 0:1] + inv[..., 1:2]) + inv[..., 2:3])
+        dt = self.dtype or points2.dtype
+        dense = self.mlp.blocks[0].dense
+        c2 = self.known_channels
+        lifted2 = dense.forward_columns(points2.to(dt), 0, c2)
+        pre = three_interpolate(lifted2, idx, weight).to(dt)
+        if points1 is not None:
+            pre = pre + dense.forward_columns(points1.to(dt), c2,
+                                              dense.in_features, bias=False)
+        return self.mlp.finish_first(pre, bn_momentum)

@@ -1,5 +1,6 @@
 """Point ops of the port: FPS, ball query, row gathers with their
-scatter-add gradient, and max pooling.
+scatter-add gradient, max pooling, and the three-NN search and
+interpolation of feature propagation.
 
 ``KERNELS`` names each hand-written CUDA kernel's wrapper; a wrapper's
 ``launches`` attribute counts its launches.
@@ -13,6 +14,11 @@ from pointnet2_tpu_torch.ops.grouping import (
     scatter_rows,
     scatter_rows_kernel,
 )
+from pointnet2_tpu_torch.ops.interpolate import (
+    three_interpolate,
+    three_nn,
+    three_nn_kernel,
+)
 from pointnet2_tpu_torch.ops.pooling import max_pool
 from pointnet2_tpu_torch.ops.sampling import (
     farthest_point_sample,
@@ -25,6 +31,7 @@ KERNELS = {
     "ball_query": ball_query_kernel,
     "gather_rows": gather_rows_kernel,
     "scatter_rows": scatter_rows_kernel,
+    "three_nn": three_nn_kernel,
 }
 
 __all__ = [
@@ -35,4 +42,6 @@ __all__ = [
     "max_pool",
     "query_ball_point",
     "scatter_rows",
+    "three_interpolate",
+    "three_nn",
 ]

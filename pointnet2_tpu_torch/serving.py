@@ -1,6 +1,6 @@
 """Bucketed inference endpoint on the card.
 
-Port of pointnet2_tpu/serving.py:42-226:
+Port of pointnet2_tpu/serving.py:42-293:
 
 - parameters and BN statistics live on the device;
 - requests of any batch size are padded up to a fixed set of bucket sizes
@@ -11,13 +11,19 @@ Port of pointnet2_tpu/serving.py:42-226:
 - ``predict_votes`` applies the reference's vote-ensembling protocol
   (per-vote point-order shuffle + up-axis rotation, summed logits —
   evaluate.py:126-141). By default the batch is uploaded once with the
-  (V, N) permutations and the V views are built and scored on the card.
+  (V, N) permutations and the V views are built and scored on the card;
+- segmentation models give per-point logits, and ``predict_scene`` labels
+  every point of a whole scene through the same bucketed path.
 
 Usage::
 
     predictor = Predictor("pointnet2_cls_ssg", variables)  # on CUDA
     logits = predictor(points)                     # (B, 40) float32
     summed = predictor.predict_votes(points, 12)   # vote ensemble
+
+    seg = Predictor("pointnet2_sem_seg", variables)
+    logits = seg(blocks)                           # (B, 8192, 21) float32
+    scene = seg.predict_scene(room_xyz)            # labels, logits, votes
 """
 
 from __future__ import annotations
@@ -117,11 +123,14 @@ class Predictor:
         return self._model(x).float().cpu().numpy()[:b]
 
     def __call__(self, points) -> np.ndarray:
-        """points: (B, N, C) float. Returns float32 logits (B, K)."""
+        """points: (B, N, C) float. Returns float32 logits, (B, K) for a
+        classifier and (B, N, K) for a segmentation model."""
         points = np.asarray(points, np.float32)
         b = points.shape[0]
         if b == 0:
-            return np.zeros((0, self._model.num_classes), np.float32)
+            per_point = () if self.task == "cls" else points.shape[1:2]
+            return np.zeros((0, *per_point, self._model.num_classes),
+                            np.float32)
         max_bucket = self._buckets[-1]
         if b <= max_bucket:
             return self._run_padded(points)
@@ -180,3 +189,66 @@ class Predictor:
             summed = self._vote_apply(x, perms)
             out.append(summed.cpu().numpy().astype(np.float64)[:b])
         return np.concatenate(out, axis=0)
+
+    def predict_scene(self, points, npoints: int = 8192,
+                      seed: int = 0) -> dict:
+        """Segment a whole scene, (n, C) points with xyz first, through the
+        bucketed fixed-shape path (pointnet2_tpu/serving.py:228-293).
+
+        The scene is tiled into 1.5 m columns with 0.2 m overlap
+        (``data.scannet.block_members``). Every member point is scored:
+        each block's members are shuffled, padded to a multiple of
+        `npoints` with rows drawn from the block, and chunked. Overlap
+        points get logit votes from up to 4 blocks, summed before the
+        argmax. The draws from ``default_rng(seed)`` (a shuffle per block,
+        then its pad) are the JAX package's, in its order, so the chunks
+        and the votes are the same.
+
+        Returns {"labels" (n,) int32, "logits" (n, K) float32, "votes" (n,)
+        int32, the number of blocks that scored each point}.
+        """
+        if self.task != "sem_seg":
+            raise ValueError("predict_scene is for sem_seg models")
+        from pointnet2_tpu_torch.data.scannet import block_members
+
+        pts = np.asarray(points, np.float32)
+        n = len(pts)
+        if n == 0:
+            return {"labels": np.zeros(0, np.int32),
+                    "logits": np.zeros((0, 0), np.float32),
+                    "votes": np.zeros(0, np.int32)}
+        rng = np.random.default_rng(seed)
+        coordmin, coordmax = pts.min(axis=0), pts.max(axis=0)
+        nx = int(np.ceil((coordmax[0] - coordmin[0]) / 1.5)) or 1
+        ny = int(np.ceil((coordmax[1] - coordmin[1]) / 1.5)) or 1
+        pairs = block_members(pts, coordmin, nx, ny)
+        _, starts = np.unique(pairs[:, 0], return_index=True)
+        ends = np.append(starts[1:], len(pairs))
+
+        chunks = []  # (member-index chunk, valid count)
+        for s, e in zip(starts, ends):
+            member = pairs[s:e, 1].copy()
+            rng.shuffle(member)
+            for off in range(0, len(member), npoints):
+                chunk = member[off:off + npoints]
+                valid = len(chunk)
+                if valid < npoints:  # pad from the block (votes ignored)
+                    extra = member[rng.integers(len(member),
+                                                size=npoints - valid)]
+                    chunk = np.concatenate([chunk, extra])
+                chunks.append((chunk, valid))
+
+        logit_sum = None
+        votes = np.zeros(n, np.int32)
+        max_bucket = self._buckets[-1]
+        for s in range(0, len(chunks), max_bucket):
+            group = chunks[s:s + max_bucket]
+            batch = np.stack([pts[c] for c, _ in group])
+            logits = self(batch)  # (B, npoints, K) via the bucketed path
+            if logit_sum is None:
+                logit_sum = np.zeros((n, logits.shape[-1]), np.float32)
+            for (chunk, valid), lg in zip(group, logits):
+                np.add.at(logit_sum, chunk[:valid], lg[:valid])
+                np.add.at(votes, chunk[:valid], 1)
+        return {"labels": logit_sum.argmax(-1).astype(np.int32),
+                "logits": logit_sum, "votes": votes}

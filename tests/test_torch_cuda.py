@@ -280,3 +280,79 @@ def test_trainer_on_card_takes_steps(dev, tmp_path):
     assert state.step == 4
     assert ops.scatter_rows_kernel.launches == before + 2 * state.step
     assert all(p.device.type == "cuda" for p in state.model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# three-NN and the segmentation path
+# ---------------------------------------------------------------------------
+
+
+def _three_nn_bitwise(xyz1, xyz2):
+    before = ops.three_nn_kernel.launches
+    dist, idx = ops.three_nn(xyz1, xyz2)
+    assert ops.three_nn_kernel.launches == before + 1
+    wdist, widx = _plain(ops.three_nn, xyz1, xyz2)
+    assert torch.equal(idx, widx)
+    assert torch.equal(dist.view(torch.int32), wdist.view(torch.int32))
+    return dist, idx
+
+
+@pytest.mark.parametrize("B,N,M", [(2, 1024, 256), (3, 100, 17),
+                                   (2, 1000, 1), (2, 257, 2), (1, 300, 3),
+                                   (2, 300, 5000), (1, 8192, 1024)])
+def test_three_nn_kernel_bit_identical(dev, rs, B, N, M):
+    """Random clouds; M = 1, 2, 3; M past one shared-memory tile (1024);
+    N not a multiple of the block (256)."""
+    xyz1 = torch.from_numpy(rs.rand(B, N, 3).astype(np.float32)).to(dev)
+    xyz2 = torch.from_numpy(rs.rand(B, M, 3).astype(np.float32)).to(dev)
+    dist, idx = _three_nn_bitwise(xyz1, xyz2)
+    if M < 3:
+        assert torch.isinf(dist[..., M:]).all() and not idx[..., M:].any()
+
+
+def test_three_nn_kernel_ties(dev, rs):
+    """Exact ties: integer grids, the known set repeated three times, and
+    unknown points that are known points (distance 0)."""
+    g = np.stack(np.meshgrid(*[np.arange(4.0)] * 3, indexing="ij"), -1)
+    grid = torch.from_numpy(g.reshape(1, 64, 3).astype(np.float32)).to(dev)
+    _three_nn_bitwise(grid[:, ::3] + 0.5, grid)
+    known = torch.from_numpy(rs.rand(2, 7, 3).astype(np.float32)).to(dev)
+    _three_nn_bitwise(torch.from_numpy(rs.rand(2, 90, 3).astype(
+        np.float32)).to(dev), known.repeat(1, 3, 1).contiguous())
+    xyz = torch.from_numpy(rs.rand(2, 2000, 3).astype(np.float32)).to(dev)
+    dist, _ = _three_nn_bitwise(xyz, xyz[:, 500:1700].contiguous())
+    assert not dist[:, 500:1700, 0].any()
+
+
+def test_three_nn_kernel_refuses_what_it_does_not_take(dev):
+    with pytest.raises(ValueError, match="M >= 1"):
+        ops.three_nn_kernel(torch.zeros(1, 4, 3, device=dev),
+                            torch.zeros(1, 0, 3, device=dev))
+    with pytest.raises(TypeError):
+        ops.three_nn_kernel(torch.zeros(1, 4, 3, device=dev).double(),
+                            torch.zeros(1, 4, 3, device=dev))
+    dist, idx = ops.three_nn_kernel(torch.zeros(2, 0, 3, device=dev),
+                                    torch.zeros(2, 5, 3, device=dev))
+    assert dist.shape == idx.shape == (2, 0, 3)
+
+
+@pytest.mark.parametrize("name,channels", [("pointnet2_sem_seg", 3),
+                                           ("pointnet2_part_seg", 6)])
+def test_seg_predictor_kernel_path_equals_plain_path(dev, rs, name,
+                                                     channels):
+    """f32 seg logits on the card through the kernels and through the plain
+    versions: identical indices and exact gathers give every later op the
+    same inputs; bound 1e-5 of the logits' range for a cuBLAS algorithm
+    choice that might differ. The kernel path launches three_nn once per
+    FP."""
+    pts = rs.rand(3, 1024, channels).astype(np.float32)
+    pred = Predictor(name, dtype=None, buckets=(4,))
+    before = ops.three_nn_kernel.launches
+    got = pred(pts)
+    n_fp = 4 if name == "pointnet2_sem_seg" else 3
+    assert ops.three_nn_kernel.launches == before + n_fp
+    with config.default_impl("torch"):
+        want = pred(pts)
+    assert got.shape == (3, 1024, pred.model.num_classes)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))

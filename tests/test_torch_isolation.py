@@ -23,9 +23,14 @@ _SCRIPT = textwrap.dedent("""
     import torch
     assert not torch.cuda.is_available()
     from pointnet2_tpu_torch import (Predictor, PointNet2ClsSSG,
+                                     PointNet2PartSeg, PointNet2SemSeg,
                                      TrainConfig, Trainer)
     for make in (lambda: Predictor("pointnet2_cls_ssg"),
+                 lambda: Predictor("pointnet2_sem_seg"),
+                 lambda: Predictor("pointnet2_part_seg"),
                  lambda: PointNet2ClsSSG(),
+                 lambda: PointNet2SemSeg(),
+                 lambda: PointNet2PartSeg(),
                  lambda: Trainer(TrainConfig())):
         try:
             make()

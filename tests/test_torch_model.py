@@ -228,11 +228,10 @@ def test_shared_mlp_finish_first_pooled_matches_jax(rng, features):
                                rtol=1e-5)
 
 
-def test_batchnorm_refuses_train_mode():
-    """Train mode is ported: BatchNorm no longer refuses it, and normalises
-    with the batch's statistics (biased var) while updating the running
-    ones by running*m + batch*(1-m); eval uses and keeps the running
-    ones."""
+def test_batchnorm_train_mode_uses_batch_statistics():
+    """In train mode BatchNorm normalises with the batch's statistics
+    (biased var) while updating the running ones by running*m +
+    batch*(1-m); eval uses and keeps the running ones."""
     bn = tnn.BatchNorm(4)
     x = torch.arange(12, dtype=torch.float32).reshape(3, 4)
     y = bn(x, 0.25)
