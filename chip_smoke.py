@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``pointnet2_tpu_torch``).
 
-Drives the port's paths at full width on one NVIDIA GPU through its five
-hand-written CUDA kernels (FPS, ball query, row gather, row scatter-add,
-three-NN): classifier serving, ``Predictor("pointnet2_cls_ssg")`` (1024
-points, 40 classes, buckets 1/4/16/64, bf16 and f32, 12-vote
-``predict_votes``); training, ``Trainer.fit`` (batch 16, 1024 points,
-on-device augmentation, Adam); and segmentation serving,
-``Predictor("pointnet2_sem_seg")`` (8192-point ScanNet blocks, 21 classes,
-and ``predict_scene`` on a whole room) and ``Predictor("pointnet2_part_seg")``
-(2048 points with normals, 50 parts). Phases:
+Drives the port's paths at full width on one NVIDIA GPU through its seven
+hand-written CUDA kernels (FPS, ball query, ball query with grouped xyz,
+multi-radius ball query, row gather, row scatter-add, three-NN):
+classifier serving, ``Predictor("pointnet2_cls_ssg")`` (1024 points, 40
+classes, buckets 1/4/16/64, bf16 and f32, 12-vote ``predict_votes``);
+training, ``Trainer.fit`` (batch 16, 1024 points, on-device augmentation,
+Adam); segmentation serving, ``Predictor("pointnet2_sem_seg")`` (8192-point
+ScanNet blocks, 21 classes, and ``predict_scene`` on a whole room) and
+``Predictor("pointnet2_part_seg")`` (2048 points with normals, 50 parts);
+and multi-scale grouping, ``Predictor("pointnet2_cls_msg")``,
+``Predictor("pointnet2_part_seg_msg_one_hot")`` (with category labels) and
+``Predictor("pointnet_cls_basic")``, with the MSG layers' unfused layout and
+the multi-radius ball query. Phases:
 
 1. build the kernels from ``pointnet2_tpu_torch/csrc/`` with nvcc, one
    process per source, all at once;
@@ -53,6 +57,25 @@ and ``predict_scene`` on a whole room) and ``Predictor("pointnet2_part_seg")``
     ``cdist`` + ``topk``, ``three_interpolate``, the seg forwards at B=16
     and 64, ``predict_scene``, peak memory, and a bf16 B=16 forward's
     device time by op.
+13. hold the ball query with grouped xyz (idx and cnt bit for bit, the
+    coordinates equal by value to the plain version and to xyz1[idx]) and
+    the multi-radius ball query (each radius bit for bit against the ball
+    query kernel and the plain version) at every MSG ball-query shape of
+    cls_msg and part_seg_msg at B=16, and the grouped-xyz backward (one
+    scatter launch, within the summation-order bound);
+14. serve cls_msg (requests of 1, 16, 64, 100 and a 12-vote request of
+    16), part_seg_msg (16 and 64 clouds with labels) and cls_basic (16) in
+    bf16 and f32, each model's run with every launch counter set to 0 just
+    before and read just after; then, from the counters' zero, cls_msg's
+    two MSG layers rebuilt with ``fuse_first=False`` on the model's own
+    weights (held to the fused layers) and the multi-radius query at every
+    MSG layer's radius set; compare with the plain versions on the card at
+    B <= 16 and with the CPU on 2 inputs;
+15. time both new kernels per launch beside their bounds, their plain
+    versions and the launches of the default path they stand for (the ball
+    query plus the xyz gather; the per-radius ball queries), the MSG
+    forwards at B=16 and 64, peak memory, and a bf16 B=16 forward's device
+    time by op.
 
 Prints the GPU's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
@@ -60,8 +83,9 @@ if any phase fails, if there is no CUDA device, or if the port is not
 beside this script. Weights are random (Xavier-uniform dense weights and
 randomised BN statistics from a seed); clouds are surface samples of
 random primitives, normalised into the unit sphere as ModelNet40's are
-(with their surface normals for part_seg); ScanNet blocks are 1.5 m
-columns of a generated room (floor, ceiling, walls, box furniture).
+(with their surface normals for the part segmenters, whose category
+labels are drawn from the seed); ScanNet blocks are 1.5 m columns of a
+generated room (floor, ceiling, walls, box furniture).
 
 Usage (from the repository root, one GPU):  python3 chip_smoke.py
 """
@@ -82,11 +106,17 @@ N_POINT = 1024
 NUM_CLASSES = 40
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
-F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# H100 SXM float32 outside the tensor cores: the data sheet's 67e12 op/s
+# counts an FMA as two operations. The point kernels' squared distances
+# (csrc/common.cuh sq_dist) forbid contraction, so they issue at most one
+# f32 operation an instruction: half that rate.
+F32_NO_FMA_OPS_PER_S = 33.5e12
 
 REPLACES = {
     "fps": "pointnet2_tpu/ops/pallas/fps.py:103",
     "ball_query": "pointnet2_tpu/ops/pallas/ball_query.py:237",
+    "ball_query_group_xyz": "pointnet2_tpu/ops/pallas/ball_query.py:374",
+    "ball_query_multi": "pointnet2_tpu/ops/pallas/ball_query.py:312",
     "gather_rows": "pointnet2_tpu/ops/pallas/group.py:189",
     "scatter_rows": "pointnet2_tpu/ops/pallas/group.py:227",
     "three_nn": "pointnet2_tpu/ops/pallas/three_nn.py:67",
@@ -94,13 +124,12 @@ REPLACES = {
 SOURCES = {
     "fps": "pointnet2_tpu_torch/csrc/fps.cu",
     "ball_query": "pointnet2_tpu_torch/csrc/ball_query.cu",
+    "ball_query_group_xyz": "pointnet2_tpu_torch/csrc/ball_query.cu",
+    "ball_query_multi": "pointnet2_tpu_torch/csrc/ball_query.cu",
     "gather_rows": "pointnet2_tpu_torch/csrc/gather.cu",
     "scatter_rows": "pointnet2_tpu_torch/csrc/scatter.cu",
     "three_nn": "pointnet2_tpu_torch/csrc/three_nn.cu",
 }
-BOUND_BY = {"fps": "operations", "ball_query": "operations",
-            "gather_rows": "bytes", "scatter_rows": "bytes",
-            "three_nn": "operations"}
 TRAIN_EPOCHS = 4  # per dtype in phase 8
 # the serving path's kernel shapes: (B, N) -> npoint, then the ball query
 # (radius, nsample) and the width of the lifted rows group_point moves
@@ -305,18 +334,28 @@ def drive_main_path(torch, predictors: dict, clouds: np.ndarray) -> dict:
     return out
 
 
-def add_time(rows: dict, name, shape, ms, plain, bound, library=None):
-    """Add one launch's times to a kernel's row of the table, and log
-    them."""
+def roofline(ops_: float, byts: float) -> tuple:
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for `ops_` f32 operations (no FMA) and `byts` bytes of device memory
+    traffic, and which of the two it is."""
+    t_ops = ops_ / F32_NO_FMA_OPS_PER_S * 1e3
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def add_time(rows: dict, name, shape, ms, plain, bound: tuple, library=None):
+    """Add one launch's times and its roofline bound (ms, by) to a
+    kernel's row of the table, and log them."""
     r = rows[name]
     r["ms"] += ms
     r["plain_ms"] += plain
-    r["bound_ms"] += bound
+    r["bound_ms"] += bound[0]
+    r["by"][bound[1]] += bound[0]
     if library is not None:
         r["library_ms"] = (r["library_ms"] or 0.0) + library
     lib = "" if library is None else f" library {library:.6f} ms"
     log(f"  {name:<12} {shape:<44} kernel {ms:.6f} ms  plain "
-        f"{plain:.6f} ms  bound {bound:.6f} ms{lib}")
+        f"{plain:.6f} ms  bound {bound[0]:.6f} ms ({bound[1]}){lib}")
 
 
 def time_kernels(torch, dev, gpu: str, rows: dict) -> None:
@@ -342,8 +381,7 @@ def time_kernels(torch, dev, gpu: str, rows: dict) -> None:
         # per step and point: 3 sub, 3 mul, 2 add, 1 min, 1 compare
         ops_ = B * (npoint - 1) * n * 10
         byts = xyz.numel() * 4 + out.numel() * 4
-        add("fps", f"({B},{n},3)->{npoint}", ms, plain,
-            max(ops_ / F32_OPS_PER_S, byts / HBM_BYTES_PER_S) * 1e3)
+        add("fps", f"({B},{n},3)->{npoint}", ms, plain, roofline(ops_, byts))
         log(f"  fps latency per selection step: {ms * 1e3 / (npoint - 1):.4f}"
             " us")
 
@@ -359,7 +397,7 @@ def time_kernels(torch, dev, gpu: str, rows: dict) -> None:
         ops_ = int(scanned.sum()) * 9  # 3 sub, 3 mul, 2 add, 1 compare
         byts = (xyz.numel() + new_xyz.numel() + idx.numel() + cnt.numel()) * 4
         add("ball_query", f"N={n} M={npoint} ns={ns} r={r}", ms, plain,
-            max(ops_ / F32_OPS_PER_S, byts / HBM_BYTES_PER_S) * 1e3)
+            roofline(ops_, byts))
 
         flat = lv["idx"].reshape(B, -1)
         for pts, ix in ((xyz, lv["fidx"]),
@@ -376,8 +414,7 @@ def time_kernels(torch, dev, gpu: str, rows: dict) -> None:
             byts = (pts.numel() * pts.element_size() + ix.numel() * 4
                     + o.numel() * o.element_size())
             add("gather_rows", f"{tuple(pts.shape)} {str(pts.dtype)[6:]} by "
-                f"{tuple(ix.shape)}", ms, plain,
-                byts / HBM_BYTES_PER_S * 1e3, library)
+                f"{tuple(ix.shape)}", ms, plain, roofline(0, byts), library)
 
 
 def kernel_table(rows: dict, launches: dict, errs: dict) -> list:
@@ -388,7 +425,8 @@ def kernel_table(rows: dict, launches: dict, errs: dict) -> list:
         "replaces": REPLACES[name], "launches": launches[name],
         "max_abs_err": errs[name], "ms": rows[name]["ms"],
         "plain_ms": rows[name]["plain_ms"],
-        "bound_ms": rows[name]["bound_ms"], "bound_by": BOUND_BY[name],
+        "bound_ms": rows[name]["bound_ms"],
+        "bound_by": max(rows[name]["by"], key=rows[name]["by"].get),
         "library_ms": rows[name]["library_ms"],
     } for name in REPLACES]
 
@@ -739,16 +777,16 @@ def time_train(torch, dev, gpu: str, rows: dict, log_dir: str) -> None:
                                50, prefill=True)
             byts = (gd.numel() * gd.element_size() + idx.numel() * 4
                     + out.numel() * out.element_size())
-            bound = byts / HBM_BYTES_PER_S * 1e3
+            bound = roofline(0, byts)
             shape = f"g {tuple(gd.shape)} {str(dt)[6:]} -> n={n}"
             if dt == torch.bfloat16:  # the table holds the bf16 train step
                 add_time(rows, "scatter_rows", shape, ms, plain, bound,
                          library)
             else:
                 log(f"  scatter_rows {shape:<44} kernel {ms:.6f} ms  plain "
-                    f"{plain:.6f} ms  bound {bound:.6f} ms library "
+                    f"{plain:.6f} ms  bound {bound[0]:.6f} ms library "
                     f"{library:.6f} ms")
-            log(f"  scatter_rows {shape}: {bound / ms:.1%} of the memory "
+            log(f"  scatter_rows {shape}: {bound[0] / ms:.1%} of the memory "
                 "roofline")
 
 
@@ -1006,20 +1044,16 @@ def time_seg(torch, gpu: str, preds, shapes, blocks, parts, room,
             torch.cdist(xyz1, xyz2), k, largest=False), 50, prefill=True)
         ops_ = B * N * M * 9  # 3 sub, 3 mul, 2 add, 1 compare per pair
         byts = (xyz1.numel() + xyz2.numel()) * 4 + B * N * 3 * 8
-        bound = max(ops_ / F32_OPS_PER_S, byts / HBM_BYTES_PER_S) * 1e3
+        bound = roofline(ops_, byts)
         shape = f"{tag} ({B},{N},3) x ({B},{M},3)"
         if tag.startswith("sem"):  # the table holds the sem_seg forward
             add_time(rows, "three_nn", shape, ms, plain, bound, library)
         else:
             log(f"  {'three_nn':<12} {shape:<44} kernel {ms:.6f} ms  plain "
-                f"{plain:.6f} ms  bound {bound:.6f} ms library "
+                f"{plain:.6f} ms  bound {bound[0]:.6f} ms library "
                 f"{library:.6f} ms")
-        # F32_OPS_PER_S counts an FMA as two operations; sq_dist forbids
-        # contraction, so this kernel issues at most half that rate
-        log(f"  three_nn {tag}: {bound / ms:.1%} of the operations roofline "
-            f"at {F32_OPS_PER_S:.3g} op/s (an FMA counted as two); "
-            f"{2 * bound / ms:.1%} of the {F32_OPS_PER_S / 2:.3g} op/s "
-            "without FMA")
+        log(f"  three_nn {tag}: {bound[0] / ms:.1%} of the {bound[1]} "
+            "roofline")
 
     # three_interpolate at sem_seg fp4 (B=16, bf16, the 128-wide lifted
     # rows): one gather of the (B, 3N, C) rows, then the f32 combine
@@ -1071,6 +1105,402 @@ def time_seg(torch, gpu: str, preds, shapes, blocks, parts, room,
                        host_us=host[name, "bf16", 16] * 1e3)
 
 
+# --- the multi-scale-grouping path -------------------------------------------
+
+CLS_MSG = "pointnet2_cls_msg"
+PART_MSG = "pointnet2_part_seg_msg_one_hot"
+BASIC = "pointnet_cls_basic"
+# every MSG layer of the two models: (model, layer, feature channels,
+# npoint, radii, nsamples, mlps); N is the layer's input size
+MSG_LAYERS = (
+    (CLS_MSG, "sa1", 0, 512, (0.1, 0.2, 0.4), (16, 32, 128),
+     ((32, 32, 64), (64, 64, 128), (64, 96, 128))),
+    (CLS_MSG, "sa2", 320, 128, (0.2, 0.4, 0.8), (32, 64, 128),
+     ((64, 64, 128), (128, 128, 256), (128, 128, 256))),
+    (PART_MSG, "sa1", 3, 512, (0.1, 0.2, 0.4), (32, 64, 128),
+     ((32, 32, 64), (64, 64, 128), (64, 96, 128))),
+    (PART_MSG, "sa2", 320, 128, (0.4, 0.8), (64, 128),
+     ((128, 128, 256), (128, 196, 256))),
+)
+# launches per forward of each model's main path (the default MSG layout:
+# one ball query per radius, the lifted first dense gathered per radius)
+_NONE = {k: 0 for k in REPLACES}
+MSG_PER_FWD = {
+    CLS_MSG: {**_NONE, "fps": 2, "ball_query": 6, "gather_rows": 8},
+    PART_MSG: {**_NONE, "fps": 2, "ball_query": 5, "gather_rows": 10,
+               "three_nn": 3},
+    BASIC: _NONE,
+}
+# phase 14's requests per model (each in bf16 and f32), and phase 15's
+# timed batch sizes
+MSG_REQS = {CLS_MSG: (1, 16, 64, 100), PART_MSG: (16, 64), BASIC: (16,)}
+MSG_TIMED = (16, 64)
+
+
+def msg_levels(torch, dev, clouds: np.ndarray, parts: np.ndarray) -> list:
+    """The ball-query inputs of every MSG layer on these clouds, from the
+    FPS chain through the kernels: dicts with the layer's (model, name,
+    radii, nsamples), xyz (B, N, 3) and new_xyz (B, npoint, 3)."""
+    from pointnet2_tpu_torch import ops
+
+    out = []
+    for pc, model in ((clouds, CLS_MSG), (parts, PART_MSG)):
+        xyz = torch.from_numpy(np.ascontiguousarray(pc[..., :3])).to(dev)
+        for m, layer, _, npoint, radii, nss, _ in MSG_LAYERS:
+            if m != model:
+                continue
+            new_xyz = ops.gather_rows_kernel(xyz, ops.fps_kernel(xyz, npoint))
+            out.append({"model": model, "layer": layer, "radii": radii,
+                        "nsamples": nss, "xyz": xyz, "new_xyz": new_xyz,
+                        "tag": f"{model[10:]} {layer} N={xyz.shape[1]} "
+                               f"M={npoint}"})
+            xyz = new_xyz
+    return out
+
+
+def check_msg_kernels(torch, dev, levels: list, check: Checks,
+                      errs: dict) -> None:
+    """Phase 13: the ball query with grouped xyz and the multi-radius ball
+    query against their plain versions at every MSG ball-query shape, and
+    the grouped-xyz backward through the scatter kernel."""
+    from pointnet2_tpu_torch import ops
+    from pointnet2_tpu_torch.ops import grouping
+
+    log("phase 13: ball_query_group_xyz and ball_query_multi vs plain "
+        "versions on the card, every MSG shape at B=16")
+    for lv in levels:
+        xyz, new_xyz = lv["xyz"], lv["new_xyz"]
+        rows = torch.arange(xyz.shape[0], device=dev)[:, None, None]
+        for r, ns in zip(lv["radii"], lv["nsamples"]):
+            idx, cnt, grp = ops.ball_query_group_xyz_kernel(r, ns, xyz,
+                                                            new_xyz)
+            widx, wcnt, wgrp = grouping.ball_query_group_xyz_plain(
+                r, ns, xyz, new_xyz)
+            same = (torch.equal(idx, widx) and torch.equal(cnt, wcnt)
+                    and torch.equal(grp, wgrp)
+                    and torch.equal(grp, xyz[rows, idx.long()]))
+            errs["ball_query_group_xyz"] = max(
+                errs["ball_query_group_xyz"], int((idx - widx).abs().max()),
+                int((cnt - wcnt).abs().max()),
+                float((grp - wgrp).abs().max()))
+            check(same, f"ball_query_group_xyz {lv['tag']} r={r} ns={ns}: "
+                  "idx, cnt bit-identical, grouped equal by value to plain "
+                  f"and to xyz1[idx] (mean cnt {cnt.float().mean():.2f})")
+        multi = ops.ball_query_multi_kernel(lv["radii"], lv["nsamples"], xyz,
+                                            new_xyz)
+        for (idx, cnt), r, ns in zip(multi, lv["radii"], lv["nsamples"]):
+            sidx, scnt = ops.ball_query_kernel(r, ns, xyz, new_xyz)
+            widx, wcnt = grouping.ball_query_plain(r, ns, xyz, new_xyz)
+            errs["ball_query_multi"] = max(
+                errs["ball_query_multi"], int((idx - widx).abs().max()),
+                int((cnt - wcnt).abs().max()))
+            check(torch.equal(idx, sidx) and torch.equal(cnt, scnt)
+                  and torch.equal(idx, widx) and torch.equal(cnt, wcnt),
+                  f"ball_query_multi {lv['tag']} radii {lv['radii']}: r={r} "
+                  f"ns={ns} bit-identical to ball_query and to plain")
+
+    # the backward: scatter-add of grouped's cotangent into the N rows, one
+    # launch; bound as phase 6's (two summation orders of m terms)
+    lv = levels[0]
+    r, ns = lv["radii"][-1], lv["nsamples"][-1]
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    B, M = lv["new_xyz"].shape[:2]
+    ct = torch.randn((B, M, ns, 3), generator=g, device=dev)
+    x = lv["xyz"].clone().requires_grad_()
+    before = ops.scatter_rows_kernel.launches
+    idx, _, grp = ops.query_ball_and_group_xyz(r, ns, x, lv["new_xyz"])
+    grp.backward(ct)
+    launched = ops.scatter_rows_kernel.launches - before
+    n = x.shape[1]
+    flat, ctf = idx.reshape(B, -1), ct.reshape(B, -1, 3)
+    exact = grouping.scatter_rows_plain(ctf, flat, n)
+    cnt = grouping.scatter_rows_plain(torch.ones_like(ctf[..., :1]), flat, n)
+    bound = 2 * cnt * 2.0 ** -24 * grouping.scatter_rows_plain(ctf.abs(),
+                                                               flat, n)
+    diff = (x.grad - exact).abs()
+    errs["scatter_rows"] = max(errs["scatter_rows"], float(diff.max()))
+    check(launched == 1 and bool((diff <= bound).all()),
+          f"ball_query_group_xyz backward {lv['tag']} r={r} ns={ns}: "
+          f"{launched} scatter_rows launch, max abs diff "
+          f"{float(diff.max()):.3e} from the plain scatter, within the "
+          "summation-order bound")
+    torch.cuda.synchronize()
+
+
+def unfused_msg(torch, model, dt: str) -> dict:
+    """cls_msg's two MSG layers rebuilt with fuse_first=False, holding the
+    model's own sa1/sa2 weights."""
+    from pointnet2_tpu_torch.nn import SetAbstractionMSG
+
+    dtype = torch.bfloat16 if dt == "bf16" else None
+    out = {}
+    for m, layer, feat, npoint, radii, nss, mlps in MSG_LAYERS:
+        if m != CLS_MSG:
+            continue
+        fused = getattr(model, layer)
+        un = SetAbstractionMSG(npoint, radii, nss, feat, mlps, dtype=dtype,
+                               fuse_first=False)
+        un.load_state_dict(fused.state_dict(), strict=True)
+        out[layer] = (fused, un.to(next(fused.parameters()).device).eval())
+    return out
+
+
+def drive_msg(torch, dev, preds: dict, clouds, parts, labels) -> dict:
+    """Phase 14's main-path runs, each from the launch counters' zero:
+    cls_msg requests of 1, 16, 64 and 100 clouds and a 12-vote request of
+    16, part_seg_msg requests of 16 and 64 clouds with their labels, and
+    cls_basic requests of 16, each in bf16 and f32; then the MSG layers'
+    other routes at full width: cls_msg's sa1 and sa2 with fuse_first=False
+    (bf16 and f32, on the served clouds) and the multi-radius ball query at
+    every MSG layer's radius set."""
+    from pointnet2_tpu_torch import ops
+
+    out = {"launches": {}, "forwards": {}}
+    for name, sizes in MSG_REQS.items():
+        for w in ops.KERNELS.values():
+            w.launches = 0
+        before = {dt: preds[(name, dt)].calls[0] for dt in ("bf16", "f32")}
+        for dt in ("bf16", "f32"):
+            pred = preds[(name, dt)].pred
+            for b in sizes:
+                out[(name, dt, b)] = (pred(parts[:b], labels[:b])
+                                      if name == PART_MSG
+                                      else pred(clouds[:b]))
+        if name == CLS_MSG:
+            out["votes"] = preds[(name, "bf16")].pred.predict_votes(
+                clouds[:16], 12, rng=SEED)
+        torch.cuda.synchronize()
+        out["launches"][name] = {k: w.launches for k, w in ops.KERNELS.items()}
+        out["forwards"][name] = sum(preds[(name, dt)].calls[0] - before[dt]
+                                    for dt in ("bf16", "f32"))
+
+    # the fused layers' outputs (the reference) and the multi-radius
+    # query's inputs first, outside the counted run
+    xyz = torch.from_numpy(clouds[:16]).to(dev)
+    layers = {dt: unfused_msg(torch, preds[(CLS_MSG, dt)].pred.model, dt)
+              for dt in ("bf16", "f32")}
+    with torch.inference_mode():
+        ref = {}
+        for dt, lay in layers.items():
+            ref[dt] = lay["sa1"][0](xyz, None)
+            ref[(dt, "sa2")] = lay["sa2"][0](*ref[dt])[1]
+        levels = msg_levels(torch, dev, clouds[:16], parts[:16])
+        torch.cuda.synchronize()
+        for w in ops.KERNELS.values():
+            w.launches = 0
+        for dt, lay in layers.items():
+            out[("sa1", dt)] = (ref[dt][1], lay["sa1"][1](xyz, None)[1])
+            out[("sa2", dt)] = (ref[(dt, "sa2")], lay["sa2"][1](*ref[dt])[1])
+        out["multi"] = [(lv, ops.query_ball_point_multi(
+            lv["radii"], lv["nsamples"], lv["xyz"], lv["new_xyz"]))
+            for lv in levels]
+        torch.cuda.synchronize()
+    out["launches"]["layers"] = {k: w.launches for k, w in ops.KERNELS.items()}
+    return out
+
+
+def check_msg(torch, preds, run, clouds, parts, labels, sds,
+              check: Checks) -> None:
+    """Phase 14's checks on the main-path runs."""
+    from pointnet2_tpu_torch import Predictor, config
+    from pointnet2_tpu_torch.ops import grouping
+
+    for name, per in MSG_PER_FWD.items():
+        n = run["forwards"][name]
+        got = run["launches"][name]
+        log(f"  {name}: launches in its main-path run ({n} forwards): {got}")
+        for k, per_fwd in per.items():
+            check(got[k] == per_fwd * n,
+                  f"{name}: {k} launched {per_fwd} times per forward")
+    got = run["launches"]["layers"]
+    log(f"  the unfused cls_msg layers (bf16, f32) and the multi-radius "
+        f"query at 4 radius sets: launches {got}")
+    # per dtype: sa1 FPS 1, gather 1 (new_xyz), grouped xyz 3; sa2 the
+    # same plus 3 gathers of its input features
+    want = {**_NONE, "fps": 4, "ball_query_group_xyz": 12,
+            "ball_query_multi": 4, "gather_rows": 10}
+    check(got == want, "the unfused layers launched ball_query_group_xyz 3 "
+          "times each (FPS once, gather once plus once per radius for "
+          "features), ball_query_multi once per radius set, ball_query "
+          "never")
+
+    for key, lg in run.items():
+        if isinstance(key, tuple) and key[0] in MSG_PER_FWD:
+            name, _, b = key
+            shape = (b, PART_N, 50) if name == PART_MSG else (b, NUM_CLASSES)
+            check(lg.shape == shape and bool(np.isfinite(lg).all()),
+                  f"{key}: shape {lg.shape}, finite")
+    check(run["votes"].shape == (16, NUM_CLASSES)
+          and bool(np.isfinite(run["votes"]).all()),
+          "cls_msg 12-vote logits: (16, 40), finite")
+
+    # kernel path vs the same requests on the plain versions at B <= 16
+    # (identical indices, exact gathers: expected difference 0; bound 1e-5
+    # of the range for a cuBLAS algorithm choice that might differ)
+    with config.default_impl("torch"):
+        for (name, dt), sv in preds.items():
+            for b in (b for b in MSG_REQS[name] if b <= 16):
+                want = (sv.pred(parts[:b], labels[:b]) if name == PART_MSG
+                        else sv.pred(clouds[:b]))
+                err, scale, ok = close(run[(name, dt, b)], want, 1e-5)
+                agree = bool((run[(name, dt, b)].argmax(-1)
+                              == want.argmax(-1)).all())
+                check(ok and agree, f"{name} {dt} B={b}: kernel vs plain max "
+                      f"abs diff {err:.3e} (logit range {scale:.3f}), argmax "
+                      "agrees")
+        for lv, multi in run["multi"]:
+            want = grouping.ball_query_multi_plain(
+                lv["radii"], lv["nsamples"], lv["xyz"], lv["new_xyz"])
+            check(all(torch.equal(a, c) and torch.equal(b, d)
+                      for (a, b), (c, d) in zip(multi, want)),
+                  f"query_ball_point_multi {lv['tag']} radii {lv['radii']}: "
+                  "bit-identical to the plain version")
+    for name in MSG_PER_FWD:
+        cpu = Predictor(name, sds[name], dtype=torch.float32, device="cpu")
+        want = (cpu(parts[:2], labels[:2]) if name == PART_MSG
+                else cpu(clouds[:2]))
+        err, scale, ok = close(run[(name, "f32", 16)][:2], want, 1e-4)
+        check(ok, f"{name} f32 on the card vs the CPU, 2 inputs: max abs "
+              f"diff {err:.3e} (range {scale:.3f})")
+        b = max(b for b in MSG_REQS[name] if b <= 64)
+        err, scale, ok = close(run[(name, "bf16", b)], run[(name, "f32", b)],
+                               0.05)
+        check(ok, f"{name} bf16 vs f32, {b} inputs: max abs diff {err:.3e} "
+              f"(range {scale:.3f})")
+
+    # the unfused layers against the fused ones, same weights and inputs:
+    # f32 within the JAX test's rtol 1e-4 / atol 3e-5
+    # (tests/test_models.py:203-220), bf16 within 2% of the range
+    for layer in ("sa1", "sa2"):
+        for dt in ("f32", "bf16"):
+            want, got = (t.float().cpu().numpy() for t in run[(layer, dt)])
+            err = float(np.abs(got - want).max())
+            scale = float(np.abs(want).max())
+            if dt == "f32":
+                ok = bool(np.allclose(got, want, rtol=1e-4, atol=3e-5))
+                bound = "rtol 1e-4, atol 3e-5"
+            else:
+                ok = err <= 0.02 * scale
+                bound = "2% of the range"
+            check(ok, f"cls_msg {layer} {dt}, B=16: unfused layer vs fused, "
+                  f"max abs diff {err:.3e} (range {scale:.3f}), within "
+                  f"{bound}")
+    torch.cuda.synchronize()
+
+
+def scanned_points(torch, idx, cnt, n: int):
+    """Per query, the points a scan reads up to its nsample-th hit (all n
+    when the ball holds fewer)."""
+    ns = idx.shape[-1]
+    return torch.where(cnt == ns, idx[..., -1] + 1, torch.full_like(cnt, n))
+
+
+def time_msg(torch, dev, gpu: str, levels: list, preds: dict, clouds, parts,
+             labels, rows: dict) -> None:
+    """Phase 15: the two new kernels per launch at B=16 beside their
+    bounds, their plain versions and the launches of the default path they
+    replace; the MSG forwards at B=16 and 64; where a bf16 B=16 forward's
+    device time goes."""
+    from pointnet2_tpu_torch.ops import grouping
+
+    log(f"phase 15: ball_query_group_xyz and ball_query_multi per launch at "
+        f"B=16 on {gpu} (kernels with the queue pre-filled, plain with the "
+        "host in the loop); the table holds cls_msg's two MSG layers")
+    for lv in levels:
+        xyz, new_xyz = lv["xyz"], lv["new_xyz"]
+        B, n = xyz.shape[:2]
+        M = new_xyz.shape[1]
+        in_bytes = (xyz.numel() + new_xyz.numel()) * 4
+        scans, per_radius = [], []
+        multi_bytes = in_bytes
+        for r, ns in zip(lv["radii"], lv["nsamples"]):
+            idx = torch.empty((B, M, ns), dtype=torch.int32, device=dev)
+            cnt = torch.empty((B, M), dtype=torch.int32, device=dev)
+            grp = torch.empty((B, M, ns, 3), device=dev)
+            rows_out = torch.empty((B, M * ns, 3), device=dev)
+            ms = event_ms(torch, lambda: grouping.launch_ball_query_group_xyz(
+                r, xyz, new_xyz, idx, cnt, grp), 50, prefill=True)
+            plain = event_ms(
+                torch, lambda: grouping.ball_query_group_xyz_plain(
+                    r, ns, xyz, new_xyz), 5)
+
+            def two_launches():
+                grouping.launch_ball_query(r, xyz, new_xyz, idx, cnt)
+                grouping.launch_gather_rows(xyz, idx.view(B, M * ns),
+                                            rows_out)
+
+            pair = event_ms(torch, two_launches, 50, prefill=True)
+            scanned = scanned_points(torch, idx, cnt, n)
+            scans.append(scanned)
+            byts = in_bytes + (idx.numel() + cnt.numel() + grp.numel()) * 4
+            bound = roofline(int(scanned.sum()) * 9, byts)
+            shape = f"{lv['tag']} r={r} ns={ns}"
+            if lv["model"] == CLS_MSG:
+                add_time(rows, "ball_query_group_xyz", shape, ms, plain, bound)
+            else:
+                log(f"  {'ball_query_group_xyz':<12} {shape:<44} kernel "
+                    f"{ms:.6f} ms  plain {plain:.6f} ms  bound "
+                    f"{bound[0]:.6f} ms ({bound[1]})")
+            log(f"   the two launches it replaces (ball_query + gather_rows "
+                f"of xyz): {pair:.6f} ms; this kernel {ms / pair:.2f}x that")
+            multi_bytes += (idx.numel() + cnt.numel()) * 4
+            per_radius.append((r, idx, cnt))
+
+        outs = tuple((torch.empty_like(i), torch.empty_like(c))
+                     for _, i, c in per_radius)
+        radii, nss = lv["radii"], lv["nsamples"]
+        ms = event_ms(torch, lambda: grouping.launch_ball_query_multi(
+            radii, xyz, new_xyz, outs), 50, prefill=True)
+        plain = event_ms(torch, lambda: grouping.ball_query_multi_plain(
+            radii, nss, xyz, new_xyz), 5)
+
+        def each_radius():
+            for r, i, c in per_radius:
+                grouping.launch_ball_query(r, xyz, new_xyz, i, c)
+
+        separate = event_ms(torch, each_radius, 50, prefill=True)
+        # one squared distance (8 operations) a point up to the farthest
+        # scan of the radii, and one compare a point per radius still open
+        farthest = torch.stack(scans).amax(0)
+        ops_ = int(farthest.sum()) * 8 + sum(int(s.sum()) for s in scans)
+        bound = roofline(ops_, multi_bytes)
+        shape = f"{lv['tag']} radii {radii}"
+        if lv["model"] == CLS_MSG:
+            add_time(rows, "ball_query_multi", shape, ms, plain, bound)
+        else:
+            log(f"  {'ball_query_multi':<12} {shape:<44} kernel {ms:.6f} ms  "
+                f"plain {plain:.6f} ms  bound {bound[0]:.6f} ms ({bound[1]})")
+        log(f"   the {len(radii)} per-radius ball_query launches it replaces:"
+            f" {separate:.6f} ms; one multi-radius launch {ms / separate:.2f}x"
+            " that")
+
+    log(f"phase 15: MSG serving times (host clock, numpy in and out) on {gpu}")
+    host = {}
+    for name in (CLS_MSG, PART_MSG):
+        for dt in ("bf16", "f32"):
+            pred = preds[(name, dt)].pred
+            for b in MSG_TIMED:
+                def call(b=b):
+                    return (pred(parts[:b], labels[:b]) if name == PART_MSG
+                            else pred(clouds[:b]))
+
+                ms = host[name, dt, b] = host_ms(torch, call, 10)
+                torch.cuda.reset_peak_memory_stats()
+                call()
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                log(f"  {name} {dt} B={b}: {ms:.3f} ms, {b / ms * 1e3:.1f} "
+                    f"inputs/s, peak device memory {peak:.2f} GiB")
+    log(f"phase 15: where a bf16 B=16 forward's device time goes "
+        f"(torch.profiler) on {gpu}")
+    for name in (CLS_MSG, PART_MSG):
+        pred = preds[(name, "bf16")].pred
+        fn = ((lambda: pred(parts[:16], labels[:16])) if name == PART_MSG
+              else (lambda: pred(clouds[:16])))
+        profile_device(torch, fn, 3, f"{name} bf16 B=16", "forward",
+                       host_us=host[name, "bf16", MSG_TIMED[0]] * 1e3)
+
+
 def main() -> int:
     try:
         import torch
@@ -1103,8 +1533,9 @@ def main() -> int:
     log(f"  built {', '.join(_build.SOURCES)} in "
         f"{time.perf_counter() - t0:.2f} s into {_build.BUILD_DIR.name}/")
 
-    errs = {"fps": 0, "ball_query": 0, "gather_rows": 0.0,
-            "scatter_rows": 0.0, "three_nn": 0}
+    errs = {"fps": 0, "ball_query": 0, "ball_query_group_xyz": 0,
+            "ball_query_multi": 0, "gather_rows": 0.0, "scatter_rows": 0.0,
+            "three_nn": 0}
     for B in (16, 768):
         check_kernels(torch, dev, B, check, errs)
 
@@ -1186,7 +1617,8 @@ def main() -> int:
           f"{err:.3e}")
 
     rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                "library_ms": None} for k in REPLACES}
+                "library_ms": None, "by": {"bytes": 0.0, "operations": 0.0}}
+            for k in REPLACES}
     time_kernels(torch, dev, gpu, rows)
     log(f"phase 5: serving times (host clock, numpy in and out) on {gpu}")
     for name in ("bf16", "f32"):
@@ -1233,10 +1665,31 @@ def main() -> int:
     seg = drive_seg(torch, preds, blocks, parts, room)
     check_seg(torch, preds, seg, blocks, parts, room, sds, check)
     time_seg(torch, gpu, preds, shapes, blocks, parts, room, rows)
+
+    labels = np.random.default_rng(SEED + 14).integers(0, 16, len(parts),
+                                                       dtype=np.int32)
+    levels = msg_levels(torch, dev, clouds[:16], parts[:16])
+    check_msg_kernels(torch, dev, levels, check, errs)
+    log("phase 14: serve pointnet2_cls_msg (N=1024), "
+        "pointnet2_part_seg_msg_one_hot (N=2048, normals, labels) and "
+        "pointnet_cls_basic through the kernels")
+    msg_sds = {name: random_state_dict(torch, SEED, name)
+               for name in MSG_PER_FWD}
+    msg_preds = {(name, dt): Served(name, msg_sds[name], t)
+                 for name in MSG_PER_FWD
+                 for dt, t in (("bf16", torch.bfloat16),
+                               ("f32", torch.float32))}
+    msg = drive_msg(torch, dev, msg_preds, clouds, parts, labels)
+    check_msg(torch, msg_preds, msg, clouds, parts, labels, msg_sds, check)
+    time_msg(torch, dev, gpu, levels, msg_preds, clouds, parts, labels, rows)
     # launches of each kernel over every main-path run (classifier serving,
-    # training, sem_seg serving, part_seg serving)
-    launches = {k: launches[k] + fit["counts"][k] + seg["launches"][SEM][k]
-                + seg["launches"][PART][k] for k in REPLACES}
+    # training, sem_seg and part_seg serving, the MSG models' serving and
+    # the MSG layers' other routes)
+    runs = [fit["counts"], seg["launches"][SEM], seg["launches"][PART],
+            *msg["launches"].values()]
+    launches = {k: launches[k] + sum(r[k] for r in runs) for k in REPLACES}
+    check(all(launches[k] > 0 for k in REPLACES),
+          "every kernel was launched in the main-path runs")
     table = kernel_table(rows, launches, errs)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")

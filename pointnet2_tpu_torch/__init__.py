@@ -12,15 +12,21 @@ train-mode BN and dropout, the scatter-add gradient of the row gather,
 Adam or momentum on the scheduled LR); the segmentation models
 ``pointnet2_sem_seg`` and ``pointnet2_part_seg`` with their serving
 (per-point logits from ``Predictor``, whole scenes from
-``Predictor.predict_scene``).
+``Predictor.predict_scene``); the multi-scale-grouping models
+``pointnet2_cls_msg`` and ``pointnet2_part_seg_msg_one_hot`` (served with
+a category label, ``Predictor(points, cls_label)``), the PointNet baseline
+``pointnet_cls_basic``, and every option of the set-abstraction layers.
 """
 
 from pointnet2_tpu_torch.convert import flax_to_torch
 from pointnet2_tpu_torch.models import (
     MODEL_REGISTRY,
+    PointNet2ClsMSG,
     PointNet2ClsSSG,
     PointNet2PartSeg,
+    PointNet2PartSegMSGOneHot,
     PointNet2SemSeg,
+    PointNetClsBasic,
     get_model,
 )
 from pointnet2_tpu_torch.serving import Predictor
@@ -28,9 +34,12 @@ from pointnet2_tpu_torch.train import TrainConfig, Trainer
 
 __all__ = [
     "MODEL_REGISTRY",
+    "PointNet2ClsMSG",
     "PointNet2ClsSSG",
     "PointNet2PartSeg",
+    "PointNet2PartSegMSGOneHot",
     "PointNet2SemSeg",
+    "PointNetClsBasic",
     "Predictor",
     "TrainConfig",
     "Trainer",

@@ -1,8 +1,14 @@
 """Layers of the port: BatchNorm, ConvBN/DenseBN, SharedMLP,
-SetAbstraction and FeaturePropagation."""
+SetAbstraction, SetAbstractionMSG and FeaturePropagation."""
 
 from pointnet2_tpu_torch.nn.layers import BatchNorm, ConvBN, DenseBN, SharedMLP
-from pointnet2_tpu_torch.nn.pointnet import FeaturePropagation, SetAbstraction
+from pointnet2_tpu_torch.nn.pointnet import (
+    FeaturePropagation,
+    SetAbstraction,
+    SetAbstractionMSG,
+    sample_and_group,
+)
 
 __all__ = ["BatchNorm", "ConvBN", "DenseBN", "FeaturePropagation",
-           "SetAbstraction", "SharedMLP"]
+           "SetAbstraction", "SetAbstractionMSG", "SharedMLP",
+           "sample_and_group"]

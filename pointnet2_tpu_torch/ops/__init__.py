@@ -1,16 +1,21 @@
-"""Point ops of the port: FPS, ball query, row gathers with their
-scatter-add gradient, max pooling, and the three-NN search and
-interpolation of feature propagation.
+"""Point ops of the port: FPS, ball query (single, with grouped xyz, and
+multi-radius), kNN, row gathers with their scatter-add gradient, max
+pooling, and the three-NN search and interpolation of feature propagation.
 
 ``KERNELS`` names each hand-written CUDA kernel's wrapper; a wrapper's
 ``launches`` attribute counts its launches.
 """
 
 from pointnet2_tpu_torch.ops.grouping import (
+    ball_query_group_xyz_kernel,
     ball_query_kernel,
+    ball_query_multi_kernel,
     gather_rows_kernel,
     group_point,
+    knn_point,
+    query_ball_and_group_xyz,
     query_ball_point,
+    query_ball_point_multi,
     scatter_rows,
     scatter_rows_kernel,
 )
@@ -29,6 +34,8 @@ from pointnet2_tpu_torch.ops.sampling import (
 KERNELS = {
     "fps": fps_kernel,
     "ball_query": ball_query_kernel,
+    "ball_query_group_xyz": ball_query_group_xyz_kernel,
+    "ball_query_multi": ball_query_multi_kernel,
     "gather_rows": gather_rows_kernel,
     "scatter_rows": scatter_rows_kernel,
     "three_nn": three_nn_kernel,
@@ -39,8 +46,11 @@ __all__ = [
     "farthest_point_sample",
     "gather_point",
     "group_point",
+    "knn_point",
     "max_pool",
+    "query_ball_and_group_xyz",
     "query_ball_point",
+    "query_ball_point_multi",
     "scatter_rows",
     "three_interpolate",
     "three_nn",

@@ -1,13 +1,18 @@
-"""Grouping ops: fixed-radius ball query, the neighbour row gather and its
-gradient, the deterministic row scatter-add.
+"""Grouping ops: fixed-radius ball query (single, with the neighbours' xyz,
+and multi-radius), kNN, the neighbour row gather and its gradient, the
+deterministic row scatter-add.
 
-Port of pointnet2_tpu/ops/grouping.py:38-83,194-245 and
+Port of pointnet2_tpu/ops/grouping.py:38-276 and
 ops/pallas/group.py:261-298:
 
 - ``query_ball_point``: for each query, the indices of the FIRST `nsample`
   dataset points (in scan order) with squared distance < float32(radius)**2;
   remaining slots are padded with the first hit, an empty ball gives index
   0; also the number of in-ball points, capped at nsample. No gradient.
+- ``query_ball_and_group_xyz``: the same, plus the neighbours' coordinates
+  from the same pass; differentiable in the dataset points (scatter-add).
+- ``query_ball_point_multi``: the ball query at several radii in one scan.
+- ``knn_point``: the k nearest points, ties to the lowest index.
 - ``group_point``: gathers (B,M,S,C) neighbour rows from (B,N,C) by (B,M,S)
   indices, an exact copy. Its gradient with respect to the points is the
   deterministic scatter-add ``scatter_rows`` (accumulated in f32, cast
@@ -99,16 +104,10 @@ def ball_query_kernel(radius: float, nsample: int, xyz1: torch.Tensor,
                       xyz2: torch.Tensor):
     """CUDA ball query (csrc/ball_query.cu): xyz1 (B,N,3), xyz2 (B,M,3)
     contiguous f32 on one card -> (idx (B,M,nsample) i32, cnt (B,M) i32)."""
-    _check_cuda(xyz1, "xyz1", (torch.float32,), 3)
-    _check_cuda(xyz2, "xyz2", (torch.float32,), 3)
-    B, N, c1 = xyz1.shape
-    B2, M, c2 = xyz2.shape
-    if c1 != 3 or c2 != 3 or B2 != B or xyz1.device != xyz2.device:
-        raise ValueError(f"ball query takes xyz1 (B,N,3) and xyz2 (B,M,3) "
-                         f"on one device, got {tuple(xyz1.shape)} and "
-                         f"{tuple(xyz2.shape)}")
-    if nsample < 1 or N < 1:
-        raise ValueError(f"need nsample >= 1 and N >= 1, got {nsample}, {N}")
+    _check_xyz_pair(xyz1, xyz2)
+    if nsample < 1:
+        raise ValueError(f"need nsample >= 1, got {nsample}")
+    B, M = xyz2.shape[:2]
     idx = torch.empty((B, M, nsample), dtype=torch.int32, device=xyz1.device)
     cnt = torch.empty((B, M), dtype=torch.int32, device=xyz1.device)
     if B * M == 0:
@@ -135,6 +134,211 @@ def query_ball_point(radius: float, nsample: int, xyz1: torch.Tensor,
         return ball_query_kernel(radius, nsample, xyz1.contiguous(),
                                  xyz2.contiguous())
     return ball_query_plain(radius, nsample, xyz1, xyz2)
+
+
+def _check_xyz_pair(xyz1: torch.Tensor, xyz2: torch.Tensor) -> None:
+    _check_cuda(xyz1, "xyz1", (torch.float32,), 3)
+    _check_cuda(xyz2, "xyz2", (torch.float32,), 3)
+    if (xyz1.shape[2] != 3 or xyz2.shape[2] != 3
+            or xyz1.shape[0] != xyz2.shape[0] or xyz1.device != xyz2.device):
+        raise ValueError(f"ball query takes xyz1 (B,N,3) and xyz2 (B,M,3) "
+                         f"on one device, got {tuple(xyz1.shape)} and "
+                         f"{tuple(xyz2.shape)}")
+    if xyz1.shape[1] < 1:
+        raise ValueError("ball query needs N >= 1 dataset points")
+
+
+# ---------------------------------------------------------------------------
+# ball query with the neighbours' xyz
+# ---------------------------------------------------------------------------
+
+
+def ball_query_group_xyz_plain(radius: float, nsample: int,
+                               xyz1: torch.Tensor, xyz2: torch.Tensor):
+    """Plain PyTorch ball query plus the neighbours' coordinates: the plain
+    ball query, then the (B, M, nsample, 3) rows of xyz1 by its indices."""
+    idx, cnt = ball_query_plain(radius, nsample, xyz1, xyz2)
+    B, M = idx.shape[:2]
+    grouped = gather_rows_plain(xyz1, idx.reshape(B, M * nsample))
+    return idx, cnt, grouped.reshape(B, M, nsample, 3)
+
+
+def launch_ball_query_group_xyz(radius: float, xyz1, xyz2, idx, cnt,
+                                grouped) -> None:
+    """Launch pn2_ball_query_group_xyz of csrc/ball_query.cu on checked,
+    preallocated buffers (no launch count)."""
+    B, N, _ = xyz1.shape
+    M, nsample = idx.shape[1], idx.shape[2]
+    fn = _build.bind("ball_query", "pn2_ball_query_group_xyz",
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                     + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(xyz1.device):
+        err = fn(xyz1.data_ptr(), xyz2.data_ptr(), idx.data_ptr(),
+                 cnt.data_ptr(), grouped.data_ptr(), B, N, M, nsample,
+                 _r2(radius), _stream(xyz1))
+    _build.check("ball_query", err, "ball_query_group_xyz launch")
+
+
+def ball_query_group_xyz_kernel(radius: float, nsample: int,
+                                xyz1: torch.Tensor, xyz2: torch.Tensor):
+    """CUDA ball query with grouped xyz (csrc/ball_query.cu): xyz1 (B,N,3),
+    xyz2 (B,M,3) contiguous f32 on one card -> (idx (B,M,nsample) i32,
+    cnt (B,M) i32, grouped (B,M,nsample,3) f32 == xyz1[b, idx])."""
+    _check_xyz_pair(xyz1, xyz2)
+    if nsample < 1:
+        raise ValueError(f"need nsample >= 1, got {nsample}")
+    B, M = xyz2.shape[:2]
+    idx = torch.empty((B, M, nsample), dtype=torch.int32, device=xyz1.device)
+    cnt = torch.empty((B, M), dtype=torch.int32, device=xyz1.device)
+    grouped = torch.empty((B, M, nsample, 3), dtype=torch.float32,
+                          device=xyz1.device)
+    if B * M == 0:
+        return idx, cnt, grouped
+    launch_ball_query_group_xyz(radius, xyz1, xyz2, idx, cnt, grouped)
+    ball_query_group_xyz_kernel.launches += 1
+    return idx, cnt, grouped
+
+
+ball_query_group_xyz_kernel.launches = 0
+
+
+class BallQueryGroupXyz(torch.autograd.Function):
+    """Ball query and the neighbours' xyz inside autograd (the custom VJP
+    of pointnet2_tpu/ops/grouping.py:141-166): the gradient of ``grouped``
+    with respect to xyz1 is the scatter-add of its cotangent into the N
+    rows; xyz2, idx and cnt get none."""
+
+    @staticmethod
+    def forward(ctx, xyz1, xyz2, radius, nsample):
+        if config.use_kernel(xyz1):
+            idx, cnt, grouped = ball_query_group_xyz_kernel(
+                radius, nsample, xyz1.contiguous(), xyz2.contiguous())
+        else:
+            idx, cnt, grouped = ball_query_group_xyz_plain(radius, nsample,
+                                                           xyz1, xyz2)
+        ctx.mark_non_differentiable(idx, cnt)
+        ctx.save_for_backward(idx)
+        ctx.n = xyz1.shape[1]
+        return idx, cnt, grouped
+
+    @staticmethod
+    def backward(ctx, _gidx, _gcnt, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        (idx,) = ctx.saved_tensors
+        B, M, S = idx.shape
+        g = scatter_rows(grad.reshape(B, M * S, 3).contiguous(),
+                         idx.reshape(B, M * S), ctx.n)
+        return g, None, None, None
+
+
+def query_ball_and_group_xyz(radius: float, nsample: int, xyz1: torch.Tensor,
+                             xyz2: torch.Tensor):
+    """Ball query and the neighbours' coordinates in one pass.
+
+    The same as ``idx, cnt = query_ball_point(...)`` followed by
+    ``group_point(xyz1, idx)``, with xyz1 in f32. Returns (idx (B,M,nsample)
+    i32, pts_cnt (B,M) i32, grouped_xyz (B,M,nsample,3) f32, uncentred).
+    Differentiable in xyz1 (scatter-add), not in xyz2."""
+    return BallQueryGroupXyz.apply(xyz1.float(), xyz2.detach().float(),
+                                   radius, nsample)
+
+
+# ---------------------------------------------------------------------------
+# multi-radius ball query
+# ---------------------------------------------------------------------------
+
+MAX_RADII = 8  # kMaxRadii of csrc/ball_query.cu
+
+
+def ball_query_multi_plain(radii, nsamples, xyz1: torch.Tensor,
+                           xyz2: torch.Tensor):
+    """Plain PyTorch multi-radius ball query: the plain ball query at each
+    radius, a tuple of (idx, cnt) pairs."""
+    return tuple(ball_query_plain(r, ns, xyz1, xyz2)
+                 for r, ns in zip(radii, nsamples))
+
+
+def launch_ball_query_multi(radii, xyz1, xyz2, outs) -> None:
+    """Launch pn2_ball_query_multi of csrc/ball_query.cu on checked,
+    preallocated (idx, cnt) buffers, one pair per radius (no launch
+    count)."""
+    B, N, _ = xyz1.shape
+    M = xyz2.shape[1]
+    count = len(outs)
+    r2s = (ctypes.c_float * count)(*[_r2(r) for r in radii])
+    nss = (ctypes.c_int * count)(*[idx.shape[2] for idx, _ in outs])
+    idxs = (ctypes.c_void_p * count)(*[idx.data_ptr() for idx, _ in outs])
+    cnts = (ctypes.c_void_p * count)(*[cnt.data_ptr() for _, cnt in outs])
+    fn = _build.bind("ball_query", "pn2_ball_query_multi",
+                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                     + [ctypes.c_void_p])
+    with torch.cuda.device(xyz1.device):
+        err = fn(xyz1.data_ptr(), xyz2.data_ptr(), r2s, nss, idxs, cnts,
+                 count, B, N, M, _stream(xyz1))
+    _build.check("ball_query", err, "ball_query_multi launch")
+
+
+def ball_query_multi_kernel(radii, nsamples, xyz1: torch.Tensor,
+                            xyz2: torch.Tensor):
+    """CUDA multi-radius ball query (csrc/ball_query.cu), one scan of the
+    dataset for 1 to 8 radii in any order: xyz1 (B,N,3), xyz2 (B,M,3)
+    contiguous f32 on one card -> a tuple of (idx (B,M,nsample_i) i32,
+    cnt (B,M) i32), each bit-identical to the ball query at radius i."""
+    _check_xyz_pair(xyz1, xyz2)
+    radii, nsamples = tuple(radii), tuple(nsamples)
+    if len(radii) != len(nsamples) or not 1 <= len(radii) <= MAX_RADII:
+        raise ValueError(f"need 1 to {MAX_RADII} radii with one nsample "
+                         f"each, got {radii} and {nsamples}")
+    if min(nsamples) < 1:
+        raise ValueError(f"need every nsample >= 1, got {nsamples}")
+    B, M = xyz2.shape[:2]
+    outs = tuple((torch.empty((B, M, ns), dtype=torch.int32,
+                              device=xyz1.device),
+                  torch.empty((B, M), dtype=torch.int32, device=xyz1.device))
+                 for ns in nsamples)
+    if B * M == 0:
+        return outs
+    launch_ball_query_multi(radii, xyz1, xyz2, outs)
+    ball_query_multi_kernel.launches += 1
+    return outs
+
+
+ball_query_multi_kernel.launches = 0
+
+
+def query_ball_point_multi(radii, nsamples, xyz1: torch.Tensor,
+                           xyz2: torch.Tensor):
+    """Ball query at several radii over the same (dataset, queries) pair:
+    the same as ``[query_ball_point(r, ns, xyz1, xyz2) for r, ns in
+    zip(radii, nsamples)]``, in one launch on the card. Returns a tuple of
+    (idx (B,M,nsample_i) i32, cnt (B,M) i32) pairs. No gradient."""
+    xyz1 = xyz1.detach().float()
+    xyz2 = xyz2.detach().float()
+    if config.use_kernel(xyz1):
+        return ball_query_multi_kernel(radii, nsamples, xyz1.contiguous(),
+                                       xyz2.contiguous())
+    return ball_query_multi_plain(radii, nsamples, xyz1, xyz2)
+
+
+# ---------------------------------------------------------------------------
+# k nearest neighbours
+# ---------------------------------------------------------------------------
+
+
+def knn_point(k: int, xyz1: torch.Tensor, xyz2: torch.Tensor):
+    """k nearest neighbours of each query in the dataset (ops/grouping.py:
+    265-276): xyz1 (B, N, C) dataset, xyz2 (B, M, C) queries -> (val, idx),
+    (B, M, k) squared distances ascending and int32 indices, ties to the
+    lowest index. Plain PyTorch on both devices (the JAX package has no
+    Pallas kernel here): a stable ascending sort, since ``torch.topk``
+    promises no order among ties on CUDA."""
+    diff = xyz2[:, :, None, :] - xyz1[:, None, :, :]
+    d2 = diff[..., 0] * diff[..., 0]  # (B, M, N), summed in channel order
+    for c in range(1, diff.shape[-1]):
+        d2 = d2 + diff[..., c] * diff[..., c]
+    val, idx = torch.sort(d2, dim=-1, stable=True)
+    return val[..., :k], idx[..., :k].to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

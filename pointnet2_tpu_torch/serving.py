@@ -13,7 +13,9 @@ Port of pointnet2_tpu/serving.py:42-293:
   evaluate.py:126-141). By default the batch is uploaded once with the
   (V, N) permutations and the V views are built and scored on the card;
 - segmentation models give per-point logits, and ``predict_scene`` labels
-  every point of a whole scene through the same bucketed path.
+  every point of a whole scene through the same bucketed path;
+- the one-hot part segmenter takes each cloud's category label beside it,
+  padded and chunked with the points.
 
 Usage::
 
@@ -24,6 +26,9 @@ Usage::
     seg = Predictor("pointnet2_sem_seg", variables)
     logits = seg(blocks)                           # (B, 8192, 21) float32
     scene = seg.predict_scene(room_xyz)            # labels, logits, votes
+
+    parts = Predictor("pointnet2_part_seg_msg_one_hot", variables)
+    logits = parts(clouds, cls_label)              # (B, 2048, 50) float32
 """
 
 from __future__ import annotations
@@ -117,28 +122,45 @@ class Predictor:
         return np.concatenate([a, pad], axis=0)
 
     @torch.inference_mode()
-    def _run_padded(self, points: np.ndarray) -> np.ndarray:
+    def _run_padded(self, points: np.ndarray,
+                    cls_label: np.ndarray | None) -> np.ndarray:
         b = points.shape[0]
-        x = torch.from_numpy(self._pad(points)).to(self.device)
-        return self._model(x).float().cpu().numpy()[:b]
+        args = [torch.from_numpy(self._pad(points)).to(self.device)]
+        if cls_label is not None:
+            args.append(torch.from_numpy(self._pad(cls_label)).to(self.device))
+        return self._model(*args).float().cpu().numpy()[:b]
 
-    def __call__(self, points) -> np.ndarray:
-        """points: (B, N, C) float. Returns float32 logits, (B, K) for a
-        classifier and (B, N, K) for a segmentation model."""
+    def __call__(self, points, cls_label=None) -> np.ndarray:
+        """points: (B, N, C) float; cls_label: (B,) int, the object
+        category, for a ``part_seg_one_hot`` model (ignored by the others).
+        Returns float32 logits, (B, K) for a classifier and (B, N, K) for a
+        segmentation model."""
         points = np.asarray(points, np.float32)
         b = points.shape[0]
+        if self.task == "part_seg_one_hot":
+            if cls_label is None:
+                raise ValueError("part_seg_one_hot needs cls_label")
+            cls_label = np.asarray(cls_label, np.int32)
+            if cls_label.shape != (b,):
+                raise ValueError(f"cls_label must be ({b},), got "
+                                 f"{cls_label.shape}")
+        else:
+            cls_label = None
         if b == 0:
             per_point = () if self.task == "cls" else points.shape[1:2]
             return np.zeros((0, *per_point, self._model.num_classes),
                             np.float32)
         max_bucket = self._buckets[-1]
         if b <= max_bucket:
-            return self._run_padded(points)
-        return np.concatenate([self._run_padded(points[s:s + max_bucket])
-                               for s in range(0, b, max_bucket)], axis=0)
+            return self._run_padded(points, cls_label)
+        return np.concatenate([
+            self._run_padded(points[s:s + max_bucket],
+                             None if cls_label is None
+                             else cls_label[s:s + max_bucket])
+            for s in range(0, b, max_bucket)], axis=0)
 
-    def predict_proba(self, points) -> np.ndarray:
-        logits = self(points)
+    def predict_proba(self, points, cls_label=None) -> np.ndarray:
+        logits = self(points, cls_label)
         e = np.exp(logits - logits.max(axis=-1, keepdims=True))
         return e / e.sum(axis=-1, keepdims=True)
 

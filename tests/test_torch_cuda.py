@@ -356,3 +356,146 @@ def test_seg_predictor_kernel_path_equals_plain_path(dev, rs, name,
     assert got.shape == (3, 1024, pred.model.num_classes)
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# ball query with grouped xyz, multi-radius ball query, the MSG path
+# ---------------------------------------------------------------------------
+
+
+def _cloud_and_queries(rs, dev, B, N, M):
+    xyz1 = torch.from_numpy(rs.rand(B, N, 3).astype(np.float32)).to(dev)
+    pick = torch.from_numpy(rs.randint(0, N, M)).to(dev)
+    xyz2 = (xyz1[:, pick] + 0.01).contiguous()
+    return xyz1, xyz2
+
+
+@pytest.mark.parametrize("B,N,M,radius,nsample",
+                         [(2, 1024, 512, 0.2, 32), (2, 512, 128, 0.8, 128),
+                          (3, 100, 17, 0.2, 8), (2, 20, 8, 0.5, 32),
+                          (1, 300, 40, 2.0, 64), (2, 64, 300000, 0.3, 4)])
+def test_ball_query_group_xyz_kernel_matches_plain(dev, rs, B, N, M, radius,
+                                                   nsample):
+    """idx and cnt bit-identical to the plain version and to the ball query
+    kernel, grouped equal by value to xyz1[idx]. Cases: nsample > N, M not
+    a multiple of the block (8), and B*M = 600000 queries (75000 blocks,
+    past one 65535-block grid row)."""
+    xyz1, xyz2 = _cloud_and_queries(rs, dev, B, N, M)
+    before = ops.ball_query_group_xyz_kernel.launches
+    idx, cnt, grouped = ops.query_ball_and_group_xyz(radius, nsample, xyz1,
+                                                     xyz2)
+    assert ops.ball_query_group_xyz_kernel.launches == before + 1
+    widx, wcnt, wgrp = _plain(ops.query_ball_and_group_xyz, radius, nsample,
+                              xyz1, xyz2)
+    sidx, scnt = ops.query_ball_point(radius, nsample, xyz1, xyz2)
+    assert torch.equal(idx, widx) and torch.equal(cnt, wcnt)
+    assert torch.equal(idx, sidx) and torch.equal(cnt, scnt)
+    assert torch.equal(grouped, wgrp)
+    rows = torch.arange(B, device=dev)[:, None, None]
+    assert torch.equal(grouped, xyz1[rows, idx.long()])
+
+
+def test_ball_query_group_xyz_kernel_empty_ball_and_signed_zero(dev):
+    """An empty ball: index 0 and point 0's coordinates in every slot; a
+    -0.0 coordinate is copied as -0.0."""
+    xyz = torch.tensor([[[5.0, 5.0, 5.0], [-0.0, 0.0, -0.0], [6.0, 6.0, 6.0],
+                         [0.01, 0.0, 0.0]]], device=dev)
+    q = torch.tensor([[[0.0, 0.0, 0.0], [-3.0, -3.0, -3.0]]], device=dev)
+    idx, cnt, grouped = ops.query_ball_and_group_xyz(0.1, 4, xyz, q)
+    assert idx.tolist() == [[[1, 3, 1, 1], [0, 0, 0, 0]]]
+    assert cnt.tolist() == [[2, 0]]
+    assert grouped[0, 1].tolist() == [[5.0, 5.0, 5.0]] * 4
+    assert torch.signbit(grouped[0, 0, 0, 0]) and torch.signbit(
+        grouped[0, 0, 2, 2])
+
+
+def test_ball_query_group_xyz_grad_goes_through_the_scatter_kernel(dev, rs):
+    xyz1, xyz2 = _cloud_and_queries(rs, dev, 2, 512, 128)
+    ct = torch.from_numpy(rs.randn(2, 128, 32, 3).astype(np.float32)).to(dev)
+    x = xyz1.clone().requires_grad_()
+    before = (ops.scatter_rows_kernel.launches,
+              ops.ball_query_group_xyz_kernel.launches)
+    ops.query_ball_and_group_xyz(0.2, 32, x, xyz2)[2].backward(ct)
+    assert (ops.scatter_rows_kernel.launches,
+            ops.ball_query_group_xyz_kernel.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    y = xyz1.clone().requires_grad_()
+    with config.default_impl("torch"):
+        ops.query_ball_and_group_xyz(0.2, 32, y, xyz2)[2].backward(ct)
+    torch.testing.assert_close(x.grad, y.grad, rtol=1e-5,
+                               atol=1e-5 * float(y.grad.abs().max()))
+
+
+@pytest.mark.parametrize("B,N,M,radii,nsamples", [
+    (2, 1024, 512, (0.1, 0.2, 0.4), (16, 32, 128)),
+    (2, 512, 128, (0.8, 0.2, 0.4), (128, 32, 64)),  # unsorted
+    (3, 100, 17, (0.3, 0.3), (8, 16)),  # repeated
+    (2, 20, 9, (0.5,), (32,)),  # a single radius, nsample > N
+    (1, 40, 8, (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8), (4,) * 8),
+    (2, 64, 300000, (0.2, 0.4), (4, 8)),  # past one grid row
+])
+def test_ball_query_multi_kernel_matches_per_radius(dev, rs, B, N, M, radii,
+                                                    nsamples):
+    """Each radius bit-identical to the ball query kernel at that radius
+    and to the plain version; one launch for all."""
+    xyz1, xyz2 = _cloud_and_queries(rs, dev, B, N, M)
+    before = ops.ball_query_multi_kernel.launches
+    got = ops.query_ball_point_multi(radii, nsamples, xyz1, xyz2)
+    assert ops.ball_query_multi_kernel.launches == before + 1
+    want = _plain(ops.query_ball_point_multi, radii, nsamples, xyz1, xyz2)
+    for (idx, cnt), (widx, wcnt), r, ns in zip(got, want, radii, nsamples):
+        sidx, scnt = ops.query_ball_point(r, ns, xyz1, xyz2)
+        assert torch.equal(idx, sidx) and torch.equal(cnt, scnt)
+        assert torch.equal(idx, widx) and torch.equal(cnt, wcnt)
+
+
+def test_ball_query_multi_kernel_refuses_what_it_does_not_take(dev):
+    xyz = torch.zeros(1, 8, 3, device=dev)
+    with pytest.raises(ValueError, match="radii"):
+        ops.KERNELS["ball_query_multi"]((0.1,) * 9, (4,) * 9, xyz, xyz)
+    with pytest.raises(ValueError, match="radii"):
+        ops.KERNELS["ball_query_multi"]((0.1, 0.2), (4,), xyz, xyz)
+    with pytest.raises(ValueError, match="nsample"):
+        ops.KERNELS["ball_query_multi"]((0.1,), (0,), xyz, xyz)
+    outs = ops.KERNELS["ball_query_multi"]((0.1,), (4,), xyz,
+                                           torch.zeros(1, 0, 3, device=dev))
+    assert outs[0][0].shape == (1, 0, 4)
+
+
+@pytest.mark.parametrize("name,channels,label",
+                         [("pointnet2_cls_msg", 3, False),
+                          ("pointnet2_part_seg_msg_one_hot", 6, True),
+                          ("pointnet_cls_basic", 3, False)])
+def test_msg_predictor_kernel_path_equals_plain_path(dev, rs, name, channels,
+                                                     label):
+    """f32 logits through the kernels and through the plain versions on the
+    card: identical indices and exact gathers (bound 1e-5 of the range for
+    a cuBLAS algorithm choice that might differ)."""
+    pts = rs.rand(3, 1024, channels).astype(np.float32)
+    args = (pts, rs.randint(0, 16, 3)) if label else (pts,)
+    pred = Predictor(name, dtype=None, buckets=(4,))
+    got = pred(*args)
+    with config.default_impl("torch"):
+        want = pred(*args)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_unfused_msg_layer_launches_grouped_xyz_kernel(dev, rs):
+    """SetAbstractionMSG(fuse_first=False) launches the ball query with
+    grouped xyz once per radius and matches the fused layer on the same
+    weights (f32, rtol 1e-4 / atol 3e-5 as the JAX test)."""
+    from pointnet2_tpu_torch.nn import SetAbstractionMSG
+
+    xyz = torch.from_numpy(rs.rand(2, 1024, 3).astype(np.float32)).to(dev)
+    args = (512, (0.1, 0.2, 0.4), (16, 32, 128), 0,
+            ((32, 32, 64), (64, 64, 128), (64, 96, 128)))
+    fused = SetAbstractionMSG(*args).to(dev).eval()
+    plain = SetAbstractionMSG(*args, fuse_first=False).to(dev).eval()
+    plain.load_state_dict(fused.state_dict())
+    before = ops.ball_query_group_xyz_kernel.launches
+    with torch.inference_mode():
+        _, want = fused(xyz, None)
+        _, got = plain(xyz, None)
+    assert ops.ball_query_group_xyz_kernel.launches == before + 3
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=3e-5)

@@ -22,15 +22,24 @@ _SCRIPT = textwrap.dedent("""
     assert not bad, bad
     import torch
     assert not torch.cuda.is_available()
-    from pointnet2_tpu_torch import (Predictor, PointNet2ClsSSG,
-                                     PointNet2PartSeg, PointNet2SemSeg,
+    from pointnet2_tpu_torch import (Predictor, PointNet2ClsMSG,
+                                     PointNet2ClsSSG, PointNet2PartSeg,
+                                     PointNet2PartSegMSGOneHot,
+                                     PointNet2SemSeg, PointNetClsBasic,
                                      TrainConfig, Trainer)
     for make in (lambda: Predictor("pointnet2_cls_ssg"),
                  lambda: Predictor("pointnet2_sem_seg"),
                  lambda: Predictor("pointnet2_part_seg"),
+                 lambda: Predictor("pointnet2_cls_msg"),
+                 lambda: Predictor("pointnet2_part_seg_msg_one_hot"),
+                 lambda: Predictor("pointnet_cls_basic"),
                  lambda: PointNet2ClsSSG(),
                  lambda: PointNet2SemSeg(),
                  lambda: PointNet2PartSeg(),
+                 lambda: PointNet2ClsMSG(),
+                 lambda: PointNet2PartSegMSGOneHot(),
+                 lambda: PointNetClsBasic(),
+                 lambda: Trainer(TrainConfig(model="pointnet2_cls_msg")),
                  lambda: Trainer(TrainConfig())):
         try:
             make()

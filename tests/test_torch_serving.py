@@ -132,4 +132,4 @@ def test_bf16_predictor_close_to_f32(rng, variables, predictors):
 
 def test_unknown_model_lists_ported():
     with pytest.raises(KeyError, match="pointnet2_cls_ssg"):
-        Predictor("pointnet2_part_seg_msg_one_hot", device="cpu")
+        Predictor("pointnet3_cls", device="cpu")
