@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``pointnet2_tpu_torch``).
 
-Drives the port's paths at full width on one NVIDIA GPU through its seven
+Drives the port's paths at full width on one NVIDIA GPU through its ten
 hand-written CUDA kernels (FPS, ball query, ball query with grouped xyz,
-multi-radius ball query, row gather, row scatter-add, three-NN):
+multi-radius ball query, row gather, row scatter-add, three-NN, and the fused
+SA chain's dense pass, pooled tail and affine tail):
 classifier serving, ``Predictor("pointnet2_cls_ssg")`` (1024 points, 40
 classes, buckets 1/4/16/64, bf16 and f32, 12-vote ``predict_votes``);
 training, ``Trainer.fit`` (batch 16, 1024 points, on-device augmentation,
@@ -13,7 +14,9 @@ ScanNet blocks, 21 classes, and ``predict_scene`` on a whole room) and
 and multi-scale grouping, ``Predictor("pointnet2_cls_msg")``,
 ``Predictor("pointnet2_part_seg_msg_one_hot")`` (with category labels) and
 ``Predictor("pointnet_cls_basic")``, with the MSG layers' unfused layout and
-the multi-radius ball query. Phases:
+the multi-radius ball query; and the fused SA chain (``config.fused_mlp``)
+through ``Predictor`` for the five models with fused-eligible SA layers.
+Phases:
 
 1. build the kernels from ``pointnet2_tpu_torch/csrc/`` with nvcc, one
    process per source, all at once;
@@ -75,7 +78,26 @@ the multi-radius ball query. Phases:
     versions and the launches of the default path they stand for (the ball
     query plus the xyz gather; the per-radius ball queries), the MSG
     forwards at B=16 and 64, peak memory, and a bf16 B=16 forward's device
-    time by op.
+    time by op;
+16. hold the fused chain's three kernels against their plain versions at
+    every fused chain of the five models at B=16 (their own weights and BN
+    statistics, random inputs), f32 and bf16, and at a ragged shape (1000
+    rows, 196 -> 40): the dense pass within 1e-5 of max|y| in f32 and one
+    bf16 ulp in bf16, its column statistics within a summation-order bound
+    and bit for bit across two launches; the pooled and affine tails bit
+    for bit;
+17. serve cls_ssg, cls_msg, sem_seg, part_seg and part_seg_msg (with
+    labels) with ``config.fused_mlp(True)``, requests of 16 and 64 in bf16
+    and f32, each model's run with every launch counter set to 0 just
+    before and read just after; compare with the plain versions on the card
+    and with the unfused route at B=16 (f32 within 1e-4 of the range, bf16
+    within 2%), and with the CPU on 2 inputs; a train step with the gate on
+    must raise;
+18. time the three kernels per launch at a bf16 cls_ssg forward's shapes
+    beside their bounds, their plain versions and the unfused PyTorch ops
+    each stands for; the fused and unfused forwards of the five models at
+    B=16 and 64 in bf16 and f32 (host ms, device time, peak memory); and a
+    fused bf16 B=16 forward's device time by op.
 
 Prints the GPU's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
@@ -111,6 +133,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 # (csrc/common.cuh sq_dist) forbid contraction, so they issue at most one
 # f32 operation an instruction: half that rate.
 F32_NO_FMA_OPS_PER_S = 33.5e12
+# a matrix product's bound: bf16 on the tensor cores (dense), f32 as FMAs
+BF16_TENSOR_OPS_PER_S = 989e12
+F32_FMA_OPS_PER_S = 67e12
 
 REPLACES = {
     "fps": "pointnet2_tpu/ops/pallas/fps.py:103",
@@ -120,6 +145,9 @@ REPLACES = {
     "gather_rows": "pointnet2_tpu/ops/pallas/group.py:189",
     "scatter_rows": "pointnet2_tpu/ops/pallas/group.py:227",
     "three_nn": "pointnet2_tpu/ops/pallas/three_nn.py:67",
+    "fused_dense": "pointnet2_tpu/ops/pallas/fused_mlp.py:141",
+    "fused_pool": "pointnet2_tpu/ops/pallas/fused_mlp.py:189",
+    "fused_affine": "pointnet2_tpu/ops/pallas/fused_mlp.py:215",
 }
 SOURCES = {
     "fps": "pointnet2_tpu_torch/csrc/fps.cu",
@@ -129,6 +157,9 @@ SOURCES = {
     "gather_rows": "pointnet2_tpu_torch/csrc/gather.cu",
     "scatter_rows": "pointnet2_tpu_torch/csrc/scatter.cu",
     "three_nn": "pointnet2_tpu_torch/csrc/three_nn.cu",
+    "fused_dense": "pointnet2_tpu_torch/csrc/fused_mlp.cu",
+    "fused_pool": "pointnet2_tpu_torch/csrc/fused_mlp.cu",
+    "fused_affine": "pointnet2_tpu_torch/csrc/fused_mlp.cu",
 }
 TRAIN_EPOCHS = 4  # per dtype in phase 8
 # the serving path's kernel shapes: (B, N) -> npoint, then the ball query
@@ -334,11 +365,12 @@ def drive_main_path(torch, predictors: dict, clouds: np.ndarray) -> dict:
     return out
 
 
-def roofline(ops_: float, byts: float) -> tuple:
+def roofline(ops_: float, byts: float,
+             rate: float = F32_NO_FMA_OPS_PER_S) -> tuple:
     """(ms, "operations" or "bytes"): the least time the card could take
-    for `ops_` f32 operations (no FMA) and `byts` bytes of device memory
-    traffic, and which of the two it is."""
-    t_ops = ops_ / F32_NO_FMA_OPS_PER_S * 1e3
+    for `ops_` operations at `rate` (default: f32 without FMA) and `byts`
+    bytes of device memory traffic, and which of the two it is."""
+    t_ops = ops_ / rate * 1e3
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -431,16 +463,11 @@ def kernel_table(rows: dict, launches: dict, errs: dict) -> list:
     } for name in REPLACES]
 
 
-def profile_device(torch, fn, reps: int, label: str, unit: str,
-                   ours=tuple(REPLACES), host_us: float | None = None) -> None:
-    """Where the device time of `reps` calls of `fn` goes, by
-    torch.profiler: device time by host op and by kernel per call, and the
-    share of the wall time the device was busy under the profiler (whose
-    own cost inflates the wall time) and, given `host_us`, of that
-    unprofiled wall time of one call. One warm-up step runs inside the
-    profiler before the recorded ones (without it the trace loses the
-    first kernels of its window), and the trace's launches of the port's
-    kernels are held against the wrappers' counters."""
+def trace_device(torch, fn, reps: int) -> tuple:
+    """torch.profiler over `reps` calls of `fn` after one warm-up step
+    inside the profiler: (device kernels, host ops with the device time
+    they launched, each as (us per call, calls per call, name); wall us
+    per call under the profiler; the wrappers' launches in the window)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from pointnet2_tpu_torch import ops
@@ -474,6 +501,20 @@ def profile_device(torch, fn, reps: int, label: str, unit: str,
             kernels.append((us / reps, e.count / reps, e.key))
         elif us > 0:  # a host op, charged with the kernels it launched
             ops_.append((us / reps, e.count / reps, e.key))
+    return kernels, ops_, wall_us, launched
+
+
+def profile_device(torch, fn, reps: int, label: str, unit: str,
+                   ours=tuple(REPLACES), host_us: float | None = None) -> None:
+    """Where the device time of `reps` calls of `fn` goes, by
+    torch.profiler: device time by host op and by kernel per call, and the
+    share of the wall time the device was busy under the profiler (whose
+    own cost inflates the wall time) and, given `host_us`, of that
+    unprofiled wall time of one call. One warm-up step runs inside the
+    profiler before the recorded ones (without it the trace loses the
+    first kernels of its window), and the trace's launches of the port's
+    kernels are held against the wrappers' counters."""
+    kernels, ops_, wall_us, launched = trace_device(torch, fn, reps)
     busy = sum(r[0] for r in kernels)
     if busy == 0:
         log(f"  profile {label}: the profiler saw no device time (not "
@@ -1501,6 +1542,392 @@ def time_msg(torch, dev, gpu: str, levels: list, preds: dict, clouds, parts,
                        host_us=host[name, "bf16", MSG_TIMED[0]] * 1e3)
 
 
+# --- the fused SA chain -------------------------------------------------------
+
+CLS_SSG = "pointnet2_cls_ssg"
+FUSED_MODELS = (CLS_SSG, CLS_MSG, SEM, PART, PART_MSG)
+FUSED_REQS = (16, 64)  # phase 17's requests and phase 18's timed batches
+# launches per forward of each model's main path with config.fused_mlp on:
+# the launches of the default path, plus the fused chain's dense passes (one
+# per dense after the lifted first) and pooled tails (one per fused chain)
+FUSED_PER_FWD = {
+    CLS_SSG: {**_NONE, "fps": 2, "ball_query": 2, "gather_rows": 4,
+              "fused_dense": 4, "fused_pool": 2},
+    CLS_MSG: {**MSG_PER_FWD[CLS_MSG], "fused_dense": 12, "fused_pool": 6},
+    SEM: {**_NONE, **SEG_PER_FWD[SEM], "fused_dense": 8, "fused_pool": 4},
+    PART: {**_NONE, **SEG_PER_FWD[PART], "fused_dense": 4, "fused_pool": 2},
+    PART_MSG: {**MSG_PER_FWD[PART_MSG], "fused_dense": 10, "fused_pool": 5},
+}
+RAGGED = (1000, 196, 40)  # rows, Cin, Cout of phase 16's ragged shape
+
+
+def fused_chains(torch, models: dict, B: int = 16) -> list:
+    """Every chain that takes the fused route in these models (the
+    fuse_first layout's max-pooled SharedMLPs of >= 2 layers): (tag, the
+    SharedMLP, its rows B*npoint*nsample, nsample)."""
+    from pointnet2_tpu_torch.nn import SetAbstraction, SetAbstractionMSG
+
+    out = []
+    for name, model in models.items():
+        for lname, mod in model.named_children():
+            if (isinstance(mod, SetAbstraction) and mod.fuse_first
+                    and not mod.group_all and mod.pooling == "max"):
+                scales = [(lname, mod.mlp_mod, mod.npoint, mod.nsample)]
+            elif isinstance(mod, SetAbstractionMSG) and mod.fuse_first:
+                scales = [(f"{lname}.{i}", m, mod.npoint, ns)
+                          for i, (m, ns) in enumerate(zip(mod.mlp_mods,
+                                                          mod.nsample_list))]
+            else:
+                continue
+            for tag, mlp, npoint, ns in scales:
+                if len(mlp.blocks) >= 2:
+                    out.append((f"{name[10:]} {tag}", mlp, B * npoint * ns,
+                                ns))
+    return out
+
+
+def mlp_affines(mlp) -> list:
+    """The eval BN of each block of a SharedMLP as its f32 affine (a, b)."""
+    from pointnet2_tpu_torch.ops import fused_mlp
+
+    return [fused_mlp.bn_affine(b.norm.weight, b.norm.bias,
+                                b.norm.running_mean, b.norm.running_var,
+                                b.norm.epsilon) for b in mlp.blocks]
+
+
+def check_dense(torch, tag, x, a, b, w, bias, check: Checks,
+                errs: dict) -> torch.Tensor:
+    """One dense pass, kernel against plain; returns the kernel's y."""
+    from pointnet2_tpu_torch.ops import fused_mlp
+
+    y, s, ss = fused_mlp.fused_dense_kernel(x, a, b, w, bias, True)
+    _, s2, ss2 = fused_mlp.fused_dense_kernel(x, a, b, w, bias, True)
+    want, _, _ = fused_mlp.dense_fwd_plain(x, a, b, w, bias)
+    d = (y.float() - want.float()).abs()
+    scale = float(want.float().abs().max())
+    if x.dtype == torch.float32:
+        errs["fused_dense"] = max(errs["fused_dense"], float(d.max()))
+        ok = float(d.max()) <= 1e-5 * scale
+        bound = "1e-5 of max|y|"
+    else:
+        ok = bool((d <= bf16_ulp(torch, want.float())).all())
+        bound = "1 bf16 ulp"
+    # statistics: f32 sums of the same rounded y in another order, each
+    # within (R-1)*2^-24*sum|terms| of the exact sum
+    yf = y.float()
+    R = x.shape[0]
+    sb = 2 * R * 2.0 ** -24
+    stats_ok = (bool(((s - yf.sum(0)).abs() <= sb * yf.abs().sum(0)).all())
+                and bool(((ss - (yf * yf).sum(0)).abs()
+                          <= sb * (yf * yf).sum(0)).all()))
+    same = torch.equal(s, s2) and torch.equal(ss, ss2)
+    check(ok and stats_ok and same,
+          f"fused_dense {tag} {str(x.dtype)[6:]} ({R}, {x.shape[1]}) -> "
+          f"{w.shape[0]}: max abs diff {float(d.max()):.3e} (max|y| "
+          f"{scale:.3f}, {float((d > 0).float().mean()):.4%} of elements "
+          f"differ) within {bound}; statistics within the summation-order "
+          f"bound {stats_ok}, two launches bitwise equal {same}")
+    return y
+
+
+def check_tails(torch, tag, y3d, a, b, check: Checks, errs: dict) -> None:
+    """The pooled and affine tails on the same y, bit for bit."""
+    from pointnet2_tpu_torch.ops import fused_mlp
+
+    view = torch.int16 if y3d.dtype == torch.bfloat16 else torch.int32
+    y2d = y3d.reshape(-1, y3d.shape[-1])
+    for name, got, want in (
+            ("fused_pool", fused_mlp.fused_pool_kernel(y3d, a, b),
+             fused_mlp.pool_fwd_plain(y3d, a, b)),
+            ("fused_affine", fused_mlp.fused_affine_kernel(y2d, a, b),
+             fused_mlp.affine_fwd_plain(y2d, a, b))):
+        errs[name] = max(errs[name],
+                         float((got.float() - want.float()).abs().max()))
+        check(torch.equal(got.view(view), want.view(view)),
+              f"{name} {tag} {str(y3d.dtype)[6:]} {tuple(y3d.shape)}: bit "
+              "for bit the plain version")
+
+
+def check_fused_kernels(torch, dev, chains: list, check: Checks,
+                        errs: dict) -> int:
+    """Phase 16: each fused kernel against its plain version along every
+    fused chain at B=16, f32 and bf16, and at the ragged shape. Returns the
+    affine kernel's launches (it runs on no model path)."""
+    from pointnet2_tpu_torch import ops
+
+    log("phase 16: the fused chain's kernels vs plain versions on the card, "
+        "every fused chain of the five models at B=16")
+    before = ops.KERNELS["fused_affine"].launches
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    with torch.no_grad():
+        for tag, mlp, R, ns in chains:
+            check_chain(torch, dev, g, tag, mlp, R, ns, check, errs)
+        check_ragged(torch, dev, g, check, errs)
+    torch.cuda.synchronize()
+    return ops.KERNELS["fused_affine"].launches - before
+
+
+def check_chain(torch, dev, g, tag, mlp, R, ns, check, errs) -> None:
+    """One fused chain from random inputs, f32 and bf16: each dense pass on
+    the previous one's output, then both tails on the last."""
+    affines = mlp_affines(mlp)
+    for dt in (torch.bfloat16, torch.float32):
+        cur = torch.randn((R, mlp.blocks[0].dense.out_features), generator=g,
+                          device=dev).to(dt)
+        for (a, b), block in zip(affines, mlp.blocks[1:]):
+            cur = check_dense(torch, tag, cur, a, b, block.dense.weight,
+                              block.dense.bias, check, errs)
+        a, b = affines[-1]
+        check_tails(torch, tag, cur.reshape(R // ns, ns, -1), a, b, check,
+                    errs)
+
+
+def check_ragged(torch, dev, g, check, errs) -> None:
+    """The kernels at a shape no model has: rows, Cin and Cout off every
+    tile."""
+    R, cin, cout = RAGGED
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.randn((R, cin), generator=g, device=dev).to(dt)
+        a = torch.randn(cin, generator=g, device=dev)
+        b = 0.1 * torch.randn(cin, generator=g, device=dev)
+        w = torch.randn((cout, cin), generator=g, device=dev) / cin ** 0.5
+        bias = 0.1 * torch.randn(cout, generator=g, device=dev)
+        y = check_dense(torch, "ragged", x, a, b, w, bias, check, errs)
+        check_tails(torch, "ragged", y.reshape(R // 8, 8, cout),
+                    torch.randn(cout, generator=g, device=dev), 0.1 *
+                    torch.randn(cout, generator=g, device=dev), check, errs)
+
+
+def fused_request(name: str, data: dict, b: int) -> tuple:
+    """A request of b inputs to a model: its points (and labels)."""
+    if name == PART_MSG:
+        return data[PART_MSG][:b], data["labels"][:b]
+    return (data[name][:b],)
+
+
+def drive_fused(torch, preds: dict, data: dict) -> dict:
+    """Phase 17's main-path runs with config.fused_mlp on, one per model
+    from the launch counters' zero: requests of 16 and 64 in bf16 and f32.
+    Returns outputs, launches and forward calls by model."""
+    from pointnet2_tpu_torch import config, ops
+
+    out = {"launches": {}, "forwards": {}}
+    with config.fused_mlp(True):
+        for name in FUSED_MODELS:
+            for w in ops.KERNELS.values():
+                w.launches = 0
+            before = {dt: preds[(name, dt)].calls[0] for dt in ("bf16", "f32")}
+            for dt in ("bf16", "f32"):
+                for b in FUSED_REQS:
+                    out[(name, dt, b)] = preds[(name, dt)].pred(
+                        *fused_request(name, data, b))
+            torch.cuda.synchronize()
+            out["launches"][name] = {k: w.launches
+                                     for k, w in ops.KERNELS.items()}
+            out["forwards"][name] = sum(preds[(name, dt)].calls[0] - before[dt]
+                                        for dt in ("bf16", "f32"))
+    return out
+
+
+def check_fused(torch, dev, preds: dict, run: dict, data: dict, sds: dict,
+                log_dir: str, check: Checks) -> None:
+    """Phase 17's checks on the main-path runs."""
+    from pointnet2_tpu_torch import Predictor, config
+
+    for name, per in FUSED_PER_FWD.items():
+        n = run["forwards"][name]
+        got = run["launches"][name]
+        log(f"  {name}: launches in its fused main-path run ({n} forwards): "
+            f"{got}")
+        check(all(got[k] == per[k] * n for k in per),
+              f"{name}: launches per forward {per['fused_dense']} fused_dense, "
+              f"{per['fused_pool']} fused_pool, 0 fused_affine, and the "
+              "default path's point kernels")
+    for key, lg in run.items():
+        if isinstance(key, tuple):
+            name, _, b = key
+            shape = {CLS_SSG: (b, NUM_CLASSES), CLS_MSG: (b, NUM_CLASSES),
+                     SEM: (b, SEM_N, 21), PART: (b, PART_N, 50),
+                     PART_MSG: (b, PART_N, 50)}[name]
+            check(lg.shape == shape and bool(np.isfinite(lg).all()),
+                  f"fused {key}: shape {lg.shape}, finite")
+    # B=16 against the plain versions with the gate on (the same route, the
+    # kernels' summation order against cuBLAS's) and against the unfused
+    # route on the card (the BN affine reassociates): f32 within 1e-4 of
+    # the logit range, bf16 within 2%
+    tol = {"f32": 1e-4, "bf16": 0.02}
+    for name in FUSED_MODELS:
+        for dt in ("bf16", "f32"):
+            pred = preds[(name, dt)].pred
+            req = fused_request(name, data, 16)
+            with config.fused_mlp(True), config.default_impl("torch"):
+                plain = pred(*req)
+            unfused = pred(*req)
+            got = run[(name, dt, 16)]
+            for what, want in (("plain versions", plain),
+                               ("unfused route", unfused)):
+                err, scale, ok = close(got, want, tol[dt])
+                agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+                check(ok, f"{name} {dt} B=16 fused vs {what}: max abs diff "
+                      f"{err:.3e} (range {scale:.3f}), argmax agreement "
+                      f"{agree:.4f}")
+    # f32 on the card vs the CPU's plain fused route, 2 inputs
+    with config.fused_mlp(True):
+        for name in FUSED_MODELS:
+            cpu = Predictor(name, sds[name], dtype=torch.float32, device="cpu")
+            err, scale, ok = close(run[(name, "f32", 16)][:2],
+                                   cpu(*fused_request(name, data, 2)), 1e-4)
+            check(ok, f"{name} f32 fused on the card vs the CPU, 2 inputs: "
+                  f"max abs diff {err:.3e} (range {scale:.3f})")
+    # the train-mode chain is not ported: a train step with the gate on
+    # raises instead of taking another route
+    batch = train_batch(torch, dev)
+    with make_trainer(torch, "bfloat16", os.path.join(log_dir, "fused"),
+                      1) as tr:
+        try:
+            with config.fused_mlp(True):
+                one_step(torch, tr, batch, "auto")
+            raised = ""
+        except NotImplementedError as e:
+            raised = str(e)
+    check("Queue 1 item 2" in raised, "a train step with the gate on raises "
+          f"NotImplementedError ({raised[:60]}...)")
+    torch.cuda.synchronize()
+
+
+def dense_bound(R: int, cin: int, cout: int, isz: int) -> tuple:
+    """x read and y written in the activation type, W, bias, a, b in f32;
+    2*R*Cin*Cout operations at the tensor cores' bf16 or the f32 FMA rate."""
+    byts = (R * cin + R * cout) * isz + (cin * cout + cout + 2 * cin) * 4
+    rate = BF16_TENSOR_OPS_PER_S if isz == 2 else F32_FMA_OPS_PER_S
+    return roofline(2 * R * cin * cout, byts, rate)
+
+
+def time_fused_kernels(torch, dev, gpu: str, chains: list,
+                       rows: dict) -> None:
+    """Phase 18a: the three kernels per launch at a cls_ssg forward's
+    shapes at B=16 (the table holds bf16), their bounds, plain versions and
+    the unfused PyTorch ops each stands for (row 10: affine, relu, cast,
+    addmm; row 11: relu(y*a + b), cast, amax; row 12: the affine and relu,
+    cast), timed here only."""
+    log(f"phase 18: fused kernels per launch at a cls_ssg forward's shapes, "
+        f"B=16, on {gpu} (kernel and unfused ops with the queue pre-filled, "
+        "plain with the host in the loop)")
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    with torch.no_grad():
+        for dt in (torch.bfloat16, torch.float32):
+            time_cls_ssg_chains(torch, dev, g, dt, chains, rows)
+
+
+def time_cls_ssg_chains(torch, dev, g, dt, chains: list, rows: dict) -> None:
+    """Phase 18a in one activation type: each dense pass, then both tails
+    on the last one's output, of cls_ssg's two fused chains."""
+    from pointnet2_tpu_torch.ops import fused_mlp
+
+    isz = 2 if dt == torch.bfloat16 else 4
+    for tag, mlp, R, ns in chains:
+        if not tag.startswith("cls_ssg"):
+            continue
+        affines = mlp_affines(mlp)
+        x = torch.randn((R, mlp.blocks[0].dense.out_features), generator=g,
+                        device=dev).to(dt)
+        for (a, b), block in zip(affines, mlp.blocks[1:]):
+            w, bias = block.dense.weight, block.dense.bias
+            cin, cout = w.shape[1], w.shape[0]
+            y = torch.empty((R, cout), dtype=dt, device=dev)
+            w_t, bias_t = w.to(dt).t(), bias.to(dt)
+            ms = event_ms(torch, lambda: fused_mlp.launch_fused_dense(
+                x, a, b, w, bias, y), 50, prefill=True)
+            plain = event_ms(torch, lambda: fused_mlp.dense_fwd_plain(
+                x, a, b, w, bias), 10)
+            library = event_ms(torch, lambda: torch.addmm(
+                bias_t, torch.relu(x.float() * a + b).to(dt), w_t), 50,
+                prefill=True)
+            emit(torch, rows, "fused_dense", f"{tag} ({R},{cin})->{cout}",
+                 dt, ms, plain, dense_bound(R, cin, cout, isz), library)
+            x = y
+        a, b = affines[-1]
+        C = x.shape[1]
+        y3d = x.reshape(R // ns, ns, C)
+        out = torch.empty((R // ns, C), dtype=dt, device=dev)
+        ms = event_ms(torch, lambda: fused_mlp.launch_fused_pool(
+            y3d, a, b, out), 50, prefill=True)
+        plain = event_ms(torch, lambda: fused_mlp.pool_fwd_plain(y3d, a, b),
+                         10)
+        library = event_ms(torch, lambda: torch.relu(
+            y3d.float() * a + b).to(dt).amax(1), 50, prefill=True)
+        byts = (y3d.numel() + out.numel()) * isz + 2 * C * 4
+        emit(torch, rows, "fused_pool", f"{tag} {tuple(y3d.shape)}", dt, ms,
+             plain, roofline(0, byts), library)
+        out = torch.empty_like(x)
+        ms = event_ms(torch, lambda: fused_mlp.launch_fused_affine(
+            x, a, b, out), 50, prefill=True)
+        plain = event_ms(torch, lambda: fused_mlp.affine_fwd_plain(x, a, b),
+                         10)
+        library = event_ms(torch, lambda: torch.relu(
+            x.float() * a + b).to(dt), 50, prefill=True)
+        emit(torch, rows, "fused_affine", f"{tag} {tuple(x.shape)}", dt, ms,
+             plain, roofline(0, 2 * x.numel() * isz + 2 * C * 4), library)
+
+
+def emit(torch, rows: dict, name: str, shape: str, dt, ms, plain, bound,
+         library):
+    """bf16 times go into the table (a bf16 forward's launches), f32 ones
+    into the log only."""
+    if dt == torch.bfloat16:
+        add_time(rows, name, f"{shape} bf16", ms, plain, bound, library)
+    else:
+        log(f"  {name:<12} {shape + ' f32':<44} kernel {ms:.6f} ms  plain "
+            f"{plain:.6f} ms  bound {bound[0]:.6f} ms ({bound[1]}) library "
+            f"{library:.6f} ms")
+    log(f"   {name} {shape}: {bound[0] / ms:.1%} of the {bound[1]} roofline;"
+        f" kernel {ms / library:.2f}x the unfused ops")
+
+
+def time_fused_forwards(torch, gpu: str, preds: dict, data: dict) -> None:
+    """Phase 18b: fused against unfused forwards of the five models at B=16
+    and 64 in bf16 and f32: host ms (median of 5), device time (torch
+    profiler, busy us per forward), peak device memory; then where a fused
+    bf16 B=16 forward's device time goes."""
+    from pointnet2_tpu_torch import config
+
+    log(f"phase 18: fused vs unfused forwards (host clock, numpy in and out; "
+        f"device time by torch.profiler) on {gpu}")
+    host = {}
+    for name in FUSED_MODELS:
+        for dt in ("bf16", "f32"):
+            pred = preds[(name, dt)].pred
+            for b in FUSED_REQS:
+                req = fused_request(name, data, b)
+                line = []
+                for route in ("unfused", "fused"):
+                    with config.fused_mlp(route == "fused"):
+                        ms = host[name, dt, b, route] = host_ms(
+                            torch, lambda: pred(*req), 5)
+                        kernels, _, _, _ = trace_device(
+                            torch, lambda: pred(*req), 2)
+                        torch.cuda.reset_peak_memory_stats()
+                        pred(*req)
+                        torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                    busy = sum(r[0] for r in kernels)
+                    line.append(f"{route} {ms:.3f} ms host, {busy:.1f} us "
+                                f"device, {sum(r[1] for r in kernels):.0f} "
+                                f"ops, peak {peak:.2f} GiB")
+                log(f"  {name} {dt} B={b}: " + "; ".join(line))
+    log(f"phase 18: where a fused bf16 B=16 forward's device time goes "
+        f"(torch.profiler) on {gpu}")
+    with config.fused_mlp(True):
+        for name in FUSED_MODELS:
+            pred = preds[(name, "bf16")].pred
+            b = FUSED_REQS[0]
+            req = fused_request(name, data, b)
+            profile_device(torch, lambda: pred(*req), 3,
+                           f"{name} fused bf16 B={b}", "forward",
+                           host_us=host[name, "bf16", b, "fused"] * 1e3)
+
+
+
 def main() -> int:
     try:
         import torch
@@ -1530,12 +1957,16 @@ def main() -> int:
     log("phase 1: build the kernels with nvcc")
     t0 = time.perf_counter()
     _build.build_all()
-    log(f"  built {', '.join(_build.SOURCES)} in "
-        f"{time.perf_counter() - t0:.2f} s into {_build.BUILD_DIR.name}/")
+    log(f"  built {len(_build.SOURCES)} sources ({', '.join(_build.SOURCES)})"
+        f" in {time.perf_counter() - t0:.2f} s into {_build.BUILD_DIR.name}/")
+    log("  ptxas -v of csrc/fused_mlp.cu (registers, shared memory, spills):")
+    for line in _build.ptxas_report("fused_mlp"):
+        log(f"   {line}")
 
     errs = {"fps": 0, "ball_query": 0, "ball_query_group_xyz": 0,
             "ball_query_multi": 0, "gather_rows": 0.0, "scatter_rows": 0.0,
-            "three_nn": 0}
+            "three_nn": 0, "fused_dense": 0.0, "fused_pool": 0.0,
+            "fused_affine": 0.0}
     for B in (16, 768):
         check_kernels(torch, dev, B, check, errs)
 
@@ -1682,12 +2113,32 @@ def main() -> int:
     msg = drive_msg(torch, dev, msg_preds, clouds, parts, labels)
     check_msg(torch, msg_preds, msg, clouds, parts, labels, msg_sds, check)
     time_msg(torch, dev, gpu, levels, msg_preds, clouds, parts, labels, rows)
+
+    data = {CLS_SSG: clouds, CLS_MSG: clouds, SEM: blocks, PART: parts,
+            PART_MSG: parts, "labels": labels}
+    fused_sds = {CLS_SSG: sd, SEM: sds[SEM], PART: sds[PART],
+                 CLS_MSG: msg_sds[CLS_MSG], PART_MSG: msg_sds[PART_MSG]}
+    fused_preds = {**preds, **msg_preds}
+    for dt, t in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        fused_preds[(CLS_SSG, dt)] = Served(CLS_SSG, sd, t)
+    chains = fused_chains(torch, {name: fused_preds[(name, "f32")].pred.model
+                                  for name in FUSED_MODELS})
+    affine_launches = check_fused_kernels(torch, dev, chains, check, errs)
+    log("phase 17: serve cls_ssg, cls_msg, sem_seg, part_seg and "
+        "part_seg_msg with config.fused_mlp(True) through the kernels")
+    fused = drive_fused(torch, fused_preds, data)
+    check_fused(torch, dev, fused_preds, fused, data, fused_sds, log_dir,
+                check)
+    time_fused_kernels(torch, dev, gpu, chains, rows)
+    time_fused_forwards(torch, gpu, fused_preds, data)
     # launches of each kernel over every main-path run (classifier serving,
     # training, sem_seg and part_seg serving, the MSG models' serving and
-    # the MSG layers' other routes)
+    # the MSG layers' other routes, the fused route's serving); the affine
+    # tail runs on no model path, so its phase-16 launches count
     runs = [fit["counts"], seg["launches"][SEM], seg["launches"][PART],
-            *msg["launches"].values()]
+            *msg["launches"].values(), *fused["launches"].values()]
     launches = {k: launches[k] + sum(r[k] for r in runs) for k in REPLACES}
+    launches["fused_affine"] += affine_launches
     check(all(launches[k] > 0 for k in REPLACES),
           "every kernel was launched in the main-path runs")
     table = kernel_table(rows, launches, errs)

@@ -1,7 +1,7 @@
 """Kernel dispatch for the port's point ops, the device check of its entry
-points, and the pool-before-affine gate.
+points, the fused SA-chain gate and the pool-before-affine gate.
 
-Counterpart of pointnet2_tpu/config.py:22-62,115-141. Each point op with a
+Counterpart of pointnet2_tpu/config.py:22-62,81-141. Each point op with a
 hand-written CUDA kernel (FPS, ball query, row gather) also has a plain
 PyTorch version with the same semantics, in the same module. Which one runs
 is decided by the device of the tensor it is given:
@@ -80,6 +80,36 @@ def disable_tf32() -> None:
     mantissa bits."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+# --- fused SA-chain dispatch -------------------------------------------------
+#
+# The set-abstraction MLP chains (dense+BN+ReLU stacks + max-pool) can run as
+# fused CUDA kernels (ops/fused_mlp.py, csrc/fused_mlp.cu) instead of
+# discrete PyTorch ops. Default: OFF, as in the reference
+# (pointnet2_tpu/config.py:81-112); H100 numbers in PERF.md.
+
+_FUSED_MLP = False
+
+
+def fused_mlp_enabled() -> bool:
+    return _FUSED_MLP
+
+
+def set_fused_mlp(enabled: bool) -> None:
+    global _FUSED_MLP
+    _FUSED_MLP = bool(enabled)
+
+
+@contextlib.contextmanager
+def fused_mlp(enabled: bool):
+    """Context manager to temporarily toggle the fused SA-chain kernels."""
+    prev = _FUSED_MLP
+    set_fused_mlp(enabled)
+    try:
+        yield
+    finally:
+        set_fused_mlp(prev)
 
 
 # --- pool-before-affine max-pooling ------------------------------------------

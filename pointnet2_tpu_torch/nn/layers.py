@@ -1,7 +1,7 @@
 """Base layers: batch norm with scheduled momentum, Dense+BN+ReLU blocks
 and the shared point MLP.
 
-Port of pointnet2_tpu/nn/layers.py:48-134,137-272. Parity notes:
+Port of pointnet2_tpu/nn/layers.py:48-134,137-329. Parity notes:
 
 - Xavier(glorot)-uniform dense weights, zero bias; parameters stay float32
   and each dense runs in its layer's dtype (``flax.linen.Dense(dtype=...,
@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pointnet2_tpu_torch import config
+from pointnet2_tpu_torch.ops import fused_mlp
 from pointnet2_tpu_torch.ops.pooling import max_pool
 
 
@@ -241,6 +242,48 @@ class SharedMLP(nn.Module):
             x = block(x, bn_momentum)
         last = self.blocks[-1]
         return last.post_pooled_max(last.dense(x), dim, bn_momentum)
+
+    def fused_tail_supported(self, x: torch.Tensor, pool: bool) -> bool:
+        """Whether `fused_tail` runs this chain (ops/fused_mlp.py), as
+        pointnet2_tpu/nn/layers.py:274-290: BN on, >= 2 layers (the chain
+        needs a dense after the lifted layer 0), the config gate, pooling,
+        and the JAX package's eligible shapes and types. Every block of a
+        SharedMLP has the ReLU the kernels assume."""
+        return (self.bn
+                and config.fused_mlp_enabled()
+                and len(self.blocks) >= 2
+                and pool
+                and fused_mlp.fused_chain_eligible(
+                    x.shape, x.dtype, len(self.blocks) - 1))
+
+    def fused_tail(self, x: torch.Tensor, bn_momentum=0.9,
+                   pool: bool = True) -> torch.Tensor:
+        """Fused-kernel equivalent of ``finish_first`` + max-pool(dim=-2).
+
+        ``x`` is the pre-BN_0 tensor (B, M, S, mlp[0]), the lifted first
+        dense's gathered output. Runs BN_0 -> (dense_k + BN_k)_k -> max-pool
+        as the kernels of csrc/fused_mlp.cu on the running statistics; the
+        result equals the unfused path's up to float reassociation of the
+        BN affine. Eval only: the train-mode chain (Pallas rows 13-15) is
+        ROADMAP Queue 1 item 2, and until then a train-mode call raises
+        rather than take another route."""
+        if self.training:
+            raise NotImplementedError(
+                "the fused SA chain runs in eval mode only: its train-mode "
+                "forward and backward (Pallas rows 13-15) are not ported "
+                "yet (ROADMAP Queue 1 item 2); train with "
+                "config.fused_mlp(False)")
+        denses, scales, biases, running = [], [], [], []
+        for i, block in enumerate(self.blocks):
+            scales.append(block.norm.weight)
+            biases.append(block.norm.bias)
+            running.append((block.norm.running_mean, block.norm.running_var))
+            if i > 0:
+                denses.append((block.dense.weight, block.dense.bias))
+        cfg = fused_mlp.ChainConfig(eps=self.blocks[0].norm.epsilon,
+                                    pool=pool)
+        return fused_mlp.fused_chain_eval(cfg, x, denses, scales, biases,
+                                          running)
 
     def forward(self, x: torch.Tensor, bn_momentum=0.9) -> torch.Tensor:
         for block in self.blocks:

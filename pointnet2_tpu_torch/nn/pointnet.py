@@ -17,7 +17,10 @@ layout (``fuse_first=False``, and always for weighted_avg and group_all)
 groups the raw centred coordinates and features first, as the reference
 does, through the ball query that also returns the neighbours' xyz.
 Feature propagation splits its first dense the same way around the
-interpolation.
+interpolation. With ``config.fused_mlp`` on, the max-pooled MLP tail of the
+fuse_first layout (SetAbstraction and SetAbstractionMSG) runs as the fused
+chain (``SharedMLP.fused_tail``, ops/fused_mlp.py) where the JAX package
+runs it; the unfused layout, group_all and feature propagation never do.
 """
 
 from __future__ import annotations
@@ -216,7 +219,15 @@ class SetAbstraction(nn.Module):
         if (self.fuse_first and not self.group_all
                 and self.pooling != "weighted_avg"):
             new_xyz, pre, idx = self._fused_forward(xyz, points)
-            grouped_xyz = None
+            if (self.pooling == "max"
+                    and self.mlp_mod.fused_tail_supported(pre, pool=True)):
+                # the fused chain (csrc/fused_mlp.cu), checked before the
+                # pool-before-affine tail, as pointnet2_tpu/nn/pointnet.py:
+                # 192-197; the unfused layout never takes it
+                new_points = self.mlp_mod.fused_tail(pre, bn_momentum)
+            else:
+                new_points = _mlp_pool(self.mlp_mod, pre, None, self.pooling,
+                                       bn_momentum)
         else:
             if self.group_all:
                 new_xyz, new_points, idx, grouped_xyz = sample_and_group_all(
@@ -227,9 +238,9 @@ class SetAbstraction(nn.Module):
                     self.knn, self.use_xyz, dtype=self.dtype)
             if self.dtype is not None:
                 new_points = new_points.to(self.dtype)
-            pre = self.mlp_mod.lift_first(new_points)
-        new_points = _mlp_pool(self.mlp_mod, pre, grouped_xyz, self.pooling,
-                               bn_momentum)
+            new_points = _mlp_pool(self.mlp_mod,
+                                   self.mlp_mod.lift_first(new_points),
+                                   grouped_xyz, self.pooling, bn_momentum)
         if self.mlp2_mod is not None:
             new_points = self.mlp2_mod(new_points, bn_momentum)
         return new_xyz, new_points, idx
@@ -297,8 +308,13 @@ class SetAbstractionMSG(nn.Module):
                     cw = _lifted_center_term(mlp_mod, new_xyz, feat_width,
                                              xyz_first=False, dtype=dt)
                     grouped = grouped - cw[:, :, None, :]
-                outs.append(_mlp_pool(mlp_mod, grouped, None, "max",
-                                      bn_momentum))
+                if mlp_mod.fused_tail_supported(grouped, pool=True):
+                    # pointnet2_tpu/nn/pointnet.py:296-298; the unfused
+                    # layout below has no fused branch, as in JAX
+                    outs.append(mlp_mod.fused_tail(grouped, bn_momentum))
+                else:
+                    outs.append(_mlp_pool(mlp_mod, grouped, None, "max",
+                                          bn_momentum))
             return new_xyz, torch.cat(outs, dim=-1)
 
         center = new_xyz[:, :, None, :].to(dt)

@@ -1,11 +1,17 @@
 """Point ops of the port: FPS, ball query (single, with grouped xyz, and
 multi-radius), kNN, row gathers with their scatter-add gradient, max
-pooling, and the three-NN search and interpolation of feature propagation.
+pooling, the three-NN search and interpolation of feature propagation, and
+the fused SA chain's forward (``ops.fused_mlp``).
 
 ``KERNELS`` names each hand-written CUDA kernel's wrapper; a wrapper's
 ``launches`` attribute counts its launches.
 """
 
+from pointnet2_tpu_torch.ops.fused_mlp import (
+    fused_affine_kernel,
+    fused_dense_kernel,
+    fused_pool_kernel,
+)
 from pointnet2_tpu_torch.ops.grouping import (
     ball_query_group_xyz_kernel,
     ball_query_kernel,
@@ -39,6 +45,9 @@ KERNELS = {
     "gather_rows": gather_rows_kernel,
     "scatter_rows": scatter_rows_kernel,
     "three_nn": three_nn_kernel,
+    "fused_dense": fused_dense_kernel,
+    "fused_pool": fused_pool_kernel,
+    "fused_affine": fused_affine_kernel,
 }
 
 __all__ = [

@@ -22,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,7 +31,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fps", "ball_query", "gather", "scatter", "three_nn")
+SOURCES = ("fps", "ball_query", "gather", "scatter", "three_nn", "fused_mlp")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 
@@ -111,6 +112,35 @@ def build_all(names=SOURCES) -> None:
                     proc.wait()
         for n, target, _, _ in started:
             _load(n, target)
+
+
+def ptxas_report(name: str) -> list[str]:
+    """Registers, shared memory and spills of each kernel of one source:
+    the source compiled once more with ``-Xptxas -v`` into a scratch file,
+    ptxas's lines back, one per kernel ("<kernel>: <usage>; <spills>")."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"ptxas-{name}.{os.getpid()}.tmp"
+    try:
+        proc = subprocess.run(
+            [nvcc_path(), *FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+             str(CSRC / f"{name}.cu")], capture_output=True, text=True,
+            check=True)
+    finally:
+        tmp.unlink(missing_ok=True)
+    report, kernel, spills = [], None, ""
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if "Compiling entry function" in line:
+            # the mangled name without its namespace and parameter list:
+            # the kernel and its template arguments (I...E)
+            m = re.search(r"_cu_[0-9a-f]+\d+(\w+?_kernel(I\w*?E)?)E",
+                          line)
+            kernel = m.group(1) if m else line.split("'")[1]
+        elif "spill stores" in line:
+            spills = line.split(",", 1)[1].strip()
+        elif "Used" in line and kernel is not None:
+            report.append(f"{kernel}: {line.split('Used', 1)[1].strip()}; "
+                          f"{spills}")
+    return report
 
 
 def library(name: str) -> ctypes.CDLL:

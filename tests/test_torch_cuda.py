@@ -499,3 +499,115 @@ def test_unfused_msg_layer_launches_grouped_xyz_kernel(dev, rs):
         _, got = plain(xyz, None)
     assert ops.ball_query_group_xyz_kernel.launches == before + 3
     torch.testing.assert_close(got, want, rtol=1e-4, atol=3e-5)
+
+
+# --- the fused SA chain (csrc/fused_mlp.cu) ---------------------------------
+
+
+def _bf16_ulp(x):
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _dense_inputs(rs, dev, R, cin, cout, dtype):
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    return (t(rs.randn(R, cin)).to(dtype), t(rs.uniform(-1.5, 1.5, cin)),
+            t(0.1 * rs.randn(cin)), t(rs.randn(cout, cin) / np.sqrt(cin)),
+            t(0.1 * rs.randn(cout)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,cin,cout", [(2 * 512 * 32, 64, 128),
+                                        (1000, 196, 40), (77, 3, 3)])
+def test_fused_dense_kernel_matches_plain(dev, rs, dtype, R, cin, cout):
+    """y: f32 within 1e-5 of max|y| (summation order), bf16 within one bf16
+    ulp; the column statistics within a summation-order bound of the f32
+    sums of the same rounded y, and bit for bit across two launches."""
+    from pointnet2_tpu_torch.ops import fused_mlp
+
+    args = _dense_inputs(rs, dev, R, cin, cout, dtype)
+    before = ops.fused_dense_kernel.launches
+    y, s, ss = fused_mlp.dense_fwd(*args, want_stats=True)
+    _, s2, ss2 = fused_mlp.dense_fwd(*args, want_stats=True)
+    assert ops.fused_dense_kernel.launches == before + 2
+    wy, _, _ = fused_mlp.dense_fwd_plain(*args)
+    yf = y.float()
+    ws, wss = yf.sum(0), (yf * yf).sum(0)
+    assert y.dtype == dtype and y.shape == (R, cout)
+    d = (y.float() - wy.float()).abs()
+    if dtype == torch.float32:
+        assert float(d.max()) <= 1e-5 * float(wy.abs().max())
+    else:
+        assert bool((d <= _bf16_ulp(wy.float())).all())
+    bound = 2 * R * 2.0 ** -24
+    assert bool(((s - ws).abs() <= bound * yf.abs().sum(0)).all())
+    assert bool(((ss - wss).abs() <= bound * wss).all())
+    assert torch.equal(s, s2) and torch.equal(ss, ss2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,S,C", [(2 * 512, 32, 128), (1000, 7, 40),
+                                   (3, 1, 3)])
+def test_fused_pool_and_affine_kernels_bitwise(dev, rs, dtype, G, S, C):
+    from pointnet2_tpu_torch.ops import fused_mlp
+
+    y = torch.from_numpy(rs.randn(G, S, C).astype(np.float32)).to(dev, dtype)
+    a = torch.from_numpy(rs.randn(C).astype(np.float32)).to(dev)
+    b = torch.from_numpy(0.1 * rs.randn(C).astype(np.float32)).to(dev)
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    before = (ops.fused_pool_kernel.launches,
+              ops.fused_affine_kernel.launches)
+    got = fused_mlp.pool_fwd(y, a, b)
+    aff = fused_mlp.affine_fwd(y.reshape(-1, C), a, b)
+    assert (ops.fused_pool_kernel.launches,
+            ops.fused_affine_kernel.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert torch.equal(got.view(view),
+                       fused_mlp.pool_fwd_plain(y, a, b).view(view))
+    assert torch.equal(aff.view(view), fused_mlp.affine_fwd_plain(
+        y.reshape(-1, C), a, b).view(view))
+
+
+def test_fused_kernels_refuse_what_they_do_not_take(dev, rs):
+    x, a, b, w, bias = _dense_inputs(rs, dev, 64, 8, 4, torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.fused_dense_kernel(x.cpu(), a, b, w, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.fused_dense_kernel(x.t().contiguous().t(), a, b, w, bias)
+    with pytest.raises(TypeError):
+        ops.fused_dense_kernel(x.double(), a, b, w, bias)
+    with pytest.raises(ValueError):
+        ops.fused_dense_kernel(x, a, b, w.t().contiguous(), bias)
+    y = x.reshape(4, 16, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.fused_pool_kernel(y.cpu(), a.cpu(), b.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.fused_pool_kernel(y.transpose(0, 1), a, b)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.fused_affine_kernel(x.cpu(), a, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.fused_affine_kernel(x[:, ::2], a[:4], b[:4])
+    assert ops.fused_dense_kernel(x[:0], a, b, w, bias)[0].shape == (0, 4)
+
+
+def test_predictor_fused_route_matches_plain(dev, rs):
+    """One Predictor forward with the gate on through the kernels and
+    through the plain versions on the card (f32, bound 1e-4 of the range:
+    the kernel and cuBLAS sum in other orders), and against the unfused
+    route."""
+    pts = rs.rand(3, 1024, 3).astype(np.float32)
+    pred = Predictor("pointnet2_cls_ssg", dtype=None, buckets=(4,))
+    unfused = pred(pts)
+    before = {k: ops.KERNELS[k].launches for k in ("fused_dense",
+                                                   "fused_pool")}
+    with config.fused_mlp(True):
+        got = pred(pts)
+        assert {k: ops.KERNELS[k].launches - before[k] for k in before} == {
+            "fused_dense": 4, "fused_pool": 2}
+        with config.default_impl("torch"):
+            want = pred(pts)
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() <= 1e-4 * scale
+    assert np.abs(got - unfused).max() <= 1e-4 * scale

@@ -16,6 +16,7 @@ _SCRIPT = textwrap.dedent("""
     for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
         importlib.import_module(info.name)
     import chip_smoke  # noqa: F401  (runs nothing at import)
+    from pointnet2_tpu_torch.ops import fused_mlp  # noqa: F401
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
                  or m == "pointnet2_tpu" or m.startswith("pointnet2_tpu."))
