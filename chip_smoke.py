@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``pointnet2_tpu_torch``).
 
-Drives the port's paths at full width on one NVIDIA GPU through its ten
-hand-written CUDA kernels (FPS, ball query, ball query with grouped xyz,
-multi-radius ball query, row gather, row scatter-add, three-NN, and the fused
-SA chain's dense pass, pooled tail and affine tail):
+Drives the port's paths at full width on one NVIDIA GPU through its
+thirteen hand-written CUDA kernels (FPS, ball query, ball query with grouped
+xyz, multi-radius ball query, row gather, row scatter-add, three-NN, the
+fused SA chain's dense pass, pooled tail and affine tail, and the chain's
+backward: the top BN's totals, the dense backward and the leading BN's
+backward):
 classifier serving, ``Predictor("pointnet2_cls_ssg")`` (1024 points, 40
 classes, buckets 1/4/16/64, bf16 and f32, 12-vote ``predict_votes``);
 training, ``Trainer.fit`` (batch 16, 1024 points, on-device augmentation,
@@ -14,8 +16,10 @@ ScanNet blocks, 21 classes, and ``predict_scene`` on a whole room) and
 and multi-scale grouping, ``Predictor("pointnet2_cls_msg")``,
 ``Predictor("pointnet2_part_seg_msg_one_hot")`` (with category labels) and
 ``Predictor("pointnet_cls_basic")``, with the MSG layers' unfused layout and
-the multi-radius ball query; and the fused SA chain (``config.fused_mlp``)
-through ``Predictor`` for the five models with fused-eligible SA layers.
+the multi-radius ball query; the fused SA chain (``config.fused_mlp``)
+through ``Predictor`` for the five models with fused-eligible SA layers;
+and the fused chain in train mode through ``Trainer.fit`` of
+``pointnet2_cls_ssg`` and ``pointnet2_cls_msg``.
 Phases:
 
 1. build the kernels from ``pointnet2_tpu_torch/csrc/`` with nvcc, one
@@ -83,21 +87,46 @@ Phases:
     every fused chain of the five models at B=16 (their own weights and BN
     statistics, random inputs), f32 and bf16, and at a ragged shape (1000
     rows, 196 -> 40): the dense pass within 1e-5 of max|y| in f32 and one
-    bf16 ulp in bf16, its column statistics within a summation-order bound
-    and bit for bit across two launches; the pooled and affine tails bit
-    for bit;
+    bf16 ulp in bf16, its column statistics within 1e-4 of sum|terms| of
+    their exact (float64) sums and bit for bit across two launches; the
+    pooled and affine tails bit for bit;
 17. serve cls_ssg, cls_msg, sem_seg, part_seg and part_seg_msg (with
     labels) with ``config.fused_mlp(True)``, requests of 16 and 64 in bf16
     and f32, each model's run with every launch counter set to 0 just
     before and read just after; compare with the plain versions on the card
     and with the unfused route at B=16 (f32 within 1e-4 of the range, bf16
-    within 2%), and with the CPU on 2 inputs; a train step with the gate on
-    must raise;
+    within 2%), and with the CPU on 2 inputs;
 18. time the three kernels per launch at a bf16 cls_ssg forward's shapes
     beside their bounds, their plain versions and the unfused PyTorch ops
     each stands for; the fused and unfused forwards of the five models at
     B=16 and 64 in bf16 and f32 (host ms, device time, peak memory); and a
-    fused bf16 B=16 forward's device time by op.
+    fused bf16 B=16 forward's device time by op;
+19. hold the chain's backward kernels against their plain versions along
+    every fused chain of cls_ssg and cls_msg at B=16 (the models' own BN
+    scales and biases, random pre-BN activations and cotangents, batch
+    statistics), bf16 and f32, each kernel on the previous one's outputs,
+    and along a ragged chain (1000 rows, 196 -> 40, groups of 8): the top
+    BN's totals, dW, db and the T1/T2 of the kernel's own g_{k-1} within
+    1e-4 of sum|terms| of the exact (float64) sums of the plain version's
+    terms, g_{k-1} within 1e-5 of max|g| (f32) or one bf16 ulp, the
+    leading BN's dx bit for bit, every kernel bitwise equal across two
+    launches;
+20. one full-width cls_ssg train step with the gate on through the
+    kernels, the plain versions and the unfused route, each f32 route
+    against a float64 run of the same step (fixed dropout masks, no
+    augmentation); cls_ssg's two fused layers in train mode, kernels
+    against plain on the same inputs and cotangents, f32 and bf16 (outputs,
+    gradients, running statistics); the launches of one fused step; then,
+    from the counters' zero, ``Trainer.fit`` of cls_ssg and of cls_msg in
+    bf16 with the gate on:
+    the loss must fall and each step launch 1 top_stats, 2 dense_bwd and 1
+    first_bwd per chain (2 chains a cls_ssg step, 6 a cls_msg step);
+21. time the backward kernels per launch at a cls_ssg train step's shapes
+    beside their bounds and plain versions, each chain's backward fused
+    against the unfused autograd backward of the same layer, the train
+    steps of cls_ssg and cls_msg fused and unfused at B=16 in bf16 and f32
+    (ms/step, examples/s, device time, peak memory), and a fused bf16
+    cls_ssg step's device time by op.
 
 Prints the GPU's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
@@ -148,6 +177,9 @@ REPLACES = {
     "fused_dense": "pointnet2_tpu/ops/pallas/fused_mlp.py:141",
     "fused_pool": "pointnet2_tpu/ops/pallas/fused_mlp.py:189",
     "fused_affine": "pointnet2_tpu/ops/pallas/fused_mlp.py:215",
+    "fused_top_stats": "pointnet2_tpu/ops/pallas/fused_mlp.py:288",
+    "fused_dense_bwd": "pointnet2_tpu/ops/pallas/fused_mlp.py:391",
+    "fused_first_bwd": "pointnet2_tpu/ops/pallas/fused_mlp.py:478",
 }
 SOURCES = {
     "fps": "pointnet2_tpu_torch/csrc/fps.cu",
@@ -160,7 +192,13 @@ SOURCES = {
     "fused_dense": "pointnet2_tpu_torch/csrc/fused_mlp.cu",
     "fused_pool": "pointnet2_tpu_torch/csrc/fused_mlp.cu",
     "fused_affine": "pointnet2_tpu_torch/csrc/fused_mlp.cu",
+    "fused_top_stats": "pointnet2_tpu_torch/csrc/fused_mlp.cu",
+    "fused_dense_bwd": "pointnet2_tpu_torch/csrc/fused_mlp.cu",
+    "fused_first_bwd": "pointnet2_tpu_torch/csrc/fused_mlp.cu",
 }
+# device kernels a wrapper launches besides its `<name>_kernel`: the passes
+# of fused_dense_bwd and the fixed-order column sums of csrc/fused_mlp.cu
+HELPERS = ("dense_bwd_g", "dense_bwd_dw", "sum_rows")
 TRAIN_EPOCHS = 4  # per dtype in phase 8
 # the serving path's kernel shapes: (B, N) -> npoint, then the ball query
 # (radius, nsample) and the width of the lifted rows group_point moves
@@ -538,7 +576,8 @@ def profile_device(torch, fn, reps: int, label: str, unit: str,
         log(f"   device time {title} (us/{unit}, calls/{unit}):")
         for us, count, key in sorted(rows, reverse=True)[:12]:
             log(f"    {us:10.1f} us {count:6.1f}x  {key[:80]}")
-    mine = [r for r in kernels if any(f"{k}_kernel" in r[2] for k in ours)]
+    mine = [r for r in kernels
+            if any(f"{k}_kernel" in r[2] for k in (*ours, *HELPERS))]
     log(f"   the port's CUDA kernels: {sum(r[0] for r in mine):.1f} us/{unit} "
         f"({sum(r[0] for r in mine) / busy:.1%} of device time)")
     for us, count, key in sorted(mine, reverse=True):
@@ -627,12 +666,14 @@ def check_scatter(torch, dev, check: Checks, errs: dict) -> None:
     torch.cuda.synchronize()
 
 
-def make_trainer(torch, dtype: str, log_dir: str, epochs: int, seed=SEED):
+def make_trainer(torch, dtype: str, log_dir: str, epochs: int, seed=SEED,
+                 model: str = "pointnet2_cls_ssg"):
     from pointnet2_tpu_torch.train import TrainConfig, Trainer
 
-    cfg = TrainConfig(batch_size=16, num_point=N_POINT, max_epoch=epochs,
-                      learning_rate=1e-3, optimizer="adam", augment="cls",
-                      compute_dtype=dtype, log_dir=log_dir, seed=seed)
+    cfg = TrainConfig(model=model, batch_size=16, num_point=N_POINT,
+                      max_epoch=epochs, learning_rate=1e-3, optimizer="adam",
+                      augment="cls", compute_dtype=dtype, log_dir=log_dir,
+                      seed=seed)
     return Trainer(cfg, device="cuda")
 
 
@@ -643,15 +684,17 @@ def train_batch(torch, dev, B: int = 16) -> dict:
         "mask": torch.ones(B, device=dev)}
 
 
-def one_step(torch, trainer, batch: dict, impl: str, gen_seed: int = 5):
+def one_step(torch, trainer, batch: dict, impl: str, gen_seed: int = 5,
+             fused: bool = False):
     """A fresh state (the seed's weights), one step on `batch` with the
-    generator at `gen_seed`; returns loss, grads, buffers and params."""
+    generator at `gen_seed` and the fused-chain gate at `fused`; returns
+    loss, grads, buffers and params."""
     from pointnet2_tpu_torch import config
     from pointnet2_tpu_torch.train.steps import run_one_step
 
     state = trainer.init_state()
     trainer.generator.manual_seed(gen_seed)
-    with config.default_impl(impl):
+    with config.default_impl(impl), config.fused_mlp(fused):
         m = run_one_step(state, batch, trainer.loss_fn, trainer.bn_schedule,
                          trainer.augment_fn, trainer.generator)
     model = state.model
@@ -1612,21 +1655,21 @@ def check_dense(torch, tag, x, a, b, w, bias, check: Checks,
     else:
         ok = bool((d <= bf16_ulp(torch, want.float())).all())
         bound = "1 bf16 ulp"
-    # statistics: f32 sums of the same rounded y in another order, each
-    # within (R-1)*2^-24*sum|terms| of the exact sum
-    yf = y.float()
+    # statistics: f32 sums of the kernel's rounded y and its f32 squares,
+    # against their exact sums (`sum_ok`)
     R = x.shape[0]
-    sb = 2 * R * 2.0 ** -24
-    stats_ok = (bool(((s - yf.sum(0)).abs() <= sb * yf.abs().sum(0)).all())
-                and bool(((ss - (yf * yf).sum(0)).abs()
-                          <= sb * (yf * yf).sum(0)).all()))
+    y1, y2 = y.double(), (y.float() * y.float()).double()
+    sums = ((s, y1.sum(0), y1.abs().sum(0)), (ss, y2.sum(0), y2.sum(0)))
+    stats_ok = all(sum_ok(*t) for t in sums)
     same = torch.equal(s, s2) and torch.equal(ss, ss2)
     check(ok and stats_ok and same,
           f"fused_dense {tag} {str(x.dtype)[6:]} ({R}, {x.shape[1]}) -> "
           f"{w.shape[0]}: max abs diff {float(d.max()):.3e} (max|y| "
           f"{scale:.3f}, {float((d > 0).float().mean()):.4%} of elements "
-          f"differ) within {bound}; statistics within the summation-order "
-          f"bound {stats_ok}, two launches bitwise equal {same}")
+          f"differ) within {bound}; statistics within {SUM_RTOL} of "
+          f"sum|terms| of the exact sums {stats_ok} (errors "
+          f"{', '.join(f'{sum_err(*t):.2e}' for t in sums)} of it), two "
+          f"launches bitwise equal {same}")
     return y
 
 
@@ -1729,8 +1772,8 @@ def drive_fused(torch, preds: dict, data: dict) -> dict:
     return out
 
 
-def check_fused(torch, dev, preds: dict, run: dict, data: dict, sds: dict,
-                log_dir: str, check: Checks) -> None:
+def check_fused(torch, preds: dict, run: dict, data: dict, sds: dict,
+                check: Checks) -> None:
     """Phase 17's checks on the main-path runs."""
     from pointnet2_tpu_torch import Predictor, config
 
@@ -1779,19 +1822,6 @@ def check_fused(torch, dev, preds: dict, run: dict, data: dict, sds: dict,
                                    cpu(*fused_request(name, data, 2)), 1e-4)
             check(ok, f"{name} f32 fused on the card vs the CPU, 2 inputs: "
                   f"max abs diff {err:.3e} (range {scale:.3f})")
-    # the train-mode chain is not ported: a train step with the gate on
-    # raises instead of taking another route
-    batch = train_batch(torch, dev)
-    with make_trainer(torch, "bfloat16", os.path.join(log_dir, "fused"),
-                      1) as tr:
-        try:
-            with config.fused_mlp(True):
-                one_step(torch, tr, batch, "auto")
-            raised = ""
-        except NotImplementedError as e:
-            raised = str(e)
-    check("Queue 1 item 2" in raised, "a train step with the gate on raises "
-          f"NotImplementedError ({raised[:60]}...)")
     torch.cuda.synchronize()
 
 
@@ -1927,6 +1957,633 @@ def time_fused_forwards(torch, gpu: str, preds: dict, data: dict) -> None:
                            host_us=host[name, "bf16", b, "fused"] * 1e3)
 
 
+# --- the fused SA chain in train mode -------------------------------------------
+
+TRAIN_MODELS = {CLS_SSG: 2, CLS_MSG: 6}  # fused chains a train step
+BWD = ("fused_top_stats", "fused_dense_bwd", "fused_first_bwd")
+# phase 19's ragged chain: groups, S, Ck, Cp (1000 rows, 196 -> 40)
+RAGGED_BWD = (125, 8, 40, 196)
+# phase 20's fused layers, kernels vs plain (`fused_layer_errs`), on these
+# inputs: (B, N, kind). The limits stand 2.5x or more above the largest
+# readings on an H100 (PERF.md); in f32 most output elements differ in
+# their last bits, so that share is not bounded. A zeroed or scaled
+# gradient reads 1 or more.
+LAYER_INPUTS = ((16, N_POINT, "clouds"), (16, N_POINT, "uniform"),
+                (4, 512, "clouds"), (4, 512, "uniform"))
+LAYER_LIMITS = {
+    "f32": {"outputs differ": 1.0, "output": 1e-5, "gradient": 3e-2,
+            "running statistics": 1e-5},
+    "bf16": {"outputs differ": 1e-2, "output": 2e-2, "gradient": 5e-2,
+             "running statistics": 1e-4}}
+
+
+def bwd_per_step(chains: int) -> dict:
+    """Launches of the chain's kernels per train step with the gate on:
+    every chain of these models has two denses after the lifted first."""
+    return {"fused_dense": 2 * chains, "fused_pool": chains,
+            "fused_top_stats": chains, "fused_dense_bwd": 2 * chains,
+            "fused_first_bwd": chains}
+
+
+SUM_RTOL = 1e-4
+
+
+def sum_ok(got, exact, abs_sum, nonzero: bool = True) -> bool:
+    """A kernel's f32 column sums against the exact (float64) sums of the
+    plain version's f32 terms: within SUM_RTOL of sum|terms|. The kernels'
+    longest chain of roundings at these shapes is under 1200 (a dW partial
+    of 1024 rows, then the slabs' sum; a pooled db's 8 items of up to 128
+    rows; the statistics' 64-row blocks, then up to 16384 blocks), so a
+    right sum strays at most 1200 * 2^-24 = 7.2e-5 of it; a sum of R
+    random-sign terms is about sum|terms| / sqrt(R), 2e-3 of it at
+    R = 262144. With `nonzero`, some exact sum must lie outside the bound,
+    so that a zeroed sum fails (db is zero in exact arithmetic: train-mode
+    BN follows the dense, and its sum dy = -gr * m2 * sum yhat = 0)."""
+    bound = SUM_RTOL * abs_sum
+    return (bool(((got.double() - exact).abs() <= bound).all())
+            and not (nonzero and bool((exact.abs() <= bound).all())))
+
+
+def sum_err(got, exact, abs_sum) -> float:
+    """The largest |got - exact| / sum|terms| over the columns."""
+    return float(((got.double() - exact).abs()
+                  / abs_sum.clamp_min(1e-300)).max())
+
+
+def saved_chain(torch, dev, g, mlp, R: int, dt):
+    """A train-mode chain's saved tensors from random input rows, through
+    the plain forward on the card: the pre-BN activations ys (R, C_k) of T
+    and each BN's (scale, bias, batch mean, batch var)."""
+    from pointnet2_tpu_torch.ops import fused_mlp
+
+    eps = mlp.blocks[0].norm.epsilon
+    ys = [torch.randn((R, mlp.blocks[0].dense.out_features), generator=g,
+                      device=dev).to(dt)]
+    stats = []
+    for k, block in enumerate(mlp.blocks):
+        yf = ys[-1].float()
+        mean = yf.mean(0)
+        var = torch.clamp_min(yf.square().mean(0) - mean.square(), 0.0)
+        stats.append((block.norm.weight.detach(), block.norm.bias.detach(),
+                      mean, var))
+        if k + 1 < len(mlp.blocks):
+            a, b = fused_mlp.bn_affine(*stats[-1], eps)
+            dense = mlp.blocks[k + 1].dense
+            ys.append(fused_mlp.dense_fwd_plain(
+                ys[-1], a, b, dense.weight.detach(), dense.bias.detach())[0])
+    ws = [b.dense.weight.detach() for b in mlp.blocks[1:]]
+    return ys, stats, ws
+
+
+def chain_terms(torch, y, g, p, pool: bool):
+    """(T1, T2) and (sum|dout|, sum|dout*yhat|) of the plain version's f32
+    elementwise terms, summed exactly (float64)."""
+    from pointnet2_tpu_torch.ops import fused_mlp
+
+    if pool:
+        g = fused_mlp._pooled_cotangent(y, g, p).reshape(-1, y.shape[-1])
+        y = y.reshape(-1, y.shape[-1])
+    dout, yhat = fused_mlp._bn_bwd_terms(y, g.float(), p)
+    t1, t2 = dout.double(), (dout * yhat).double()
+    return (t1.sum(0), t2.sum(0)), (t1.abs().sum(0), t2.abs().sum(0))
+
+
+def check_bwd_chain(torch, dev, g, tag, ys, stats, ws, ns, check, errs):
+    """One chain's backward from a random pooled cotangent, each kernel on
+    the previous kernel's outputs and held to its plain version on the same
+    inputs: top_stats and dense_bwd's T1/T2, dW, db against the exact sums
+    of the plain version's terms (`sum_ok`; T1/T2 of the kernel's own
+    g_{k-1}), g_{k-1} within 1e-5 of max|g| (f32) or one bf16 ulp,
+    first_bwd bit for bit; every kernel twice, bitwise equal."""
+    from pointnet2_tpu_torch.ops import fused_mlp as fm
+
+    dt, R, D = ys[0].dtype, ys[0].shape[0], len(ys) - 1
+    f32 = dt == torch.float32
+    view = torch.int32 if f32 else torch.int16
+    name = f"{tag} {str(dt)[6:]}"
+
+    def pack(j, t1=None, t2=None):
+        return fm.bn_pack(*stats[j], 1e-3, None if t1 is None else t1 / R,
+                          None if t2 is None else t2 / R)
+
+    y_top = ys[D].reshape(R // ns, ns, -1)
+    gcur = torch.randn((R // ns, y_top.shape[-1]), generator=g,
+                       device=dev).to(dt)
+    p = pack(D)
+    t1, t2 = fm.fused_top_stats_kernel(y_top, gcur, p, True)
+    u1, u2 = fm.fused_top_stats_kernel(y_top, gcur, p, True)
+    (w1, w2), (a1, a2) = chain_terms(torch, y_top, gcur, p, True)
+    p1, p2 = fm.top_stats_plain(y_top, gcur, p, True)
+    if f32:
+        errs["fused_top_stats"] = max(errs["fused_top_stats"],
+                                      float((t1 - p1).abs().max()),
+                                      float((t2 - p2).abs().max()))
+    ok = sum_ok(t1, w1, a1) and sum_ok(t2, w2, a2)
+    same = torch.equal(t1, u1) and torch.equal(t2, u2)
+    check(ok and same, f"fused_top_stats {name} {tuple(y_top.shape)}: T1/T2 "
+          f"within {SUM_RTOL} of sum|terms| of the exact sums {ok} (error "
+          f"{sum_err(t1, w1, a1):.2e} and {sum_err(t2, w2, a2):.2e} of it, "
+          f"exact sums up to {sum_err(0 * t1, w1, a1):.2e} and "
+          f"{sum_err(0 * t2, w2, a2):.2e}), max abs diff to plain "
+          f"{float(max((t1 - p1).abs().max(), (t2 - p2).abs().max())):.3e}, "
+          f"two launches bitwise equal {same}")
+    for k in range(D, 0, -1):
+        yk, yp = (y_top if k == D else ys[k]), ys[k - 1]
+        pk, pp = pack(k, t1, t2), pack(k - 1)
+        args = (yk, yp, gcur, pk, pp, ws[k - 1], k == D)
+        got = fm.fused_dense_bwd_kernel(*args)
+        again = fm.fused_dense_bwd_kernel(*args)
+        gp, dw, db, t1, t2 = got
+        wg = fm.dense_bwd_plain(*args)[0]
+        d = (gp.float() - wg.float()).abs()
+        if f32:
+            errs["fused_dense_bwd"] = max(errs["fused_dense_bwd"],
+                                          float(d.max()))
+            g_ok = float(d.max()) <= 1e-5 * float(wg.float().abs().max())
+        else:
+            g_ok = bool((d <= bf16_ulp(torch, wg.float())).all())
+        rows = yp.shape[0]
+        if k == D:
+            dz = fm._pooled_cotangent(yk, gcur, pk).reshape(rows, -1)
+        else:
+            dz = gcur.float()
+        dout, yhat = fm._bn_bwd_terms(yk.reshape(rows, -1), dz, pk)
+        dy = fm._bn_dy(dout, yhat, pk)
+        dyc = dy.to(dt).double()
+        z = fm.affine_fwd_plain(yp, pp[0], pp[1]).double()  # relu: >= 0
+        (v1, v2), (b1, b2) = chain_terms(torch, yp, gp, pp, False)
+        sums = ((dw, dyc.t() @ z, dyc.abs().t() @ z),
+                (db, dy.double().sum(0), dy.double().abs().sum(0)),
+                (t1, v1, b1), (t2, v2, b2))
+        sums_ok = all(sum_ok(*s, nonzero=s[0] is not db) for s in sums)
+        err = ", ".join(f"{sum_err(*s):.2e}" for s in sums)
+        top = ", ".join(f"{sum_err(0 * x, w, a):.2e}" for x, w, a in sums)
+        same = (torch.equal(gp.view(view), again[0].view(view))
+                and all(torch.equal(x, y) for x, y in zip(got[1:],
+                                                          again[1:])))
+        check(g_ok and sums_ok and same,
+              f"fused_dense_bwd {name} k={k} {tuple(yk.shape)} -> g "
+              f"{tuple(gp.shape)}: g max abs diff {float(d.max()):.3e} "
+              f"({float((d > 0).float().mean()):.4%} differ) within "
+              f"{'1e-5 of max|g|' if f32 else '1 bf16 ulp'} {g_ok}; dW, db, "
+              f"T1/T2 within {SUM_RTOL} of sum|terms| of the exact sums "
+              f"{sums_ok} (errors {err} of it; exact sums up to {top}); two "
+              f"launches bitwise equal {same}")
+        gcur = gp
+    p = pack(0, t1, t2)
+    dx = fm.fused_first_bwd_kernel(ys[0], gcur, p)
+    dx2 = fm.fused_first_bwd_kernel(ys[0], gcur, p)
+    want = fm.first_bwd_plain(ys[0], gcur, p)
+    if f32:
+        errs["fused_first_bwd"] = max(errs["fused_first_bwd"], float(
+            (dx - want).abs().max()))
+    check(torch.equal(dx.view(view), want.view(view))
+          and torch.equal(dx.view(view), dx2.view(view)),
+          f"fused_first_bwd {name} {tuple(dx.shape)}: bit for bit the plain "
+          "version, two launches bitwise equal")
+
+
+def check_fused_bwd_kernels(torch, dev, chains: list, check: Checks,
+                            errs: dict) -> None:
+    """Phase 19: rows 13-15 against their plain versions along every fused
+    chain of cls_ssg and cls_msg at B=16 (the train path's shapes), bf16 and
+    f32, and along a ragged chain."""
+    log("phase 19: the fused chain's backward kernels vs plain versions on "
+        "the card, every train-path chain of cls_ssg and cls_msg at B=16")
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    with torch.no_grad():
+        for tag, mlp, R, ns in chains:
+            if not tag.startswith(("cls_ssg", "cls_msg")):
+                continue
+            for dt in (torch.bfloat16, torch.float32):
+                ys, stats, ws = saved_chain(torch, dev, g, mlp, R, dt)
+                check_bwd_chain(torch, dev, g, tag, ys, stats, ws, ns, check,
+                                errs)
+        G, S, ck, cp = RAGGED_BWD
+        for dt in (torch.bfloat16, torch.float32):
+            ys = [torch.randn((G * S, c), generator=g, device=dev).to(dt)
+                  for c in (cp, ck)]
+            stats = []
+            for y in ys:
+                c = y.shape[1]
+                yf = y.float()
+                stats.append((torch.randn(c, generator=g, device=dev),
+                              0.1 * torch.randn(c, generator=g, device=dev),
+                              yf.mean(0), yf.var(0, unbiased=False)))
+            w = torch.randn((ck, cp), generator=g, device=dev) / cp ** 0.5
+            check_bwd_chain(torch, dev, g, "ragged", ys, stats, [w], S,
+                            check, errs)
+    torch.cuda.synchronize()
+
+
+def fixed_step(torch, dev, batch: dict, dtype, impl: str, fused: bool,
+               double: bool = False) -> tuple:
+    """One cls_ssg train-mode forward and backward on the card from the
+    seed's weights, with fixed dropout masks and no augmentation (so that
+    every route sees the same numbers): (loss, {grad}, {buffer}) in
+    float64, after the route's own arithmetic (dtype None: f32; `double`:
+    the float64 reference, which never takes the fused chain)."""
+    from pointnet2_tpu_torch import config, get_model
+    from pointnet2_tpu_torch.models.losses import classification_loss
+
+    model = get_model(CLS_SSG, device="cpu", seed=SEED, dtype=dtype)
+    model = model.to(dev).train()
+    if double:
+        model = model.double()
+    B = batch["points"].shape[0]
+    keeps = {w: (torch.arange(B * w, device=dev).reshape(B, w) * 7919 % 13
+                 < 6) for w in (512, 256)}
+    for drop, w in ((model.drop1, 512), (model.drop2, 256)):
+        drop.keep_mask = lambda shape, device, generator, k=keeps[w]: k
+    pts, mask = batch["points"], batch["mask"]
+    if double:
+        pts, mask = pts.double(), mask.double()
+    with config.default_impl(impl), config.fused_mlp(fused):
+        num, den = classification_loss(model(pts, 0.5), batch["label"],
+                                       mask, sum_count=True)
+        (num / den).backward()
+    return (float((num / den).detach()),
+            {k: p.grad.double() for k, p in model.named_parameters()},
+            {k: b.double() for k, b in model.named_buffers()})
+
+
+def fused_layers(torch, dev, dtype, impl: str, inputs: list,
+                 cots: list) -> tuple:
+    """cls_ssg's SA1 and SA2 from the seed's weights, in train mode with the
+    gate on, each on fixed inputs and with one backward of a fixed
+    cotangent of its output: (outputs, {grad}, {running statistic}), the
+    latter two in float64."""
+    from pointnet2_tpu_torch import config, get_model
+
+    model = get_model(CLS_SSG, device="cpu", seed=SEED, dtype=dtype)
+    model = model.to(dev).train()
+    outs = []
+    with config.default_impl(impl), config.fused_mlp(True):
+        for sa, (xyz, pts), cot in zip((model.sa1, model.sa2), inputs, cots):
+            out = sa(xyz, pts)[1]
+            (out.float() * cot).sum().backward()
+            outs.append(out.detach())
+    layers = ("sa1.", "sa2.")
+    return (outs, {k: p.grad.double() for k, p in model.named_parameters()
+                   if k.startswith(layers)},
+            {k: b.double() for k, b in model.named_buffers()
+             if k.startswith(layers)})
+
+
+def fused_layer_errs(torch, dev, dtype, points) -> dict:
+    """cls_ssg's two fused layers through the kernels against the same
+    layers through the plain versions, on the same inputs (SA2's: SA1's
+    plain output) and cotangents: the share of output elements that
+    differ, the largest output difference over max|out|, the largest
+    gradient difference over its norm (dense biases in front of a
+    train-mode BN aside, `bn_fed_bias`), and the largest running-statistic
+    difference over its tensor's scale. The two routes see the same
+    indices and gathers; they part only where the kernels sum in another
+    order (the BN statistics, the products, T1/T2), which moves a rounding
+    of an activation or of dy now and then."""
+    from pointnet2_tpu_torch import config, get_model
+
+    model = get_model(CLS_SSG, device="cpu", seed=SEED, dtype=dtype)
+    model = model.to(dev).train()
+    with torch.no_grad(), config.default_impl("torch"), config.fused_mlp(
+            True):
+        l1_xyz, l1_points, _ = model.sa1(points, None)
+        l2_points = model.sa2(l1_xyz, l1_points)[1]
+    inputs = [(points, None), (l1_xyz, l1_points)]
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    cots = [torch.randn(o.shape, generator=g, device=dev)
+            for o in (l1_points, l2_points)]
+    ka, ga, ba = fused_layers(torch, dev, dtype, "auto", inputs, cots)
+    kb, gb, bb = fused_layers(torch, dev, dtype, "torch", inputs, cots)
+    return {
+        "outputs differ": max(float((a != b).float().mean())
+                              for a, b in zip(ka, kb)),
+        "output": max(float((a.float() - b.float()).abs().max()
+                            / b.float().abs().max()) for a, b in zip(ka, kb)),
+        "gradient": max(float((ga[k] - gb[k]).norm() / gb[k].norm())
+                        for k in gb if not bn_fed_bias(k)),
+        "running statistics": max(float((ba[k] - bb[k]).abs().max()
+                                        / bb[k].abs().max()) for k in bb)}
+
+
+def check_fused_train_step(torch, dev, check: Checks, log_dir: str) -> None:
+    """Phase 20a: one full-width cls_ssg train step (B=16, N=1024) with the
+    gate on through the kernels, through the plain versions, and unfused
+    (kernels and plain), each against a float64 run of the same step. The
+    kernels sum in other orders than cuBLAS and PyTorch's reductions, and
+    train-mode BN's E[y^2] - E[y]^2 magnifies that, so no two f32 routes
+    are equal; each is held to float64 instead, as the CPU tests hold the
+    port's step: f32 loss within 1e-5, running statistics within 1e-3 of
+    each tensor's scale, each gradient within 2e-2 of its norm (gradients
+    whose float64 norm is under 1e-6 of the largest are zero in exact
+    arithmetic and not compared). In bf16 no whole step can be held tight:
+    every route is ~1.0 from float64 at init (median gradient error) and
+    two bf16 routes ~0.3 apart, where the same routes are within 2e-2 a
+    layer; those distances are logged, not checked. The bf16 chain is held
+    layer by layer instead (`check_fused_layers`, both dtypes), and kernel
+    by kernel in phase 19. Then launches of one fused step, and (logged)
+    whether two fused steps give the same bits."""
+    from pointnet2_tpu_torch import ops
+
+    log("phase 20: one train step with config.fused_mlp(True) on the card: "
+        "kernels, plain versions and the unfused route against float64")
+    batch = train_batch(torch, dev)
+    ref = fixed_step(torch, dev, batch, None, "torch", False, double=True)
+    top = max(float(g.norm()) for g in ref[1].values())
+    compared = [k for k, g in ref[1].items() if float(g.norm()) >= 1e-6 * top]
+    routes = (("fused kernels", "auto", True), ("fused plain", "torch", True),
+              ("unfused kernels", "auto", False),
+              ("unfused plain", "torch", False))
+    for dtype in (None, torch.bfloat16):
+        name = "f32" if dtype is None else "bf16"
+        grads = {}
+        for what, impl, fused in routes:
+            loss, grads[what], b = fixed_step(torch, dev, batch, dtype, impl,
+                                              fused)
+            rel = {k: float((grads[what][k] - ref[1][k]).norm()
+                            / ref[1][k].norm()) for k in compared}
+            stats = max(float((b[k] - ref[2][k]).abs().max()
+                              / ref[2][k].abs().max().clamp_min(1e-30))
+                        for k in b)
+            worst = max(rel, key=rel.get)
+            lrel = abs(loss - ref[0]) / ref[0]
+            median = statistics.median(rel.values())
+            log(f"  {name} {what}: loss {loss:.6f} (float64 {ref[0]:.6f}, "
+                f"{lrel:.2e}), running statistics {stats:.2e} of scale, "
+                f"gradients median {median:.2e}, worst {rel[worst]:.2e} "
+                f"({worst}) of their norm")
+            if dtype is None:
+                check(lrel <= 1e-5 and stats <= 1e-3 and rel[worst] <= 2e-2,
+                      f"f32 {what} vs float64: loss {lrel:.2e} <= 1e-5, "
+                      f"statistics {stats:.2e} <= 1e-3, gradients "
+                      f"{rel[worst]:.2e} <= 2e-2")
+        fk, fp = grads["fused kernels"], grads["fused plain"]
+        apart = statistics.median(float((fk[k] - fp[k]).norm()
+                                        / fp[k].norm()) for k in compared)
+        log(f"  {name} fused kernels vs fused plain: gradients median "
+            f"{apart:.2e} of their norm (logged)")
+    check_fused_layers(torch, dev, check)
+    want = bwd_per_step(TRAIN_MODELS[CLS_SSG])
+    with make_trainer(torch, "bfloat16", os.path.join(log_dir, "fused_step"),
+                      1) as tr:
+        before = {k: w.launches for k, w in ops.KERNELS.items()}
+        first = one_step(torch, tr, batch, "auto", fused=True)
+        launched = {k: ops.KERNELS[k].launches - before[k] for k in want}
+        again = one_step(torch, tr, batch, "auto", fused=True)
+    check(launched == want, f"launches in one fused bf16 train step "
+          f"{launched}")
+    same = first[0] == again[0] and all(
+        torch.equal(first[1][k], again[1][k]) for k in first[1])
+    log(f"  two fused bf16 kernel-path steps (Trainer, augment on, the same "
+        f"generator seed) give bitwise equal loss and gradients: {same}")
+    torch.cuda.synchronize()
+
+
+def check_fused_layers(torch, dev, check: Checks) -> None:
+    """Phase 20b: `fused_layer_errs` on each of LAYER_INPUTS, f32 and bf16;
+    the worst of them within LAYER_LIMITS."""
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        worst = {}
+        for i, (b, n, kind) in enumerate(LAYER_INPUTS):
+            if kind == "clouds":
+                pts = make_clouds(b, n, SEED + 20 + i)
+            else:
+                pts = np.random.default_rng(SEED + 20 + i).random(
+                    (b, n, 3), dtype=np.float32)
+            errs = fused_layer_errs(torch, dev, dtype,
+                                    torch.from_numpy(pts).to(dev))
+            log(f"  {name} fused layers B={b} N={n} {kind}: " + ", ".join(
+                f"{k} {v:.2e}" for k, v in errs.items()))
+            worst = {k: max(v, worst.get(k, 0.0)) for k, v in errs.items()}
+        check(all(worst[k] <= LAYER_LIMITS[name][k] for k in worst),
+              f"{name} cls_ssg SA1 and SA2 in train mode with the gate on, "
+              f"kernels vs plain, worst of {len(LAYER_INPUTS)} inputs: "
+              + ", ".join(f"{k} {worst[k]:.2e} <= {LAYER_LIMITS[name][k]:g}"
+                          for k in worst))
+
+
+def fused_train_fit(torch, check: Checks, log_dir: str) -> dict:
+    """Phase 20c: the fused train path's main-path run, Trainer.fit of
+    cls_ssg and cls_msg in bf16 with the gate on, each from the launch
+    counters' zero; the loss must fall and every step launch the chain's
+    kernels as designed. Returns the launches summed over both."""
+    from pointnet2_tpu_torch import config, ops
+    from pointnet2_tpu_torch.data import SyntheticClassification
+
+    log(f"phase 20: Trainer.fit with config.fused_mlp(True), N={N_POINT}, "
+        f"batch 16, augment='cls', Adam lr 1e-3, bf16, {TRAIN_EPOCHS} "
+        "epochs each of cls_ssg and cls_msg")
+    datasets = [SyntheticClassification(num_classes=NUM_CLASSES,
+                                        samples_per_class=8, npoints=N_POINT,
+                                        batch_size=16, seed=s)
+                for s in (0, 1)]
+    total = dict.fromkeys(ops.KERNELS, 0)
+    for name, chains in TRAIN_MODELS.items():
+        for w in ops.KERNELS.values():
+            w.launches = 0
+        run_dir = os.path.join(log_dir, f"fused_fit_{name}")
+        t0 = time.perf_counter()
+        with config.fused_mlp(True), make_trainer(
+                torch, "bfloat16", run_dir, TRAIN_EPOCHS, model=name) as tr:
+            state = tr.fit(datasets[0], eval_dataset=datasets[1])
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in ops.KERNELS.items()}
+        steps = state.step
+        evals = TRAIN_EPOCHS * datasets[1].num_batches()
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in rows if r["split"] == "train"]
+        accs = [r["accuracy"] for r in rows if r["split"] == "eval"]
+        check(len(losses) == TRAIN_EPOCHS and losses[-1] < losses[0]
+              and all(np.isfinite(losses)),
+              f"{name} fused bf16: train loss by epoch "
+              f"{[round(x, 4) for x in losses]} falls (eval accuracy "
+              f"{[round(x, 4) for x in accs]}); {steps} steps, "
+              f"{time.perf_counter() - t0:.1f} s")
+        per = bwd_per_step(chains)
+        want = {k: per[k] * steps for k in BWD}
+        # the eval forwards take the eval chain: dense and pool launches
+        want["fused_dense"] = per["fused_dense"] * (steps + evals)
+        want["fused_pool"] = per["fused_pool"] * (steps + evals)
+        got = {k: counts[k] for k in want}
+        log(f"  launches in {name}'s fused train run ({steps} steps, {evals} "
+            f"eval forwards): {counts}")
+        check(got == want, f"{name}: per step {per} of the chain's kernels "
+              "(and the eval forwards' dense and pool launches)")
+        total = {k: total[k] + counts[k] for k in total}
+    return total
+
+
+def bwd_bounds(kind: str, shape: tuple, isz: int) -> tuple:
+    """The least time for one launch's work: each input read once and each
+    output written once (the dy scratch and the partials are the kernel's
+    own, not counted); rows 14's two products at the tensor cores' bf16
+    rate or the f32 FMA rate, rows 13 and 15's few f32 operations an
+    element at the rate without FMA."""
+    if kind == "fused_top_stats":
+        G, S, C = shape
+        byts = (G * S * C + G * C) * isz + 9 * C * 4
+        return roofline(5 * G * S * C, byts)
+    if kind == "fused_dense_bwd":
+        R, ck, cp, items = shape
+        byts = ((R * ck + 2 * R * cp + items * ck) * isz
+                + (2 * ck * cp + 8 * ck + 9 * cp) * 4)
+        rate = BF16_TENSOR_OPS_PER_S if isz == 2 else F32_FMA_OPS_PER_S
+        return roofline(4 * R * ck * cp, byts, rate)
+    R, C = shape
+    return roofline(10 * R * C, 3 * R * C * isz + 7 * C * 4)
+
+
+def time_fused_bwd_kernels(torch, dev, gpu: str, chains: list,
+                           rows: dict) -> None:
+    """Phase 21a: rows 13-15 per launch along cls_ssg's two chains at B=16
+    (the table holds bf16: one train step's launches), beside their bounds
+    and plain versions; and each chain's backward, fused (the kernels
+    through fused_chain_train) against the unfused autograd backward of the
+    same SharedMLP in train mode (what the chain stands for), timed
+    here only."""
+    import copy
+
+    from pointnet2_tpu_torch import config
+    from pointnet2_tpu_torch.ops import fused_mlp as fm
+
+    log(f"phase 21: fused backward kernels per launch at a cls_ssg train "
+        f"step's shapes, B=16, on {gpu} (kernels with the queue pre-filled, "
+        "plain with the host in the loop)")
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    for dt in (torch.bfloat16, torch.float32):
+        isz = 2 if dt == torch.bfloat16 else 4
+        for tag, mlp, R, ns in chains:
+            if not tag.startswith("cls_ssg"):
+                continue
+            with torch.no_grad():
+                ys, stats, ws = saved_chain(torch, dev, g, mlp, R, dt)
+                D = len(ys) - 1
+                packs = [fm.bn_pack(*st, 1e-3) for st in stats]
+                y_top = ys[D].reshape(R // ns, ns, -1)
+                gcur = torch.randn((R // ns, y_top.shape[-1]), generator=g,
+                                   device=dev).to(dt)
+                C = y_top.shape[-1]
+                part = torch.empty((2, -(-(R // ns) // 64), C),
+                                   device=dev)
+                sums = torch.zeros((2, C), device=dev)
+                ms = event_ms(torch, lambda: fm.launch_fused_top_stats(
+                    y_top, gcur, packs[D], part, sums, ns), 50, prefill=True)
+                plain = event_ms(torch, lambda: fm.top_stats_plain(
+                    y_top, gcur, packs[D], True), 10)
+                emit_bwd(torch, rows, "fused_top_stats",
+                         f"{tag} {tuple(y_top.shape)}", dt, ms, plain,
+                         bwd_bounds("fused_top_stats", tuple(y_top.shape),
+                                    isz))
+                for k in range(D, 0, -1):
+                    yk = y_top if k == D else ys[k]
+                    items, S = (R // ns, ns) if k == D else (R, 1)
+                    ck, cp = ws[k - 1].shape
+                    bufs = fm.dense_bwd_buffers(yk, cp, S)
+                    gk = gcur if k == D else torch.randn(
+                        (R, ck), generator=g, device=dev).to(dt)
+                    ms = event_ms(torch, lambda: fm.launch_fused_dense_bwd(
+                        yk, ys[k - 1], gk, packs[k], packs[k - 1], ws[k - 1],
+                        bufs, S), 20, prefill=True)
+                    plain = event_ms(torch, lambda: fm.dense_bwd_plain(
+                        yk, ys[k - 1], gk, packs[k], packs[k - 1], ws[k - 1],
+                        k == D), 5)
+                    emit_bwd(torch, rows, "fused_dense_bwd",
+                             f"{tag} k={k} ({R},{ck})->({R},{cp})", dt, ms,
+                             plain, bwd_bounds("fused_dense_bwd",
+                                               (R, ck, cp, items), isz))
+                x, gx = ys[0], torch.randn(ys[0].shape, generator=g,
+                                           device=dev).to(dt)
+                dx = torch.empty_like(x)
+                ms = event_ms(torch, lambda: fm.launch_fused_first_bwd(
+                    x, gx, packs[0], dx), 50, prefill=True)
+                plain = event_ms(torch, lambda: fm.first_bwd_plain(
+                    x, gx, packs[0]), 10)
+                emit_bwd(torch, rows, "fused_first_bwd",
+                         f"{tag} {tuple(x.shape)}", dt, ms, plain,
+                         bwd_bounds("fused_first_bwd", tuple(x.shape), isz))
+            # the chain's whole backward, fused against unfused autograd,
+            # on a copy of the layer (train-mode forwards move its BN
+            # statistics)
+            layer = copy.deepcopy(mlp).train()
+            for m in layer.modules():  # compute in dt, as a dt model does
+                if hasattr(m, "dtype"):
+                    m.dtype = dt
+            x4 = ys[0].reshape(16, R // ns // 16, ns, -1).detach()
+            x4.requires_grad_()
+            params = list(layer.parameters())
+            times = {}
+            for route in ("unfused", "fused"):
+                with config.fused_mlp(route == "fused"):
+                    if route == "fused":
+                        out = layer.fused_tail(x4)
+                    else:
+                        out = layer.finish_first_pooled(x4, dim=2)
+                go = torch.randn(out.shape, generator=g, device=dev).to(dt)
+                times[route] = event_ms(torch, lambda: torch.autograd.grad(
+                    out, [x4, *params], go, retain_graph=True,
+                    allow_unused=True), 10)
+            log(f"   {tag} {str(dt)[6:]}: the chain's backward, fused "
+                f"{times['fused']:.6f} ms, unfused autograd "
+                f"{times['unfused']:.6f} ms "
+                f"({times['fused'] / times['unfused']:.2f}x)")
+
+
+def emit_bwd(torch, rows: dict, name: str, shape: str, dt, ms, plain,
+             bound) -> None:
+    """bf16 times go into the table (one train step's launches), f32 ones
+    into the log only."""
+    if dt == torch.bfloat16:
+        add_time(rows, name, f"{shape} bf16", ms, plain, bound)
+    else:
+        log(f"  {name:<12} {shape + ' f32':<44} kernel {ms:.6f} ms  plain "
+            f"{plain:.6f} ms  bound {bound[0]:.6f} ms ({bound[1]})")
+    log(f"   {name} {shape}: {bound[0] / ms:.1%} of the {bound[1]} roofline")
+
+
+def time_fused_train(torch, dev, gpu: str, log_dir: str) -> None:
+    """Phase 21b: the train step fused against unfused, cls_ssg and cls_msg
+    at B=16 in bf16 and f32: host ms (median of 10), examples/s, device
+    time (torch.profiler busy us a step), peak device memory; then where a
+    fused bf16 cls_ssg step's device time goes."""
+    from pointnet2_tpu_torch import config
+    from pointnet2_tpu_torch.train.steps import run_one_step
+
+    log(f"phase 21: train steps fused vs unfused at B=16, N={N_POINT} (host "
+        f"clock; device time by torch.profiler) on {gpu}")
+    batch = train_batch(torch, dev)
+    host = {}
+    for name in TRAIN_MODELS:
+        for dtype in ("bfloat16", "float32"):
+            with make_trainer(torch, dtype, os.path.join(log_dir, "ftime"),
+                              1, model=name) as tr:
+                state = tr.init_state()
+
+                def step():
+                    run_one_step(state, batch, tr.loss_fn, tr.bn_schedule,
+                                 tr.augment_fn, tr.generator)
+
+                line = []
+                for route in ("unfused", "fused"):
+                    with config.fused_mlp(route == "fused"):
+                        ms = host[name, dtype, route] = host_ms(
+                            torch, step, 10, warmup=2)
+                        kernels, _, _, _ = trace_device(torch, step, 2)
+                        torch.cuda.reset_peak_memory_stats()
+                        step()
+                        torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                    busy = sum(r[0] for r in kernels)
+                    line.append(f"{route} {ms:.3f} ms/step "
+                                f"({16 / ms * 1e3:.1f} examples/s), {busy:.1f}"
+                                f" us device, peak {peak:.2f} GiB")
+                log(f"  {name} {dtype}: " + "; ".join(line))
+                if name == CLS_SSG and dtype == "bfloat16":
+                    with config.fused_mlp(True):
+                        profile_device(
+                            torch, step, 3, f"{name} fused bf16 train step",
+                            "step", host_us=host[name, dtype, "fused"] * 1e3)
+
 
 def main() -> int:
     try:
@@ -1966,7 +2623,8 @@ def main() -> int:
     errs = {"fps": 0, "ball_query": 0, "ball_query_group_xyz": 0,
             "ball_query_multi": 0, "gather_rows": 0.0, "scatter_rows": 0.0,
             "three_nn": 0, "fused_dense": 0.0, "fused_pool": 0.0,
-            "fused_affine": 0.0}
+            "fused_affine": 0.0, "fused_top_stats": 0.0,
+            "fused_dense_bwd": 0.0, "fused_first_bwd": 0.0}
     for B in (16, 768):
         check_kernels(torch, dev, B, check, errs)
 
@@ -2127,16 +2785,23 @@ def main() -> int:
     log("phase 17: serve cls_ssg, cls_msg, sem_seg, part_seg and "
         "part_seg_msg with config.fused_mlp(True) through the kernels")
     fused = drive_fused(torch, fused_preds, data)
-    check_fused(torch, dev, fused_preds, fused, data, fused_sds, log_dir,
-                check)
+    check_fused(torch, fused_preds, fused, data, fused_sds, check)
     time_fused_kernels(torch, dev, gpu, chains, rows)
     time_fused_forwards(torch, gpu, fused_preds, data)
+
+    check_fused_bwd_kernels(torch, dev, chains, check, errs)
+    check_fused_train_step(torch, dev, check, log_dir)
+    fused_fit = fused_train_fit(torch, check, log_dir)
+    time_fused_bwd_kernels(torch, dev, gpu, chains, rows)
+    time_fused_train(torch, dev, gpu, log_dir)
     # launches of each kernel over every main-path run (classifier serving,
     # training, sem_seg and part_seg serving, the MSG models' serving and
-    # the MSG layers' other routes, the fused route's serving); the affine
-    # tail runs on no model path, so its phase-16 launches count
+    # the MSG layers' other routes, the fused route's serving and
+    # training); the affine tail runs on no model path, so its phase-16
+    # launches count
     runs = [fit["counts"], seg["launches"][SEM], seg["launches"][PART],
-            *msg["launches"].values(), *fused["launches"].values()]
+            *msg["launches"].values(), *fused["launches"].values(),
+            fused_fit]
     launches = {k: launches[k] + sum(r[k] for r in runs) for k in REPLACES}
     launches["fused_affine"] += affine_launches
     check(all(launches[k] > 0 for k in REPLACES),

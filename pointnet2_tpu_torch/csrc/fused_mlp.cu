@@ -1,48 +1,68 @@
-// Fused set-abstraction chain, forward (eval): the BN-affine -> ReLU ->
-// dense pass with its bias and, optionally, the BN column statistics of its
-// output; the affine -> ReLU -> max-pool tail; the affine -> ReLU tail.
+// Fused set-abstraction chain: the BN-affine -> ReLU -> dense pass with its
+// bias and, optionally, the BN column statistics of its output; the affine
+// -> ReLU -> max-pool tail; the affine -> ReLU tail; and the train-mode
+// backward, which rematerialises from the saved pre-BN activations: the top
+// BN's reduction totals, each dense's backward, and the leading BN's dx.
 //
 // Replaces pointnet2_tpu/ops/pallas/fused_mlp.py:
-//   fused_dense  <- _dense_fwd (:141, kernel body _dense_fwd_kernel :116)
-//   fused_pool   <- _pool_fwd (:189, _pool_fwd_kernel :181)
-//   fused_affine <- _affine_fwd (:215, _affine_fwd_kernel :208)
+//   fused_dense     <- _dense_fwd (:141, kernel body _dense_fwd_kernel :116)
+//   fused_pool      <- _pool_fwd (:189, _pool_fwd_kernel :181)
+//   fused_affine    <- _affine_fwd (:215, _affine_fwd_kernel :208)
+//   fused_top_stats <- _top_stats (:288, _top_stats_kernel :257)
+//   fused_dense_bwd <- _dense_bwd (:391, _dense_bwd_kernel :324)
+//   fused_first_bwd <- _first_bwd (:478, _first_bwd_kernel :467)
 // The TPU kernels take exact power-of-two row tiles into VMEM, contract on
-// the MXU, and carry the statistics from one grid step to the next in one
-// VMEM block. Here blocks run in parallel in no order: each row block
-// writes its own partial sums and a second kernel adds them up.
+// the MXU, and carry their sums (the statistics, T1/T2, dW, db) from one
+// grid step to the next in one VMEM block. Here blocks run in parallel in
+// no order: each block writes its own partial sums over a fixed part of the
+// rows and a second kernel adds them up in an order that depends on the
+// shape alone. No atomics anywhere: two launches give the same bits.
 //
 // Semantics held here (those of the Pallas kernels and of the plain
 // versions in ops/fused_mlp.py); T is float or bf16, the activation type:
 // - z = T(relu(x*a + b)), with the product and the sum rounded apart
 //   (__fmul_rn, __fadd_rn: nvcc would contract them into an FMA, the
-//   plain version's eager mul and add round twice);
+//   plain version's eager mul and add round twice); likewise every
+//   elementwise step of the backward: out = y*a + b, yhat = (y - mu)*r,
+//   dout = dz*(out > 0), dy = gr*((dout - m1) - yhat*m2), so dy, dx and the
+//   tails are bit for bit their plain versions;
 // - W is nn.Linear's (Cout, Cin) f32 weight, rounded to T as it is loaded;
 // - acc = sum_k z*W in f32 (a bf16 product is exact in f32), y = T(acc +
 //   bias): the plain version's z.float() @ w.float() up to summation order;
 // - with statistics, the column sum and sum of squares of float(y), the
 //   rounded y, in f32: each 64-row block writes its partial sums, in a
 //   fixed order, into row blockIdx.x of a (row blocks, Cout) scratch; a
-//   second kernel adds the rows in ascending block order. No atomics: two
-//   launches give the same bits;
-// - pool: max over S of T(relu(y*a + b)); affine: T(relu(y*a + b)), with
-//   the same two roundings, so both are bit for bit their plain versions.
-// - Any row count and any Cin, Cout >= 1: every ragged edge is masked (the
-//   TPU kernels needed exact tiles, fused_chain_eligible). Offsets are
+//   second kernel adds the rows in an order fixed by their count
+//   (sum_rows_kernel);
+// - pool: max over S of T(relu(y*a + b)); affine: T(relu(y*a + b));
+// - backward (the pack p of a BN holds rows a, b, mu, r, gr, m1, m2): the
+//   pooled cotangent goes to the first-occurrence argmax over S of
+//   T(relu(y*a + b)), as torch.argmax and the TPU kernel pick it; dense k's
+//   dy is rounded to T (dy_c) before both products, db sums the unrounded
+//   dy, dW = dy_c^T @ z_{k-1} (Ck, Cp), g_{k-1} = T(dy_c @ T(W)), and
+//   BN_{k-1}'s T1/T2 come from the rounded g_{k-1};
+// - Any row count and any channel count >= 1: every ragged edge is masked
+//   (the TPU kernels needed exact tiles, fused_chain_eligible). Offsets are
 //   64-bit: cls_msg SA1's third scale at B=64 has 4.2 M rows.
 //
-// Bound on this card. fused_pool and fused_affine are bound by bytes: each
-// element of y is read once and each output written once, neighbouring
-// threads on neighbouring channels. fused_dense moves few bytes for its
-// work (bf16 cls_ssg SA1 64 -> 128 at B=16: 101 MB, 30 us at 3.35 TB/s)
-// and its bound is bytes against the tensor cores' rate; this simple
-// design does its products as f32 FMAs on the CUDA cores (64 us of FMAs
-// for that layer at 67e12 op/s) from shared memory: 64x64 output tiles,
-// 128 threads, each with a 4x8 accumulator in registers, Cin in chunks of
-// 32 staged through shared memory with the affine, the ReLU and the
-// rounding applied as x is loaded. Each thread reads 12 shared values for
-// 32 FMAs, so shared memory, not the FMA pipe, sets its pace. A tensor-core
-// (mma.sync / wgmma, TMA) redesign with the pool fused into the last dense
-// is a later change.
+// Bound on this card. fused_pool, fused_affine, fused_top_stats and
+// fused_first_bwd are bound by bytes: each input element is read once and
+// each output written once, neighbouring threads on neighbouring channels.
+// fused_dense and fused_dense_bwd move few bytes for their work (bf16
+// cls_ssg SA1 64 -> 128 at B=16: 101 MB forward, 30 us at 3.35 TB/s) and
+// their bound is bytes against the tensor cores' rate; this simple design
+// does its products as f32 FMAs on the CUDA cores from shared memory: 64x64
+// output tiles, 128 threads, each with a 4x8 accumulator in registers, the
+// contracted dimension in chunks of 32 staged through shared memory with
+// the affine, the ReLU and the rounding applied as the operands are loaded.
+// Each thread reads 12 shared values for 32 FMAs, so shared memory, not the
+// FMA pipe, sets its pace. fused_dense_bwd runs three such passes: the
+// elementwise dy pass (the pool routing recomputed, dy_c written to a
+// scratch, db partials per 64 items), g_{k-1} = dy_c @ W over 64-row tiles
+// with T1/T2 partials in the epilogue, and dW over 1024-row slabs whose
+// (Ck, Cp) partials are then added up; the slab size is a constant, never
+// the card's SM count, so two cards give the same bits. A
+// tensor-core (mma.sync / wgmma, TMA) redesign is a later change.
 
 #include "common.cuh"
 
@@ -79,11 +99,100 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
+// v*a + b, two roundings
+__device__ __forceinline__ float bn_out(float v, float a, float b) {
+  return __fadd_rn(__fmul_rn(v, a), b);
+}
+
 // relu(v*a + b), two roundings; v < 0 ? 0 : v keeps -0.0 and NaN as
 // torch.relu does
 __device__ __forceinline__ float affine_relu(float v, float a, float b) {
-  const float o = __fadd_rn(__fmul_rn(v, a), b);
+  const float o = bn_out(v, a, b);
   return o < 0.0f ? 0.0f : o;
+}
+
+// dz * (out > 0): the ReLU's backward as the plain version multiplies it
+// (a negative dz times 0 gives -0.0)
+__device__ __forceinline__ float relu_gate(float dz, float out) {
+  return __fmul_rn(dz, out > 0.0f ? 1.0f : 0.0f);
+}
+
+// yhat = (v - mu) * r
+__device__ __forceinline__ float bn_hat(float v, float mu, float r) {
+  return __fmul_rn(__fsub_rn(v, mu), r);
+}
+
+// gr * ((dout - m1) - yhat*m2): the BN's input cotangent
+__device__ __forceinline__ float bn_dy(float dout, float yhat, float gr,
+                                       float m1, float m2) {
+  return __fmul_rn(gr, __fsub_rn(__fsub_rn(dout, m1), __fmul_rn(yhat, m2)));
+}
+
+// The first index over s of the largest T(relu(y*a + b)) (a NaN counts as
+// the largest), p pointing at one column of s rows c apart: torch.argmax's
+// and the TPU kernel's pick.
+template <typename T>
+__device__ __forceinline__ int first_argmax(const T* p, int s, int c,
+                                            float a, float b) {
+  if (s == 1) return 0;
+  float m = -INFINITY;
+  int am = 0;
+  for (int i = 0; i < s; ++i) {
+    const float z =
+        round_to<T>(affine_relu(to_f32(p[static_cast<long long>(i) * c]), a,
+                                b));
+    if (z > m || (z != z && m == m)) {
+      m = z;
+      am = i;
+    }
+  }
+  return am;
+}
+
+// acc[i][j] += sum over the staged chunk of as[ty + 16i][k] * bs[tx + 8j][k]
+__device__ __forceinline__ void tile_fma(const float (*as)[kBK + 1],
+                                         const float (*bs)[kBK + 1],
+                                         float (&acc)[4][8], int ty, int tx) {
+#pragma unroll 8
+  for (int k = 0; k < kBK; ++k) {
+    float ar[4], br[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ar[i] = as[ty + 16 * i][k];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) br[j] = bs[tx + 8 * j][k];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+  }
+}
+
+// A 64x64 tile's column partials: each thread's (s, ss) over its 4 rows of
+// its 8 columns, the 16 row groups added per column in ascending row group
+// through the scratch rs, rss (16 x kBN floats each, free shared memory),
+// written to row `blk` of part_s, part_ss (cout wide).
+__device__ __forceinline__ void write_column_partials(
+    const float (&cs)[8], const float (&css)[8], float* rs, float* rss,
+    int col0, int cout, long long blk, float* part_s, float* part_ss) {
+  const int tid = threadIdx.x;
+  const int tx = tid & 7, ty = tid >> 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    rs[ty * kBN + tx + 8 * j] = cs[j];
+    rss[ty * kBN + tx + 8 * j] = css[j];
+  }
+  __syncthreads();
+  if (tid < kBN && col0 + tid < cout) {
+    float s = 0.0f, ss = 0.0f;
+    for (int t = 0; t < kThreads / 8; ++t) {
+      s = __fadd_rn(s, rs[t * kBN + tid]);
+      ss = __fadd_rn(ss, rss[t * kBN + tid]);
+    }
+    const long long at = blk * cout + col0 + tid;
+    part_s[at] = s;
+    part_ss[at] = ss;
+  }
 }
 
 template <typename T, bool kStats>
@@ -140,19 +249,7 @@ __global__ void __launch_bounds__(kThreads)
       ws[n][k] = v;
     }
     __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kBK; ++k) {
-      float zr[4], wr[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) zr[i] = zs[ty + 16 * i][k];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) wr[j] = ws[tx + 8 * j][k];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(zr[i], wr[j], acc[i][j]);
-      }
-    }
+    tile_fma(zs, ws, acc, ty, tx);
     __syncthreads();  // the tiles are read before the next step restages
   }
 
@@ -184,45 +281,47 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   if (kStats) {
-    // the staging tiles are free after the loop's last barrier: per column,
-    // the 16 row groups' sums, added in ascending row group
-    float* rs = &zs[0][0];   // 16 x kBN
-    float* rss = &ws[0][0];  // 16 x kBN
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      rs[ty * kBN + tx + 8 * j] = cs[j];
-      rss[ty * kBN + tx + 8 * j] = css[j];
-    }
-    __syncthreads();
-    if (tid < kBN && col0 + tid < cout) {
-      float s = 0.0f, ss = 0.0f;
-      for (int t = 0; t < kThreads / 8; ++t) {
-        s = __fadd_rn(s, rs[t * kBN + tid]);
-        ss = __fadd_rn(ss, rss[t * kBN + tid]);
-      }
-      const long long at = static_cast<long long>(blockIdx.x) * cout + col0 +
-                           tid;
-      part_s[at] = s;
-      part_ss[at] = ss;
-    }
+    // the staging tiles are free after the loop's last barrier
+    write_column_partials(cs, css, &zs[0][0], &ws[0][0], col0, cout,
+                          blockIdx.x, part_s, part_ss);
   }
 }
 
-// sum[c] = sum over row blocks, ascending, of part[blk, c]
-__global__ void column_sums_kernel(const float* __restrict__ part_s,
-                                   const float* __restrict__ part_ss,
-                                   float* __restrict__ sum,
-                                   float* __restrict__ sumsq, long long blocks,
-                                   int cout) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= cout) return;
-  float s = 0.0f, ss = 0.0f;
-  for (long long blk = 0; blk < blocks; ++blk) {
-    s = __fadd_rn(s, part_s[blk * cout + col]);
-    ss = __fadd_rn(ss, part_ss[blk * cout + col]);
+constexpr int kSumCols = 32;   // columns a block of sum_rows_kernel
+constexpr int kSumLanes = 32;  // lanes a column, over the partials' rows
+
+// out[i] = the sum over rows of part (rows, width), in an order fixed by
+// `rows` alone: lane l adds rows l, l + 32, l + 64, ... in ascending order,
+// then the 32 lane sums are added in ascending lane. About rows/32 + 32
+// roundings a sum, where one ascending loop would take `rows`, and 32 loads
+// in flight a column.
+__global__ void __launch_bounds__(kSumCols* kSumLanes)
+    sum_rows_kernel(const float* __restrict__ part, float* __restrict__ out,
+                    long long rows, long long width) {
+  __shared__ float lanes[kSumLanes][kSumCols + 1];
+  const long long col =
+      static_cast<long long>(blockIdx.x) * kSumCols + threadIdx.x;
+  float s = 0.0f;
+  if (col < width) {
+    for (long long r = threadIdx.y; r < rows; r += kSumLanes) {
+      s = __fadd_rn(s, part[r * width + col]);
+    }
   }
-  sum[col] = s;
-  sumsq[col] = ss;
+  lanes[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < width) {
+    float t = 0.0f;
+    for (int l = 0; l < kSumLanes; ++l) t = __fadd_rn(t, lanes[l][threadIdx.x]);
+    out[col] = t;
+  }
+}
+
+cudaError_t sum_rows(const float* part, float* out, long long rows,
+                     long long width, cudaStream_t st) {
+  sum_rows_kernel<<<static_cast<unsigned>((width + kSumCols - 1) / kSumCols),
+                    dim3(kSumCols, kSumLanes), 0, st>>>(part, out, rows,
+                                                        width);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -262,6 +361,260 @@ __global__ void fused_affine_kernel(const T* __restrict__ y,
        t < total; t += stride) {
     const int ch = static_cast<int>(t % c);
     out[t] = from_f32<T>(affine_relu(to_f32(y[t]), a[ch], b[ch]));
+  }
+}
+
+// --- backward ---------------------------------------------------------------
+
+constexpr int kItems = 64;    // items (groups of s rows) a block, 8 a thread
+constexpr int kSlab = 1024;   // rows of one dW partial
+constexpr int kIx = 32;       // channels a block of the elementwise passes
+constexpr int kIy = 8;        // item lanes a block of the elementwise passes
+
+// The column partials of a (kIx x kIy) block: per channel, the kIy lanes'
+// sums added in ascending lane, written to row blockIdx.x.
+__device__ __forceinline__ void write_lane_partials(float v1, float v2,
+                                                    int ch, int c,
+                                                    float* part1,
+                                                    float* part2) {
+  __shared__ float r1[kIy][kIx], r2[kIy][kIx];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  r1[ty][tx] = v1;
+  r2[ty][tx] = v2;
+  __syncthreads();
+  if (ty == 0 && ch < c) {
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int t = 0; t < kIy; ++t) {
+      s1 = __fadd_rn(s1, r1[t][tx]);
+      s2 = __fadd_rn(s2, r2[t][tx]);
+    }
+    const long long at = static_cast<long long>(blockIdx.x) * c + ch;
+    part1[at] = s1;
+    if (part2 != nullptr) part2[at] = s2;
+  }
+}
+
+// Row 13: T1 = sum dout, T2 = sum dout*yhat of the top BN. An item is a
+// pooled group of s rows (its cotangent g[item] goes to the argmax row) or,
+// with s = 1, one row; y (items, s, c), g (items, c). One thread a (item,
+// channel), channels across a warp; partials per block of kItems items.
+template <typename T>
+__global__ void __launch_bounds__(kIx* kIy)
+    fused_top_stats_kernel(const T* __restrict__ y, const T* __restrict__ g,
+                           const float* __restrict__ p,
+                           float* __restrict__ part1,
+                           float* __restrict__ part2, long long items, int s,
+                           int c) {
+  const int ch = blockIdx.y * kIx + threadIdx.x;
+  float t1 = 0.0f, t2 = 0.0f;
+  if (ch < c) {
+    const float a = p[ch], b = p[c + ch], mu = p[2 * c + ch];
+    const float r = p[3 * c + ch];
+    for (int q = 0; q < kItems / kIy; ++q) {
+      const long long it = static_cast<long long>(blockIdx.x) * kItems +
+                           threadIdx.y + kIy * q;
+      if (it >= items) break;
+      const T* py = y + it * s * c + ch;
+      const int am = first_argmax<T>(py, s, c, a, b);
+      const float v = to_f32(py[static_cast<long long>(am) * c]);
+      const float dout = relu_gate(to_f32(g[it * c + ch]), bn_out(v, a, b));
+      t1 = __fadd_rn(t1, dout);
+      t2 = __fadd_rn(t2, __fmul_rn(dout, bn_hat(v, mu, r)));
+    }
+  }
+  write_lane_partials(t1, t2, ch, c, part1, part2);
+}
+
+// Row 14, pass 1: dy of dense k's BN_k for every row, rounded to T into
+// dyc, with the per-block partials of db = sum of the unrounded dy. Items
+// as in fused_top_stats_kernel: a pooled group (the top layer) or a row.
+template <typename T>
+__global__ void __launch_bounds__(kIx* kIy)
+    fused_dense_bwd_kernel(const T* __restrict__ yk, const T* __restrict__ g,
+                           const float* __restrict__ pk, T* __restrict__ dyc,
+                           float* __restrict__ part_db, long long items,
+                           int s, int c) {
+  const int ch = blockIdx.y * kIx + threadIdx.x;
+  float db = 0.0f;
+  if (ch < c) {
+    const float a = pk[ch], b = pk[c + ch], mu = pk[2 * c + ch];
+    const float r = pk[3 * c + ch], gr = pk[4 * c + ch];
+    const float m1 = pk[5 * c + ch], m2 = pk[6 * c + ch];
+    for (int q = 0; q < kItems / kIy; ++q) {
+      const long long it = static_cast<long long>(blockIdx.x) * kItems +
+                           threadIdx.y + kIy * q;
+      if (it >= items) break;
+      const T* py = yk + it * s * c + ch;
+      T* pd = dyc + it * s * c + ch;
+      const int am = first_argmax<T>(py, s, c, a, b);
+      const float gv = to_f32(g[it * c + ch]);
+      for (int i = 0; i < s; ++i) {
+        const long long off = static_cast<long long>(i) * c;
+        const float v = to_f32(py[off]);
+        const float dout = relu_gate(i == am ? gv : 0.0f, bn_out(v, a, b));
+        const float dy = bn_dy(dout, bn_hat(v, mu, r), gr, m1, m2);
+        pd[off] = from_f32<T>(dy);
+        db = __fadd_rn(db, dy);
+      }
+    }
+  }
+  write_lane_partials(db, 0.0f, ch, c, part_db, nullptr);
+}
+
+// Row 14, pass 2: g_{k-1} (rows, cp) = T(dyc @ T(w)) for dyc (rows, ck) of
+// T and w (ck, cp) f32, and the per-64-row-block partials of BN_{k-1}'s T1
+// and T2 from the rounded g and yp (rows, cp), pp BN_{k-1}'s pack.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    dense_bwd_g_kernel(const T* __restrict__ dyc, const float* __restrict__ w,
+                       const T* __restrict__ yp, const float* __restrict__ pp,
+                       T* __restrict__ gp, float* __restrict__ part1,
+                       float* __restrict__ part2, long long rows, int ck,
+                       int cp) {
+  __shared__ float as[kBM][kBK + 1];  // dyc rows, k
+  __shared__ float bs[kBN][kBK + 1];  // w columns, k
+  const int tid = threadIdx.x;
+  const int tx = tid & 7, ty = tid >> 3;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kBM;
+  const int col0 = blockIdx.y * kBN;
+
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  }
+  for (int k0 = 0; k0 < ck; k0 += kBK) {
+#pragma unroll
+    for (int q = 0; q < kBM * kBK / kThreads; ++q) {
+      const int e = tid + q * kThreads;
+      const int r = e / kBK, k = e % kBK;  // a warp on one row's 32 k
+      const long long row = row0 + r;
+      const int kk = k0 + k;
+      as[r][k] = (row < rows && kk < ck) ? to_f32(dyc[row * ck + kk]) : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < kBN * kBK / kThreads; ++q) {
+      const int e = tid + q * kThreads;
+      const int n = e % kBN, k = e / kBN;  // a warp on one row of w
+      const int col = col0 + n;
+      const int kk = k0 + k;
+      bs[n][k] = (col < cp && kk < ck)
+                     ? round_to<T>(w[static_cast<long long>(kk) * cp + col])
+                     : 0.0f;
+    }
+    __syncthreads();
+    tile_fma(as, bs, acc, ty, tx);
+    __syncthreads();
+  }
+
+  float pa[8], pb[8], pmu[8], pr[8], cs[8], css[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = col0 + tx + 8 * j;
+    const bool in = col < cp;
+    pa[j] = in ? pp[col] : 0.0f;
+    pb[j] = in ? pp[cp + col] : 0.0f;
+    pmu[j] = in ? pp[2 * cp + col] : 0.0f;
+    pr[j] = in ? pp[3 * cp + col] : 0.0f;
+    cs[j] = 0.0f;
+    css[j] = 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long row = row0 + ty + 16 * i;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = col0 + tx + 8 * j;
+      if (col >= cp) continue;
+      const T out = from_f32<T>(acc[i][j]);
+      gp[row * cp + col] = out;
+      const float v = to_f32(yp[row * cp + col]);
+      // the totals from the rounded cotangent, as the next pass reads it
+      const float dout = relu_gate(to_f32(out), bn_out(v, pa[j], pb[j]));
+      cs[j] = __fadd_rn(cs[j], dout);
+      css[j] = __fadd_rn(css[j], __fmul_rn(dout, bn_hat(v, pmu[j], pr[j])));
+    }
+  }
+  write_column_partials(cs, css, &as[0][0], &bs[0][0], col0, cp, blockIdx.x,
+                        part1, part2);
+}
+
+// Row 14, pass 3: the (ck, cp) partial of dW = dyc^T @ T(relu(yp*a + b))
+// over the rows of slab blockIdx.x, into part[blockIdx.x].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    dense_bwd_dw_kernel(const T* __restrict__ dyc, const T* __restrict__ yp,
+                        const float* __restrict__ pp, float* __restrict__ part,
+                        long long rows, int ck, int cp) {
+  __shared__ float as[kBM][kBK + 1];  // dyc columns (ck), rows
+  __shared__ float bs[kBN][kBK + 1];  // z columns (cp), rows
+  const int tid = threadIdx.x;
+  const int tx = tid & 7, ty = tid >> 3;
+  const long long begin = static_cast<long long>(blockIdx.x) * kSlab;
+  const long long end = rows < begin + kSlab ? rows : begin + kSlab;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.z * kBN;
+
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  }
+  for (long long k0 = begin; k0 < end; k0 += kBK) {
+#pragma unroll
+    for (int q = 0; q < kBM * kBK / kThreads; ++q) {
+      const int e = tid + q * kThreads;
+      const int m = e % kBM, k = e / kBM;  // a warp on one row's columns
+      const long long row = k0 + k;
+      const int col = m0 + m;
+      as[m][k] = (row < end && col < ck) ? to_f32(dyc[row * ck + col]) : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < kBN * kBK / kThreads; ++q) {
+      const int e = tid + q * kThreads;
+      const int n = e % kBN, k = e / kBN;
+      const long long row = k0 + k;
+      const int col = n0 + n;
+      bs[n][k] = (row < end && col < cp)
+                     ? round_to<T>(affine_relu(to_f32(yp[row * cp + col]),
+                                               pp[col], pp[cp + col]))
+                     : 0.0f;
+    }
+    __syncthreads();
+    tile_fma(as, bs, acc, ty, tx);
+    __syncthreads();
+  }
+  float* out = part + static_cast<long long>(blockIdx.x) * ck * cp;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty + 16 * i;
+    if (m >= ck) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + tx + 8 * j;
+      if (n < cp) out[static_cast<long long>(m) * cp + n] = acc[i][j];
+    }
+  }
+}
+
+// Row 15: dx = T(gr*((dout - m1) - yhat*m2)) of BN_0, x and g (rows, c)
+template <typename T>
+__global__ void fused_first_bwd_kernel(const T* __restrict__ x,
+                                       const T* __restrict__ g,
+                                       const float* __restrict__ p,
+                                       T* __restrict__ dx, long long total,
+                                       int c) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       t < total; t += stride) {
+    const int ch = static_cast<int>(t % c);
+    const float v = to_f32(x[t]);
+    const float dout = relu_gate(to_f32(g[t]), bn_out(v, p[ch], p[c + ch]));
+    dx[t] = from_f32<T>(bn_dy(dout, bn_hat(v, p[2 * c + ch], p[3 * c + ch]),
+                              p[4 * c + ch], p[5 * c + ch], p[6 * c + ch]));
   }
 }
 
@@ -322,10 +675,10 @@ extern "C" int pn2_fused_dense(const void* x, const void* a, const void* b,
     return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess || ps == nullptr) return err;
-  column_sums_kernel<<<(cout + 127) / 128, 128, 0, st>>>(
-      ps, pss, static_cast<float*>(sum), static_cast<float*>(sumsq),
-      (rows + kBM - 1) / kBM, cout);
-  return cudaGetLastError();
+  const long long blocks = (rows + kBM - 1) / kBM;
+  err = sum_rows(ps, static_cast<float*>(sum), blocks, cout, st);
+  if (err != cudaSuccess) return err;
+  return sum_rows(pss, static_cast<float*>(sumsq), blocks, cout, st);
 }
 
 // out (groups, c) = max over s of T(relu(y*a + b)), y (groups, s, c) of T
@@ -369,6 +722,169 @@ extern "C" int pn2_fused_affine(const void* y, const void* a, const void* b,
     fused_affine_kernel<__nv_bfloat16><<<grid_for(total, 256), 256, 0, st>>>(
         static_cast<const __nv_bfloat16*>(y), af, bf,
         static_cast<__nv_bfloat16*>(out), total, c);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+namespace {
+
+unsigned item_blocks(long long items) {
+  return static_cast<unsigned>((items + kItems - 1) / kItems);
+}
+
+template <typename T>
+cudaError_t launch_top_stats(const void* y, const void* g, const float* p,
+                             float* part, float* sums, long long items, int s,
+                             int c, cudaStream_t st) {
+  const unsigned blocks = item_blocks(items);
+  const dim3 grid(blocks, (c + kIx - 1) / kIx);
+  float* part2 = part + static_cast<long long>(blocks) * c;
+  fused_top_stats_kernel<T><<<grid, dim3(kIx, kIy), 0, st>>>(
+      static_cast<const T*>(y), static_cast<const T*>(g), p, part, part2,
+      items, s, c);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if ((err = sum_rows(part, sums, blocks, c, st)) != cudaSuccess) return err;
+  return sum_rows(part2, sums + c, blocks, c, st);
+}
+
+struct DenseBwd {
+  const void* yk;
+  const void* yp;
+  const void* g;
+  const float* pk;
+  const float* pp;
+  const float* w;
+  void* dyc;
+  float* db_part;
+  void* gp;
+  float* t_part;
+  float* dw_part;
+  float* dw;
+  float* db;
+  float* t;
+};
+
+template <typename T>
+cudaError_t launch_dense_bwd(const DenseBwd& a, long long items, int s,
+                             int ck, int cp, cudaStream_t st) {
+  const long long rows = items * s;
+  const unsigned iblocks = item_blocks(items);
+  fused_dense_bwd_kernel<T>
+      <<<dim3(iblocks, (ck + kIx - 1) / kIx), dim3(kIx, kIy), 0, st>>>(
+          static_cast<const T*>(a.yk), static_cast<const T*>(a.g), a.pk,
+          static_cast<T*>(a.dyc), a.db_part, items, s, ck);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if ((err = sum_rows(a.db_part, a.db, iblocks, ck, st)) != cudaSuccess) {
+    return err;
+  }
+
+  const unsigned rblocks = static_cast<unsigned>((rows + kBM - 1) / kBM);
+  float* t2_part = a.t_part + static_cast<long long>(rblocks) * cp;
+  dense_bwd_g_kernel<T>
+      <<<dim3(rblocks, (cp + kBN - 1) / kBN), kThreads, 0, st>>>(
+          static_cast<const T*>(a.dyc), a.w, static_cast<const T*>(a.yp),
+          a.pp, static_cast<T*>(a.gp), a.t_part, t2_part, rows, ck, cp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = sum_rows(a.t_part, a.t, rblocks, cp, st)) != cudaSuccess ||
+      (err = sum_rows(t2_part, a.t + cp, rblocks, cp, st)) != cudaSuccess) {
+    return err;
+  }
+
+  const unsigned slabs = static_cast<unsigned>((rows + kSlab - 1) / kSlab);
+  dense_bwd_dw_kernel<T><<<dim3(slabs, (ck + kBM - 1) / kBM,
+                                (cp + kBN - 1) / kBN),
+                           kThreads, 0, st>>>(
+      static_cast<const T*>(a.dyc), static_cast<const T*>(a.yp), a.pp,
+      a.dw_part, rows, ck, cp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return sum_rows(a.dw_part, a.dw, slabs, static_cast<long long>(ck) * cp,
+                  st);
+}
+
+}  // namespace
+
+// T1, T2 (sums, 2 x c f32) of the top BN: y (items, s, c) of T, g (items,
+// c) of T, p the (7, c) f32 pack; part a (2, ceil(items/64), c) f32
+// scratch. s = 1 is the unpooled chain.
+extern "C" int pn2_fused_top_stats(const void* y, const void* g,
+                                   const void* p, void* part, void* sums,
+                                   long long items, int s, int c,
+                                   int itemsize, void* stream) {
+  if (items <= 0 || c <= 0) return cudaSuccess;
+  if (s <= 0 || (items + kItems - 1) / kItems > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* pf = static_cast<const float*>(p);
+  float* partf = static_cast<float*>(part);
+  float* sumsf = static_cast<float*>(sums);
+  if (itemsize == 4) {
+    return launch_top_stats<float>(y, g, pf, partf, sumsf, items, s, c, st);
+  }
+  if (itemsize == 2) {
+    return launch_top_stats<__nv_bfloat16>(y, g, pf, partf, sumsf, items, s,
+                                           c, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Dense k's backward. yk (items, s, ck) and g (items, ck) of T (s = 1
+// below the top layer), yp (items*s, cp) of T, pk and pp the (7, ck) and
+// (7, cp) f32 packs of BN_k and BN_{k-1}, w (ck, cp) f32. Scratches: dyc
+// (rows, ck) T, db_part (ceil(items/64), ck), t_part (2, ceil(rows/64), cp),
+// dw_part (ceil(rows/1024), ck, cp), all f32 but dyc. Outputs: gp (rows,
+// cp) T, dw (ck, cp), db (ck), t (2, cp) f32.
+extern "C" int pn2_fused_dense_bwd(const void* yk, const void* yp,
+                                   const void* g, const void* pk,
+                                   const void* pp, const void* w, void* dyc,
+                                   void* db_part, void* gp, void* t_part,
+                                   void* dw_part, void* dw, void* db, void* t,
+                                   long long items, int s, int ck, int cp,
+                                   int itemsize, void* stream) {
+  if (items <= 0 || ck <= 0 || cp <= 0) return cudaSuccess;
+  if (s <= 0 || items * s / kBM > 0x7fffffffLL ||
+      (ck + kBM - 1) / kBM > 65535 || (cp + kBN - 1) / kBN > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  const DenseBwd a{yk, yp, g,
+                   static_cast<const float*>(pk),
+                   static_cast<const float*>(pp),
+                   static_cast<const float*>(w), dyc,
+                   static_cast<float*>(db_part), gp,
+                   static_cast<float*>(t_part), static_cast<float*>(dw_part),
+                   static_cast<float*>(dw), static_cast<float*>(db),
+                   static_cast<float*>(t)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (itemsize == 4) return launch_dense_bwd<float>(a, items, s, ck, cp, st);
+  if (itemsize == 2) {
+    return launch_dense_bwd<__nv_bfloat16>(a, items, s, ck, cp, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// dx (rows, c) = T(gr*((dout - m1) - yhat*m2)) of BN_0, x and g (rows, c)
+// of T, p the (7, c) f32 pack
+extern "C" int pn2_fused_first_bwd(const void* x, const void* g,
+                                   const void* p, void* dx, long long rows,
+                                   int c, int itemsize, void* stream) {
+  if (rows <= 0 || c <= 0) return cudaSuccess;
+  const long long total = rows * c;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* pf = static_cast<const float*>(p);
+  if (itemsize == 4) {
+    fused_first_bwd_kernel<float><<<grid_for(total, 256), 256, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(g), pf,
+        static_cast<float*>(dx), total, c);
+  } else if (itemsize == 2) {
+    fused_first_bwd_kernel<__nv_bfloat16>
+        <<<grid_for(total, 256), 256, 0, st>>>(
+            static_cast<const __nv_bfloat16*>(x),
+            static_cast<const __nv_bfloat16*>(g), pf,
+            static_cast<__nv_bfloat16*>(dx), total, c);
   } else {
     return cudaErrorInvalidValue;
   }

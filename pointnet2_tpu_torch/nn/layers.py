@@ -113,6 +113,15 @@ class BatchNorm(nn.Module):
         if not self.training:
             return self.running_mean, self.running_var
         mean, var = _batch_stats(x)
+        self.update_stats(mean, var, momentum)
+        return mean, var
+
+    def update_stats(self, mean: torch.Tensor, var: torch.Tensor,
+                     momentum) -> None:
+        """Fold batch statistics into the running ones, in place and outside
+        autograd: ``running*m + batch*(1-m)``
+        (pointnet2_tpu/nn/layers.py:95-112); the fused SA chain computes its
+        statistics in its kernels and writes them back through here."""
         m = _f32(momentum)
         one_minus = _f32(np.float32(1.0) - np.float32(m))
         with torch.no_grad():
@@ -120,7 +129,6 @@ class BatchNorm(nn.Module):
                                     + mean.detach() * one_minus)
             self.running_var.copy_(self.running_var * m
                                    + var.detach() * one_minus)
-        return mean, var
 
     def forward(self, x: torch.Tensor, momentum=0.9) -> torch.Tensor:
         mean, var = self._stats(x, momentum)
@@ -262,17 +270,13 @@ class SharedMLP(nn.Module):
 
         ``x`` is the pre-BN_0 tensor (B, M, S, mlp[0]), the lifted first
         dense's gathered output. Runs BN_0 -> (dense_k + BN_k)_k -> max-pool
-        as the kernels of csrc/fused_mlp.cu on the running statistics; the
-        result equals the unfused path's up to float reassociation of the
-        BN affine. Eval only: the train-mode chain (Pallas rows 13-15) is
-        ROADMAP Queue 1 item 2, and until then a train-mode call raises
-        rather than take another route."""
-        if self.training:
-            raise NotImplementedError(
-                "the fused SA chain runs in eval mode only: its train-mode "
-                "forward and backward (Pallas rows 13-15) are not ported "
-                "yet (ROADMAP Queue 1 item 2); train with "
-                "config.fused_mlp(False)")
+        as the kernels of csrc/fused_mlp.cu; the result equals the unfused
+        path's up to float reassociation of the BN affine. In eval the BNs
+        take their running statistics and the result has no gradient (a
+        backward raises, as the JAX package's eval chain has none). In train
+        mode they take the batch's, the chain is differentiable through its
+        backward kernels, and each BN's running statistics are updated with
+        ``bn_momentum`` (pointnet2_tpu/nn/layers.py:321-326)."""
         denses, scales, biases, running = [], [], [], []
         for i, block in enumerate(self.blocks):
             scales.append(block.norm.weight)
@@ -282,6 +286,12 @@ class SharedMLP(nn.Module):
                 denses.append((block.dense.weight, block.dense.bias))
         cfg = fused_mlp.ChainConfig(eps=self.blocks[0].norm.epsilon,
                                     pool=pool)
+        if self.training:
+            out, stats = fused_mlp.fused_chain_train(cfg, x, denses, scales,
+                                                     biases)
+            for block, (mean, var) in zip(self.blocks, stats):
+                block.norm.update_stats(mean, var, bn_momentum)
+            return out
         return fused_mlp.fused_chain_eval(cfg, x, denses, scales, biases,
                                           running)
 

@@ -1,7 +1,7 @@
 """Point ops of the port: FPS, ball query (single, with grouped xyz, and
 multi-radius), kNN, row gathers with their scatter-add gradient, max
 pooling, the three-NN search and interpolation of feature propagation, and
-the fused SA chain's forward (``ops.fused_mlp``).
+the fused SA chain's forward and backward (``ops.fused_mlp``).
 
 ``KERNELS`` names each hand-written CUDA kernel's wrapper; a wrapper's
 ``launches`` attribute counts its launches.
@@ -9,8 +9,11 @@ the fused SA chain's forward (``ops.fused_mlp``).
 
 from pointnet2_tpu_torch.ops.fused_mlp import (
     fused_affine_kernel,
+    fused_dense_bwd_kernel,
     fused_dense_kernel,
+    fused_first_bwd_kernel,
     fused_pool_kernel,
+    fused_top_stats_kernel,
 )
 from pointnet2_tpu_torch.ops.grouping import (
     ball_query_group_xyz_kernel,
@@ -48,6 +51,9 @@ KERNELS = {
     "fused_dense": fused_dense_kernel,
     "fused_pool": fused_pool_kernel,
     "fused_affine": fused_affine_kernel,
+    "fused_top_stats": fused_top_stats_kernel,
+    "fused_dense_bwd": fused_dense_bwd_kernel,
+    "fused_first_bwd": fused_first_bwd_kernel,
 }
 
 __all__ = [

@@ -2,7 +2,9 @@
 the CPU: the three steps of the chain against the Pallas kernels
 (pointnet2_tpu/ops/pallas/fused_mlp.py, run in interpret mode off the TPU),
 the chain, the SA and MSG layers and two models with the gate on in both
-packages, and the route rule (which layers take the fused chain).
+packages, and the route rule (which layers take the fused chain, in eval
+and in train mode). The train-mode chain and its backward are held against
+JAX in tests/test_torch_fused_train.py.
 
 The same numpy inputs (from a seed) go through both packages; the port's
 CPU tensors take the plain PyTorch versions of the CUDA kernels. Tolerances:
@@ -214,7 +216,8 @@ def test_fused_chain_eval_matches_jax(rng, dtype, pool, feats):
 
 @pytest.fixture
 def count_chains(monkeypatch):
-    """Counts the fused chains each package runs (its fused_chain_eval)."""
+    """Counts the fused chains each package runs (its fused_chain_eval and
+    fused_chain_train)."""
     counts = {"jax": 0, "torch": 0}
 
     def spy(pkg, real):
@@ -223,10 +226,9 @@ def count_chains(monkeypatch):
             return real(*args, **kw)
         return wrapped
 
-    monkeypatch.setattr(jfm, "fused_chain_eval",
-                        spy("jax", jfm.fused_chain_eval))
-    monkeypatch.setattr(tfm, "fused_chain_eval",
-                        spy("torch", tfm.fused_chain_eval))
+    for name in ("fused_chain_eval", "fused_chain_train"):
+        monkeypatch.setattr(jfm, name, spy("jax", getattr(jfm, name)))
+        monkeypatch.setattr(tfm, name, spy("torch", getattr(tfm, name)))
     return counts
 
 
@@ -428,30 +430,51 @@ def test_layers_that_never_take_the_fused_chain(rng, count_chains, case):
     _close(got, want, "f32")
 
 
-def test_train_mode_with_the_gate_on_raises(rng):
+def test_train_mode_with_the_gate_on_raises(rng, count_chains):
+    """A train-mode SA or MSG layer with the gate on runs the train-mode
+    fused chain (it used to raise NotImplementedError), and is
+    differentiable; the same layer in eval mode runs the eval chain, and a
+    backward through that raises, as in the JAX package."""
     sa = tnn.SetAbstraction(16, 0.3, 8, 0, (8, 16)).train()
     xyz = torch.from_numpy(rng.rand(B, 64, 3).astype(np.float32))
-    with config.fused_mlp(True), pytest.raises(NotImplementedError,
-                                               match="Queue 1 item 2"):
-        sa(xyz, None)
+    with config.fused_mlp(True):
+        _, out, _ = sa(xyz, None)
+    assert count_chains["torch"] == 1
+    out.square().sum().backward()
+    assert all(p.grad is not None for p in sa.parameters())
     msg = tnn.SetAbstractionMSG(16, (0.2,), (8,), 0, ((8, 16),)).train()
-    with config.fused_mlp(True), pytest.raises(NotImplementedError):
+    with config.fused_mlp(True):
         msg(xyz, None)
-    sa(xyz, None)  # the gate off: the unfused train-mode forward
+    assert count_chains["torch"] == 2
+    sa.eval()
+    with config.fused_mlp(True):
+        _, out, _ = sa(xyz, None)
+    assert count_chains["torch"] == 3
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        out.sum().backward()
+    sa.train()(xyz, None)  # the gate off: the unfused train-mode forward
+    assert count_chains["torch"] == 3
 
 
-def test_trainer_epoch_with_the_gate_on_raises(tmp_path):
+def test_trainer_epoch_with_the_gate_on_raises(tmp_path, count_chains):
+    """A Trainer epoch of pointnet2_cls_ssg with the gate on trains through
+    the fused chain, two chains a step (it used to raise
+    NotImplementedError), and leaves finite weights."""
     from pointnet2_tpu_torch.data import SyntheticClassification
     from pointnet2_tpu_torch.train import TrainConfig, Trainer
 
     cfg = TrainConfig(batch_size=2, num_point=64, max_epoch=1,
                       log_dir=str(tmp_path))
-    data = SyntheticClassification(num_classes=40, samples_per_class=1,
+    data = SyntheticClassification(num_classes=4, samples_per_class=1,
                                    npoints=64, batch_size=2, seed=0)
     with Trainer(cfg, device="cpu") as tr:
         state = tr.init_state()
-        with config.fused_mlp(True), pytest.raises(NotImplementedError):
-            tr.train_epoch(state, data, 0)
+        with config.fused_mlp(True):
+            state = tr.train_epoch(state, data, 0)
+    assert state.step == data.num_batches()
+    assert count_chains["torch"] == 2 * state.step
+    assert all(bool(torch.isfinite(p).all())
+               for p in state.model.parameters())
 
 
 @pytest.mark.parametrize("name", ["pointnet2_sem_seg", "pointnet2_part_seg",

@@ -18,6 +18,7 @@ import optax
 import pytest
 import torch
 
+from pointnet2_tpu import config as jax_config
 from pointnet2_tpu import nn as jnn
 from pointnet2_tpu.data import augment_jax
 from pointnet2_tpu.data.modelnet import ModelNetH5Dataset as JaxH5Dataset
@@ -298,14 +299,15 @@ def _zero_dense_biases(tree):
     return tree
 
 
-@pytest.fixture(scope="module")
-def jax_train_step():
+def jax_step_setup(fused: bool = False) -> dict:
     """JAX run_one_step at full width (B=4, N=128, the last row masked,
     augmentation off), Adam on the default schedules at step 0 (BN momentum
     0.5), on randomised BN parameters and statistics, with both dropout
-    layers' masks injected through flax's method interceptor. Returns
-    inputs and outputs as numpy, and the same step's gradients from the
-    port in float64 (the accuracy reference)."""
+    layers' masks injected through flax's method interceptor, and the JAX
+    package's fused-chain gate at `fused`. Returns inputs and outputs as
+    numpy, and the same step's loss, gradients and running statistics from
+    the port in float64 (the accuracy reference; float64 never takes the
+    fused chain)."""
     r = np.random.RandomState(21)
     batch = {"points": r.rand(STEP_B, STEP_N, 3).astype(np.float32),
              "label": r.randint(0, 40, STEP_B).astype(np.int32),
@@ -337,8 +339,9 @@ def jax_train_step():
     state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
                           batch_stats=variables["batch_stats"],
                           opt_state=tx.init(params))
-    new, metrics = jax.jit(step)(state, jax.tree_util.tree_map(jnp.asarray,
-                                                               batch))
+    with jax_config.fused_mlp(fused):
+        new, metrics = jax.jit(step)(state, jax.tree_util.tree_map(
+            jnp.asarray, batch))
     mu = new.opt_state[0].mu  # Adam's first moment after one step: 0.1*g
     grads = jax.tree_util.tree_map(lambda m: np.asarray(m) / np.float32(0.1),
                                    mu)
@@ -359,6 +362,12 @@ def jax_train_step():
     setup["grads64"] = {k: p.grad.numpy() for k, p in ref.named_parameters()}
     setup["buffers64"] = {k: b.numpy() for k, b in ref.named_buffers()}
     return setup
+
+
+@pytest.fixture(scope="module")
+def jax_train_step():
+    """:func:`jax_step_setup` with the gate off, as by default."""
+    return jax_step_setup()
 
 
 def _port_model(setup):
