@@ -50,25 +50,37 @@
 // each output written once, neighbouring threads on neighbouring channels.
 // fused_dense and fused_dense_bwd move few bytes for their work (bf16
 // cls_ssg SA1 64 -> 128 at B=16: 101 MB forward, 30 us at 3.35 TB/s) and
-// their bound is bytes against the tensor cores' rate; this simple design
-// does its products as f32 FMAs on the CUDA cores from shared memory: 64x64
-// output tiles, 128 threads, each with a 4x8 accumulator in registers, the
-// contracted dimension in chunks of 32 staged through shared memory with
-// the affine, the ReLU and the rounding applied as the operands are loaded.
-// Each thread reads 12 shared values for 32 FMAs, so shared memory, not the
-// FMA pipe, sets its pace. fused_dense_bwd runs three such passes: the
-// elementwise dy pass (the pool routing recomputed, dy_c written to a
-// scratch, db partials per 64 items), g_{k-1} = dy_c @ W over 64-row tiles
-// with T1/T2 partials in the epilogue, and dW over 1024-row slabs whose
-// (Ck, Cp) partials are then added up; the slab size is a constant, never
-// the card's SM count, so two cards give the same bits. A
-// tensor-core (mma.sync / wgmma, TMA) redesign is a later change.
+// their bound is bytes against the tensor cores' rate.
+// fused_dense, and fused_dense_bwd in f32, do their products as f32 FMAs on
+// the CUDA cores from shared memory: 64x64 output tiles, 128 threads, each
+// with a 4x8 accumulator in registers, the contracted dimension in chunks
+// of 32 staged through shared memory with the affine, the ReLU and the
+// rounding applied as the operands are loaded. Each thread reads 12 shared
+// values for 32 FMAs, so shared memory, not the FMA pipe, sets its pace;
+// the f32 products stay there (no TF32: the f32 contract is full f32).
+// fused_dense_bwd in bf16 runs its two products on the tensor cores
+// (mma.sync m16n8k16, bf16 in, f32 accumulators; mma_bf16.cuh): the same
+// 64x64 block tiles, four warps of 32x32, operands staged by cp.async in a
+// three-stage ring of 32-deep chunks. A bf16 product is exact in f32, so
+// only the order and the depth of the f32 additions differ from the CUDA
+// cores (each mma adds 16 products and the accumulator in one step).
+// fused_dense_bwd runs three passes: the elementwise dy pass (the pool
+// routing recomputed, dy_c written to a scratch, db partials per 64 items),
+// g_{k-1} = dy_c @ W over 64-row tiles with T1/T2 partials in the epilogue
+// (bf16: W rounded to bf16 once into a scratch first), and dW over
+// 1024-row slabs whose (Ck, Cp) partials are then added up (bf16: the
+// affine and ReLU of z applied to the B fragments in registers, where
+// each fragment's column is known); the slab size is a constant, never
+// the card's SM count, so two cards give the same bits.
 
 #include "common.cuh"
+#include "mma_bf16.cuh"
 
 #include <cuda_bf16.h>
 
 #include <cmath>
+#include <cstring>
+#include <type_traits>
 
 namespace {
 
@@ -137,6 +149,7 @@ __device__ __forceinline__ int first_argmax(const T* p, int s, int c,
   if (s == 1) return 0;
   float m = -INFINITY;
   int am = 0;
+#pragma unroll 4
   for (int i = 0; i < s; ++i) {
     const float z =
         round_to<T>(affine_relu(to_f32(p[static_cast<long long>(i) * c]), a,
@@ -440,21 +453,43 @@ __global__ void __launch_bounds__(kIx* kIy)
     const float a = pk[ch], b = pk[c + ch], mu = pk[2 * c + ch];
     const float r = pk[3 * c + ch], gr = pk[4 * c + ch];
     const float m1 = pk[5 * c + ch], m2 = pk[6 * c + ch];
-    for (int q = 0; q < kItems / kIy; ++q) {
-      const long long it = static_cast<long long>(blockIdx.x) * kItems +
-                           threadIdx.y + kIy * q;
-      if (it >= items) break;
-      const T* py = yk + it * s * c + ch;
-      T* pd = dyc + it * s * c + ch;
-      const int am = first_argmax<T>(py, s, c, a, b);
-      const float gv = to_f32(g[it * c + ch]);
-      for (int i = 0; i < s; ++i) {
-        const long long off = static_cast<long long>(i) * c;
-        const float v = to_f32(py[off]);
-        const float dout = relu_gate(i == am ? gv : 0.0f, bn_out(v, a, b));
-        const float dy = bn_dy(dout, bn_hat(v, mu, r), gr, m1, m2);
-        pd[off] = from_f32<T>(dy);
+    const long long it0 =
+        static_cast<long long>(blockIdx.x) * kItems + threadIdx.y;
+    if (s == 1) {  // rows: the 8 items' loads in flight at once
+      constexpr int kQ = kItems / kIy;
+      float v[kQ], gv[kQ];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const long long it = it0 + kIy * q;
+        v[q] = it < items ? to_f32(yk[it * c + ch]) : 0.0f;
+        gv[q] = it < items ? to_f32(g[it * c + ch]) : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const long long it = it0 + kIy * q;
+        if (it >= items) break;
+        const float dout = relu_gate(gv[q], bn_out(v[q], a, b));
+        const float dy = bn_dy(dout, bn_hat(v[q], mu, r), gr, m1, m2);
+        dyc[it * c + ch] = from_f32<T>(dy);
         db = __fadd_rn(db, dy);
+      }
+    } else {
+      for (int q = 0; q < kItems / kIy; ++q) {
+        const long long it = it0 + kIy * q;
+        if (it >= items) break;
+        const T* py = yk + it * s * c + ch;
+        T* pd = dyc + it * s * c + ch;
+        const int am = first_argmax<T>(py, s, c, a, b);
+        const float gv = to_f32(g[it * c + ch]);
+#pragma unroll 4
+        for (int i = 0; i < s; ++i) {
+          const long long off = static_cast<long long>(i) * c;
+          const float v = to_f32(py[off]);
+          const float dout = relu_gate(i == am ? gv : 0.0f, bn_out(v, a, b));
+          const float dy = bn_dy(dout, bn_hat(v, mu, r), gr, m1, m2);
+          pd[off] = from_f32<T>(dy);
+          db = __fadd_rn(db, dy);
+        }
       }
     }
   }
@@ -595,6 +630,309 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 8; ++j) {
       const int n = n0 + tx + 8 * j;
       if (n < cp) out[static_cast<long long>(m) * cp + n] = acc[i][j];
+    }
+  }
+}
+
+// --- row 14 in bf16 on the tensor cores --------------------------------------
+
+constexpr int kMmaStages = 3;              // cp.async ring depth, dW pass
+constexpr int kGStages = 4;  // g pass: ck <= 128 is in flight at once
+constexpr int kMmaK = 32;                  // contracted elements a stage
+constexpr int kLdK = kMmaK + mma::kPad;    // [m][k] tile row (g pass A)
+constexpr int kLdN = kBN + mma::kPad;      // [k][n] and [k][m] tile rows
+static_assert(kBM == kBN, "the dW pass's A and B tiles share kLdN");
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// W (ck, cp) f32 -> bf16, once per launch, for the g pass's B operand
+__global__ void round_bf16_kernel(const float* __restrict__ w,
+                                  __nv_bfloat16* __restrict__ out,
+                                  long long total) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       t < total; t += stride) {
+    out[t] = __float2bfloat16_rn(w[t]);
+  }
+}
+
+// both halves of a B register, z = bf16(relu(v*a + b)) of one column
+__device__ __forceinline__ uint32_t z_pair(uint32_t r, float a, float b) {
+  __nv_bfloat162 h;
+  memcpy(&h, &r, sizeof(r));
+  const float2 v = __bfloat1622float2(h);
+  const __nv_bfloat162 z =
+      __floats2bfloat162_rn(affine_relu(v.x, a, b), affine_relu(v.y, a, b));
+  uint32_t out;
+  memcpy(&out, &z, sizeof(out));
+  return out;
+}
+
+// Row 14, pass 2 in bf16: gp (rows, cp) = bf16(dyc @ w16) for dyc (rows, ck)
+// and w16 (ck, cp), with the T1/T2 partials of each 64-row block as
+// dense_bwd_g_kernel takes them. One block a (64-row block, 64-column
+// tile), blockIdx.x = row block * column tiles + column tile.
+__global__ void __launch_bounds__(kThreads)
+    dense_bwd_g_mma_kernel(const __nv_bfloat16* __restrict__ dyc,
+                           const __nv_bfloat16* __restrict__ w16,
+                           const __nv_bfloat16* __restrict__ yp,
+                           const float* __restrict__ pp,
+                           __nv_bfloat16* __restrict__ gp,
+                           float* __restrict__ part1,
+                           float* __restrict__ part2, long long rows, int ck,
+                           int cp) {
+  __shared__ __align__(16) __nv_bfloat16 as[kGStages][kBM][kLdK];
+  __shared__ __align__(16) __nv_bfloat16 bs[kGStages][kMmaK][kLdN];
+  __shared__ float red[2][2][kBN];  // T1/T2 of the two warp rows
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;  // the warp's 32x32 quarter
+  const int ntiles = (cp + kBN - 1) / kBN;
+  const long long rblk = blockIdx.x / ntiles;
+  const int col0 = static_cast<int>(blockIdx.x % ntiles) * kBN;
+  const long long row0 = rblk * kBM;
+  const bool a_vec = ck % 8 == 0 && aligned16(dyc);
+  const bool b_vec = cp % 8 == 0 && aligned16(w16);
+  const int chunks = (ck + kMmaK - 1) / kMmaK;
+
+  auto stage = [&](int st, int chunk) {
+    const int k0 = chunk * kMmaK;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {  // A: 64 rows x 4 pieces of 8
+      const int e = tid + q * kThreads;
+      const int r = e >> 2, c = (e & 3) * 8;
+      const long long row = row0 + r;
+      mma::stage8(&as[st][r][c], dyc + row * ck + k0 + c, row < rows,
+                  ck - k0 - c, a_vec);
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {  // B: 32 k x 8 pieces of 8 columns
+      const int e = tid + q * kThreads;
+      const int r = e >> 3, c = (e & 7) * 8;
+      const int kk = k0 + r;
+      mma::stage8(&bs[st][r][c],
+                  w16 + static_cast<long long>(kk) * cp + col0 + c, kk < ck,
+                  cp - col0 - c, b_vec);
+    }
+  };
+
+  float acc[2][4][4] = {};
+  for (int c = 0; c < kGStages - 1; ++c) {
+    if (c < chunks) stage(c, c);
+    mma::cp_async_commit();
+  }
+  // the epilogue's yp, pairs of columns (2*tig, 2*tig + 1) of this
+  // thread's rows, loaded while the products' operands are in flight
+  const int gid = lane >> 2, tig = lane & 3;
+  const bool pairs = cp % 2 == 0 && reinterpret_cast<uintptr_t>(yp) % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(gp) % 4 == 0;
+  __nv_bfloat162 ypv[2][2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = row0 + wm * 32 + 16 * i + 8 * h + gid;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = col0 + wn * 32 + 8 * j + 2 * tig;
+        const __nv_bfloat16* p = yp + row * cp + col;
+        if (row < rows && col < cp && pairs) {
+          ypv[i][h][j] = *reinterpret_cast<const __nv_bfloat162*>(p);
+        } else {
+          const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+          ypv[i][h][j].x = row < rows && col < cp ? p[0] : zero;
+          ypv[i][h][j].y = row < rows && col + 1 < cp ? p[1] : zero;
+        }
+      }
+    }
+  }
+  for (int c = 0; c < chunks; ++c) {
+    mma::cp_async_wait<kGStages - 2>();
+    __syncthreads();  // chunk c is in; the stage refilled below is read
+    if (c + kGStages - 1 < chunks) {
+      stage((c + kGStages - 1) % kGStages, c + kGStages - 1);
+    }
+    mma::cp_async_commit();
+    const int st = c % kGStages;
+#pragma unroll
+    for (int kk = 0; kk < kMmaK; kk += 16) {
+      uint32_t a[2][4], b[4][2];
+      mma::load_a_mk(a, &as[st][0][0], kLdK, wm * 32, kk);
+      mma::load_b_kn(b, &bs[st][0][0], kLdN, wn * 32, kk);
+      mma::warp_mma(acc, a, b);
+    }
+  }
+
+  // epilogue: round, store, and the T1/T2 terms of the rounded g
+  float pa[4][2], pb[4][2], pmu[4][2], pr[4][2], cs[4][2], css[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = col0 + wn * 32 + 8 * j + 2 * tig + e;
+      const bool in = col < cp;
+      pa[j][e] = in ? pp[col] : 0.0f;
+      pb[j][e] = in ? pp[cp + col] : 0.0f;
+      pmu[j][e] = in ? pp[2 * cp + col] : 0.0f;
+      pr[j][e] = in ? pp[3 * cp + col] : 0.0f;
+      cs[j][e] = 0.0f;
+      css[j][e] = 0.0f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // rows in ascending order
+      const long long row = row0 + wm * 32 + 16 * i + 8 * h + gid;
+      if (row >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = col0 + wn * 32 + 8 * j + 2 * tig;
+        const __nv_bfloat162 out = __floats2bfloat162_rn(
+            acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        __nv_bfloat16* q = gp + row * cp + col;
+        if (col + 1 < cp && pairs) {
+          *reinterpret_cast<__nv_bfloat162*>(q) = out;
+        } else {
+          if (col < cp) q[0] = out.x;
+          if (col + 1 < cp) q[1] = out.y;
+        }
+        const float2 o = __bfloat1622float2(out);
+        const float2 v = __bfloat1622float2(ypv[i][h][j]);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (col + e >= cp) continue;
+          const float oe = e == 0 ? o.x : o.y, ve = e == 0 ? v.x : v.y;
+          const float dout = relu_gate(oe, bn_out(ve, pa[j][e], pb[j][e]));
+          cs[j][e] = __fadd_rn(cs[j][e], dout);
+          css[j][e] = __fadd_rn(
+              css[j][e], __fmul_rn(dout, bn_hat(ve, pmu[j][e], pr[j][e])));
+        }
+      }
+    }
+  }
+  // the 8 row groups of a column, in a fixed butterfly; lanes 0-3 keep it
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        cs[j][e] = __fadd_rn(cs[j][e], __shfl_xor_sync(0xffffffffu,
+                                                       cs[j][e], o));
+        css[j][e] = __fadd_rn(css[j][e], __shfl_xor_sync(0xffffffffu,
+                                                         css[j][e], o));
+      }
+      if (gid == 0) {
+        red[0][wm][wn * 32 + 8 * j + 2 * tig + e] = cs[j][e];
+        red[1][wm][wn * 32 + 8 * j + 2 * tig + e] = css[j][e];
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < kBN && col0 + tid < cp) {
+    const long long at = rblk * cp + col0 + tid;
+    part1[at] = __fadd_rn(red[0][0][tid], red[0][1][tid]);
+    part2[at] = __fadd_rn(red[1][0][tid], red[1][1][tid]);
+  }
+}
+
+// Row 14, pass 3 in bf16: the (ck, cp) partial of dW = dyc^T @
+// bf16(relu(yp*a + b)) over the rows of one 1024-row slab, into
+// part[slab]. One block a (slab, 64x64 tile of dW), blockIdx.x = slab *
+// tiles + tile: a slab's tiles run side by side and share its rows in L2.
+__global__ void __launch_bounds__(kThreads)
+    dense_bwd_dw_mma_kernel(const __nv_bfloat16* __restrict__ dyc,
+                            const __nv_bfloat16* __restrict__ yp,
+                            const float* __restrict__ pp,
+                            float* __restrict__ part, long long rows, int ck,
+                            int cp) {
+  __shared__ __align__(16) __nv_bfloat16 as[kMmaStages][kMmaK][kLdN];
+  __shared__ __align__(16) __nv_bfloat16 bs[kMmaStages][kMmaK][kLdN];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int ntiles = (cp + kBN - 1) / kBN;
+  const int tiles = ((ck + kBM - 1) / kBM) * ntiles;
+  const long long slab = blockIdx.x / tiles;
+  const int tile = static_cast<int>(blockIdx.x % tiles);
+  const int m0 = (tile / ntiles) * kBM, n0 = (tile % ntiles) * kBN;
+  const long long begin = slab * kSlab;
+  const long long end = rows < begin + kSlab ? rows : begin + kSlab;
+  const int chunks = static_cast<int>((end - begin + kMmaK - 1) / kMmaK);
+  const bool a_vec = ck % 8 == 0 && aligned16(dyc);
+  const bool b_vec = cp % 8 == 0 && aligned16(yp);
+
+  auto stage = [&](int st, int chunk) {
+    const long long r0 = begin + static_cast<long long>(chunk) * kMmaK;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {  // 32 rows x 8 pieces of 8, A and B
+      const int e = tid + q * kThreads;
+      const int r = e >> 3, c = (e & 7) * 8;
+      const long long row = r0 + r;
+      mma::stage8(&as[st][r][c], dyc + row * ck + m0 + c, row < end,
+                  ck - m0 - c, a_vec);
+      mma::stage8(&bs[st][r][c], yp + row * cp + n0 + c, row < end,
+                  cp - n0 - c, b_vec);
+    }
+  };
+
+  // the affine of this thread's B columns (n0 + wn*32 + 8j + gid); rows
+  // past the slab stage as zeros in both operands, and dyc's zero times
+  // the finite relu(b) adds nothing
+  const int gid = lane >> 2, tig = lane & 3;
+  float za[4], zb[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + wn * 32 + 8 * j + gid;
+    za[j] = col < cp ? pp[col] : 0.0f;
+    zb[j] = col < cp ? pp[cp + col] : 0.0f;
+  }
+
+  float acc[2][4][4] = {};
+  for (int c = 0; c < kMmaStages - 1; ++c) {
+    if (c < chunks) stage(c, c);
+    mma::cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    mma::cp_async_wait<kMmaStages - 2>();
+    __syncthreads();
+    if (c + kMmaStages - 1 < chunks) {
+      stage((c + kMmaStages - 1) % kMmaStages, c + kMmaStages - 1);
+    }
+    mma::cp_async_commit();
+    const int st = c % kMmaStages;
+#pragma unroll
+    for (int kk = 0; kk < kMmaK; kk += 16) {
+      uint32_t a[2][4], b[4][2];
+      mma::load_a_km(a, &as[st][0][0], kLdN, wm * 32, kk);
+      mma::load_b_kn(b, &bs[st][0][0], kLdN, wn * 32, kk);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        b[j][0] = z_pair(b[j][0], za[j], zb[j]);
+        b[j][1] = z_pair(b[j][1], za[j], zb[j]);
+      }
+      mma::warp_mma(acc, a, b);
+    }
+  }
+
+  float* out = part + slab * ck * cp;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 32 + 16 * i + 8 * h + gid;
+      if (m >= ck) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + wn * 32 + 8 * j + 2 * tig + e;
+          if (n < cp) out[static_cast<long long>(m) * cp + n] =
+              acc[i][j][2 * h + e];
+        }
+      }
     }
   }
 }
@@ -757,6 +1095,7 @@ struct DenseBwd {
   const float* pk;
   const float* pp;
   const float* w;
+  void* w16;  // bf16 only: W rounded, (ck, cp)
   void* dyc;
   float* db_part;
   void* gp;
@@ -782,24 +1121,46 @@ cudaError_t launch_dense_bwd(const DenseBwd& a, long long items, int s,
     return err;
   }
 
-  const unsigned rblocks = static_cast<unsigned>((rows + kBM - 1) / kBM);
-  float* t2_part = a.t_part + static_cast<long long>(rblocks) * cp;
-  dense_bwd_g_kernel<T>
-      <<<dim3(rblocks, (cp + kBN - 1) / kBN), kThreads, 0, st>>>(
-          static_cast<const T*>(a.dyc), a.w, static_cast<const T*>(a.yp),
-          a.pp, static_cast<T*>(a.gp), a.t_part, t2_part, rows, ck, cp);
+  const long long rblocks = (rows + kBM - 1) / kBM;
+  const long long slabs = (rows + kSlab - 1) / kSlab;
+  float* t2_part = a.t_part + rblocks * cp;
+  const int ntiles = (cp + kBN - 1) / kBN;
+  const int tiles = ((ck + kBM - 1) / kBM) * ntiles;
+  if constexpr (std::is_same_v<T, float>) {
+    dense_bwd_g_kernel<T>
+        <<<dim3(static_cast<unsigned>(rblocks), ntiles), kThreads, 0, st>>>(
+            static_cast<const T*>(a.dyc), a.w, static_cast<const T*>(a.yp),
+            a.pp, static_cast<T*>(a.gp), a.t_part, t2_part, rows, ck, cp);
+  } else {
+    const long long wn = static_cast<long long>(ck) * cp;
+    round_bf16_kernel<<<grid_for(wn, 256), 256, 0, st>>>(
+        a.w, static_cast<__nv_bfloat16*>(a.w16), wn);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    dense_bwd_g_mma_kernel<<<static_cast<unsigned>(rblocks * ntiles),
+                             kThreads, 0, st>>>(
+        static_cast<const T*>(a.dyc),
+        static_cast<const __nv_bfloat16*>(a.w16),
+        static_cast<const T*>(a.yp), a.pp, static_cast<T*>(a.gp), a.t_part,
+        t2_part, rows, ck, cp);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = sum_rows(a.t_part, a.t, rblocks, cp, st)) != cudaSuccess ||
       (err = sum_rows(t2_part, a.t + cp, rblocks, cp, st)) != cudaSuccess) {
     return err;
   }
 
-  const unsigned slabs = static_cast<unsigned>((rows + kSlab - 1) / kSlab);
-  dense_bwd_dw_kernel<T><<<dim3(slabs, (ck + kBM - 1) / kBM,
-                                (cp + kBN - 1) / kBN),
-                           kThreads, 0, st>>>(
-      static_cast<const T*>(a.dyc), static_cast<const T*>(a.yp), a.pp,
-      a.dw_part, rows, ck, cp);
+  if constexpr (std::is_same_v<T, float>) {
+    dense_bwd_dw_kernel<T><<<dim3(static_cast<unsigned>(slabs),
+                                  (ck + kBM - 1) / kBM, ntiles),
+                             kThreads, 0, st>>>(
+        static_cast<const T*>(a.dyc), static_cast<const T*>(a.yp), a.pp,
+        a.dw_part, rows, ck, cp);
+  } else {
+    dense_bwd_dw_mma_kernel<<<static_cast<unsigned>(slabs * tiles), kThreads,
+                              0, st>>>(
+        static_cast<const T*>(a.dyc), static_cast<const T*>(a.yp), a.pp,
+        a.dw_part, rows, ck, cp);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return sum_rows(a.dw_part, a.dw, slabs, static_cast<long long>(ck) * cp,
                   st);
@@ -834,26 +1195,33 @@ extern "C" int pn2_fused_top_stats(const void* y, const void* g,
 
 // Dense k's backward. yk (items, s, ck) and g (items, ck) of T (s = 1
 // below the top layer), yp (items*s, cp) of T, pk and pp the (7, ck) and
-// (7, cp) f32 packs of BN_k and BN_{k-1}, w (ck, cp) f32. Scratches: dyc
-// (rows, ck) T, db_part (ceil(items/64), ck), t_part (2, ceil(rows/64), cp),
-// dw_part (ceil(rows/1024), ck, cp), all f32 but dyc. Outputs: gp (rows,
+// (7, cp) f32 packs of BN_k and BN_{k-1}, w (ck, cp) f32. Scratches: w16
+// (ck, cp) bf16 (bf16 only; null for f32), dyc (rows, ck) T, db_part
+// (ceil(items/64), ck), t_part (2, ceil(rows/64), cp), dw_part
+// (ceil(rows/1024), ck, cp), all f32 but w16 and dyc. Outputs: gp (rows,
 // cp) T, dw (ck, cp), db (ck), t (2, cp) f32.
 extern "C" int pn2_fused_dense_bwd(const void* yk, const void* yp,
                                    const void* g, const void* pk,
-                                   const void* pp, const void* w, void* dyc,
-                                   void* db_part, void* gp, void* t_part,
-                                   void* dw_part, void* dw, void* db, void* t,
-                                   long long items, int s, int ck, int cp,
-                                   int itemsize, void* stream) {
+                                   const void* pp, const void* w, void* w16,
+                                   void* dyc, void* db_part, void* gp,
+                                   void* t_part, void* dw_part, void* dw,
+                                   void* db, void* t, long long items, int s,
+                                   int ck, int cp, int itemsize,
+                                   void* stream) {
   if (items <= 0 || ck <= 0 || cp <= 0) return cudaSuccess;
-  if (s <= 0 || items * s / kBM > 0x7fffffffLL ||
-      (ck + kBM - 1) / kBM > 65535 || (cp + kBN - 1) / kBN > 65535) {
+  const long long rows = items * s;
+  const long long tiles = static_cast<long long>((ck + kBM - 1) / kBM) *
+                          ((cp + kBN - 1) / kBN);
+  if (s <= 0 || (ck + kBM - 1) / kBM > 65535 ||
+      (cp + kBN - 1) / kBN > 65535 ||
+      (rows + kBM - 1) / kBM * tiles > 0x7fffffffLL ||
+      (itemsize == 2 && w16 == nullptr)) {
     return cudaErrorInvalidValue;
   }
   const DenseBwd a{yk, yp, g,
                    static_cast<const float*>(pk),
                    static_cast<const float*>(pp),
-                   static_cast<const float*>(w), dyc,
+                   static_cast<const float*>(w), w16, dyc,
                    static_cast<float*>(db_part), gp,
                    static_cast<float*>(t_part), static_cast<float*>(dw_part),
                    static_cast<float*>(dw), static_cast<float*>(db),

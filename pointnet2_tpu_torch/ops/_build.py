@@ -143,6 +143,29 @@ def ptxas_report(name: str) -> list[str]:
     return report
 
 
+def mma_counts(sass: str) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in each kernel of a
+    ``cuobjdump -sass`` listing: {mangled kernel name: count}."""
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :", 1)[1].strip()
+            counts[kernel] = 0
+        elif kernel is not None and re.search(r"\bHG?MMA\b", line):
+            counts[kernel] += 1
+    return counts
+
+
+def sass_mma_counts(name: str) -> dict:
+    """:func:`mma_counts` of one built library's SASS (cuobjdump, beside
+    nvcc)."""
+    build_all((name,))
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    return mma_counts(subprocess.run(
+        [str(tool), "-sass", str(_target(name))], capture_output=True,
+        text=True, check=True).stdout)
+
+
 def library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build_all((name,))

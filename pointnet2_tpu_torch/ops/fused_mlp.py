@@ -383,19 +383,21 @@ fused_top_stats_kernel.launches = 0
 
 def launch_fused_dense_bwd(yk, yp, g, pk, pp, w, bufs: dict, S: int) -> None:
     """Launch pn2_fused_dense_bwd on checked buffers: ``bufs`` holds the
-    scratches dyc (R, Ck) T, db_part (item blocks, Ck), t_part (2, row
-    blocks, Cp), dw_part (slabs, Ck, Cp), and the outputs gp (R, Cp) T, dw
-    (Ck, Cp), db (Ck,), t (2, Cp)."""
+    scratches w16 (Ck, Cp) bf16 (bf16 only, else None), dyc (R, Ck) T,
+    db_part (item blocks, Ck), t_part (2, row blocks, Cp), dw_part (slabs,
+    Ck, Cp), and the outputs gp (R, Cp) T, dw (Ck, Cp), db (Ck,), t (2,
+    Cp)."""
     items, ck = yk.shape[0], yk.shape[-1]
     cp = yp.shape[-1]
     fn = _build.bind("fused_mlp", "pn2_fused_dense_bwd",
-                     [ctypes.c_void_p] * 14
+                     [ctypes.c_void_p] * 15
                      + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     b = bufs
+    w16 = None if b["w16"] is None else b["w16"].data_ptr()
     with torch.cuda.device(yk.device):
         err = fn(yk.data_ptr(), yp.data_ptr(), g.data_ptr(), pk.data_ptr(),
-                 pp.data_ptr(), w.data_ptr(), b["dyc"].data_ptr(),
+                 pp.data_ptr(), w.data_ptr(), w16, b["dyc"].data_ptr(),
                  b["db_part"].data_ptr(), b["gp"].data_ptr(),
                  b["t_part"].data_ptr(), b["dw_part"].data_ptr(),
                  b["dw"].data_ptr(), b["db"].data_ptr(), b["t"].data_ptr(),
@@ -409,7 +411,10 @@ def dense_bwd_buffers(yk: torch.Tensor, cp: int, S: int) -> dict:
     items, ck = yk.shape[0], yk.shape[-1]
     R = items * S
     dev, f32 = yk.device, torch.float32
+    bf16 = yk.dtype == torch.bfloat16
     return {
+        "w16": (torch.empty((ck, cp), dtype=torch.bfloat16, device=dev)
+                if bf16 else None),
         "dyc": torch.empty((R, ck), dtype=yk.dtype, device=dev),
         "db_part": torch.empty((-(-items // _ITEMS), ck), dtype=f32,
                                device=dev),
@@ -431,7 +436,8 @@ def fused_dense_bwd_kernel(yk: torch.Tensor, yp: torch.Tensor,
     """CUDA row 14 (csrc/fused_mlp.cu): contiguous tensors as
     :func:`dense_bwd_plain` takes them, f32 or bf16 activations, f32 packs
     and w (Ck, Cp) -> as :func:`dense_bwd_plain`: dy bit for bit, the
-    products and sums in another (fixed) order."""
+    products and sums in another (fixed) order (bf16: both products on
+    the tensor cores, f32: on the CUDA cores, no TF32)."""
     items, S, ck = _check_cotangent(yk, g, top_pool)
     _check_cuda(yp, "yp", (yk.dtype,), 2)
     R, cp = yp.shape

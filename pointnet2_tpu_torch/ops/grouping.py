@@ -418,38 +418,101 @@ def scatter_rows_plain(g: torch.Tensor, idx: torch.Tensor,
     return out.reshape(B, n + 1, C)[:, :n].to(g.dtype).contiguous()
 
 
-def launch_scatter_rows(g, idx, out) -> None:
-    """Launch csrc/scatter.cu on checked, preallocated buffers (no launch
-    count: :func:`scatter_rows_kernel` counts)."""
+def scatter_csr_plain(idx: torch.Tensor, n: int):
+    """Plain CSR of a scatter's indices, idx (B, K) -> (off (B, n+1), perm
+    (B, K)) int32: perm is the stable argsort of the destination rows (an
+    index outside [0, n) counts as row n), so row j's k lie in ascending
+    order in perm[b, off[b, j]:off[b, j+1]] and the out-of-range k fill
+    perm[b, off[b, n]:]; off[b, n] is the number of valid indices. The
+    layout csrc/scatter.cu builds; for the tests and the card checks."""
+    B, K = idx.shape
+    ix = idx.long()
+    row = torch.where((ix >= 0) & (ix < n), ix, n)
+    perm = torch.argsort(row, dim=1, stable=True).to(torch.int32)
+    flat = (row + torch.arange(B, device=idx.device)[:, None] * (n + 1))
+    count = torch.bincount(flat.reshape(-1), minlength=B * (n + 1))
+    count = count.reshape(B, n + 1)[:, :n]
+    off = torch.zeros((B, n + 1), dtype=torch.int64, device=idx.device)
+    off[:, 1:] = count.cumsum(1)
+    return off.to(torch.int32), perm
+
+
+def scatter_rows_csr_plain(g: torch.Tensor, off: torch.Tensor,
+                           perm: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain segmented sum over a CSR (:func:`scatter_csr_plain`): row j of
+    cloud b adds g[b, perm[b, p]] for p in [off[b, j], off[b, j+1]) one
+    after another, in f32 (f64 for a float64 g) from +0.0, and casts once
+    to g's dtype: the order csrc/scatter.cu sums in."""
+    B, K, C = g.shape
+    acc = torch.promote_types(g.dtype, torch.float32)
+    out = torch.zeros((B, n, C), dtype=acc, device=g.device)
+    lens = (off[:, 1:] - off[:, :-1]).long()
+    depth = int(lens.max()) if lens.numel() else 0
+    gs = g.to(acc)
+    for t in range(depth):  # the t-th term of every row at once
+        pos = (off[:, :n].long() + t).clamp(max=K - 1)
+        k = torch.gather(perm.long(), 1, pos)
+        rows = torch.gather(gs, 1, k[..., None].expand(B, n, C))
+        out = torch.where((lens > t)[..., None], out + rows, out)
+    return out.to(g.dtype)
+
+
+# indices a chunk of csrc/scatter.cu (kChunk): the count table holds one
+# count per (row, chunk)
+_CHUNK = 2048
+
+
+def scatter_buffers(idx: torch.Tensor, n: int) -> dict:
+    """The scratch of one scatter launch: the count table (B, n+1, chunks)
+    and the CSR it leaves, off (B, n+1) and perm (B, K), all int32."""
+    B, K = idx.shape
+    dev, i32 = idx.device, torch.int32
+    return {"count": torch.empty((B, n + 1, -(-K // _CHUNK)), dtype=i32,
+                                 device=dev),
+            "off": torch.empty((B, n + 1), dtype=i32, device=dev),
+            "perm": torch.empty((B, K), dtype=i32, device=dev)}
+
+
+def launch_scatter_rows(g, idx, out, bufs: dict) -> None:
+    """Launch csrc/scatter.cu on checked, preallocated buffers (``bufs``
+    from :func:`scatter_buffers`; no launch count: :func:`scatter_rows_kernel`
+    counts)."""
     B, K, C = g.shape
     fn = _build.bind("scatter", "pn2_scatter_rows",
-                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                      + [ctypes.c_void_p])
     with torch.cuda.device(g.device):
-        err = fn(g.data_ptr(), idx.data_ptr(), out.data_ptr(), B, K,
-                 out.shape[1], C, g.element_size(), _stream(g))
+        err = fn(g.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                 bufs["count"].data_ptr(), bufs["off"].data_ptr(),
+                 bufs["perm"].data_ptr(), B, K, out.shape[1], C,
+                 g.element_size(), _stream(g))
     _build.check("scatter", err, "scatter_rows launch")
 
 
-def scatter_rows_kernel(g: torch.Tensor, idx: torch.Tensor,
-                        n: int) -> torch.Tensor:
+def scatter_rows_kernel(g: torch.Tensor, idx: torch.Tensor, n: int,
+                        return_csr: bool = False):
     """CUDA scatter-add (csrc/scatter.cu): g (B, K, C) contiguous f32 or
-    bf16, idx (B, K) contiguous int32 -> (B, n, C) in g's dtype, summed in
-    f32 in ascending k (bitwise the same from launch to launch); indices
-    outside [0, n) add nothing."""
+    bf16, idx (B, K) contiguous int32 -> (B, n, C) in g's dtype, each
+    element summed in f32 in ascending k: bit for bit
+    :func:`scatter_rows_plain` on CPU copies, the same bits from launch to
+    launch; indices outside [0, n) add nothing. With ``return_csr`` also
+    the kernel's CSR (off, perm), as :func:`scatter_csr_plain` gives it."""
     _check_cuda(g, "g", (torch.float32, torch.bfloat16), 3)
     _check_cuda(idx, "idx", (torch.int32,), 2)
     B, K, C = g.shape
     if tuple(idx.shape) != (B, K) or idx.device != g.device:
         raise ValueError(f"idx {tuple(idx.shape)} does not index g "
                          f"{tuple(g.shape)} on {g.device}")
-    if n < 0 or B > 65535:
-        raise ValueError(f"need n >= 0 and B <= 65535, got n={n}, B={B}")
+    if n < 0 or B > 65535 or n >= 2 ** 31 - 1:
+        raise ValueError(f"need 0 <= n < 2**31 - 1 and B <= 65535, got "
+                         f"n={n}, B={B}")
     out = torch.empty((B, n, C), dtype=g.dtype, device=g.device)
-    if out.numel() == 0:
-        return out
-    launch_scatter_rows(g, idx, out)  # K = 0 writes zeros
-    scatter_rows_kernel.launches += 1
+    bufs = scatter_buffers(idx, n)
+    if out.numel() > 0:
+        launch_scatter_rows(g, idx, out, bufs)  # K = 0 writes zeros
+        scatter_rows_kernel.launches += 1
+    if return_csr:
+        return out, bufs["off"], bufs["perm"]
     return out
 
 

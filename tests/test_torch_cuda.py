@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (LAYER_LIMITS, chain_terms, fixed_step,
-                        fused_layer_errs, sum_ok)
+from chip_smoke import (BWD, LAYER_LIMITS, Checks, chain_terms,
+                        check_tensor_cores, fixed_step, fused_layer_errs,
+                        g_ok, scatter_same, sum_ok)
 from pointnet2_tpu_torch import Predictor, config
 from pointnet2_tpu_torch import ops
 
@@ -137,47 +138,56 @@ def _scatter_inputs(rs, dev, B, K, n, C, dtype):
 
 
 def _check_scatter(got, g, idx, n):
-    """f32: within 1e-5 of the largest row sum (atomic sums in another
-    order); bf16: within one bf16 ulp (2^-7 relative) of the plain
-    version's f32 sum, which is rounded once as the kernel's is."""
-    want = grouping.scatter_rows_plain(g, idx, n)
-    assert got.dtype == g.dtype and got.shape == want.shape
-    tol = 1e-5 if g.dtype == torch.float32 else 2.0 ** -7
-    scale = float(want.float().abs().max()) if want.numel() else 0.0
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                               atol=tol * scale)
+    """Bit for bit the plain version on CPU copies of the same inputs:
+    both add each row's terms in f32 in ascending k and round once."""
+    same, err = scatter_same(torch, got, g, idx, n)
+    assert got.dtype == g.dtype and same, err
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,K,n,C", [(2, 300, 64, 3), (2, 300, 64, 5),
                                      (2, 300, 64, 64), (3, 5000, 100, 128),
-                                     (2, 16384, 1024, 64), (1, 40, 7, 200)])
+                                     (2, 16384, 1024, 64), (1, 40, 7, 200),
+                                     (2, 8192, 512, 128),
+                                     (2, 16384, 1024, 3)])
 def test_scatter_kernel_matches_plain_and_is_deterministic(dev, rs, dtype, B,
                                                            K, n, C):
+    """At small shapes and at the SA1 (n=1024, C=64 and the xyz C=3) and
+    SA2 (n=512, C=128) backward's: bit for bit the CPU plain version, the
+    kernel's CSR equal to the plain CSR, two launches bitwise equal."""
     g, idx = _scatter_inputs(rs, dev, B, K, n, C, dtype)
     before = ops.scatter_rows_kernel.launches
     got = ops.scatter_rows(g, idx, n)
-    again = ops.scatter_rows(g, idx, n)
+    again, off, perm = ops.scatter_rows_kernel(g, idx, n, return_csr=True)
     assert ops.scatter_rows_kernel.launches == before + 2
     _check_scatter(got, g, idx, n)
+    woff, wperm = grouping.scatter_csr_plain(idx.cpu(), n)
+    assert torch.equal(off.cpu(), woff) and torch.equal(perm.cpu(), wperm)
     view = torch.int16 if dtype == torch.bfloat16 else torch.int32
     assert torch.equal(got.view(view), again.view(view))
 
 
 def test_scatter_kernel_edge_cases(dev):
     g = torch.ones(2, 0, 4, device=dev)
-    out = ops.scatter_rows(g, torch.zeros(2, 0, dtype=torch.int32,
-                                          device=dev), 6)
+    idx = torch.zeros(2, 0, dtype=torch.int32, device=dev)
+    out = ops.scatter_rows(g, idx, 6)
     assert out.shape == (2, 6, 4) and not out.any()
+    _check_scatter(out, g, idx, 6)
     g = torch.ones(1, 3, 2, device=dev)
-    out = ops.scatter_rows(g, torch.tensor([[-1, 4, 9]], dtype=torch.int32,
-                                           device=dev), 4)
+    idx = torch.tensor([[-1, 4, 9]], dtype=torch.int32, device=dev)
+    out = ops.scatter_rows(g, idx, 4)
     assert not out.any()
+    _check_scatter(out, g, idx, 4)
     hot = torch.full((1, 4096 * 3 + 5, 8), 0.5, device=dev)
-    out = ops.scatter_rows(hot, torch.full((1, hot.shape[1]), 3,
-                                           dtype=torch.int32, device=dev), 5)
+    idx = torch.full((1, hot.shape[1]), 3, dtype=torch.int32, device=dev)
+    out = ops.scatter_rows(hot, idx, 5)
     assert float(out[0, 3, 0]) == 0.5 * hot.shape[1]
     assert not out[0, :3].any() and not out[0, 4].any()
+    _check_scatter(out, hot, idx, 5)
+    zero = torch.zeros_like(idx[:, :100])  # n = 1: every index on row 0
+    one = ops.scatter_rows(hot[:, :100], zero, 1)
+    assert float(one[0, 0, 0]) == 50.0
+    _check_scatter(one, hot[:, :100], zero, 1)
     with pytest.raises(TypeError):
         ops.scatter_rows_kernel(hot.double(), torch.zeros(
             1, hot.shape[1], dtype=torch.int32, device=dev), 5)
@@ -654,13 +664,17 @@ def test_fused_top_stats_kernel_matches_plain(dev, rs, dtype, pool, G, S, C):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("top_pool", [True, False])
 @pytest.mark.parametrize("G,S,ck,cp", [(2 * 512, 32, 128, 64),
-                                       (1000, 7, 40, 196), (3, 1, 3, 5)])
+                                       (1000, 7, 40, 196), (3, 1, 3, 5),
+                                       (333, 3, 131, 40), (129, 5, 24, 131)])
 def test_fused_dense_bwd_kernel_matches_plain(dev, rs, dtype, top_pool, G, S,
                                               ck, cp):
-    """g_{k-1}: f32 within 1e-5 of max|g|, bf16 within one bf16 ulp (the
-    products summed in another order); dW, db and the T1/T2 of the kernel's
-    own g against the exact sums of the plain version's terms (`sum_ok`);
-    two launches bitwise equal."""
+    """g_{k-1}: f32 within 1e-5 of max|g| of plain, bf16 within one bf16
+    ulp of the exact product plus the f32 accumulation bound
+    (`chip_smoke.g_ok`); dW, db and the T1/T2 of the kernel's own g against
+    the exact sums of the plain version's terms (`sum_ok`); two launches
+    bitwise equal. The shapes include channel counts that are no multiple
+    of the mma tiles' 8 or 16 (131, 40, 24, 3, 5) and row counts that are
+    no multiple of the 64-row tile or the 1024-row slab."""
     from pointnet2_tpu_torch.ops import fused_mlp
 
     config.disable_tf32()
@@ -683,11 +697,6 @@ def test_fused_dense_bwd_kernel_matches_plain(dev, rs, dtype, top_pool, G, S,
     gp, dw, db, t1, t2 = got
     wg, _, _, _, _ = fused_mlp.dense_bwd_plain(yk, yp, g, pk, pp, w,
                                                top_pool)
-    d = (gp.float() - wg.float()).abs()
-    if dtype == torch.float32:
-        assert float(d.max()) <= 1e-5 * float(wg.abs().max())
-    else:
-        assert bool((d <= _bf16_ulp(wg.float())).all())
     # dy and z_{k-1} as the plain version forms them
     if top_pool:
         dz = fused_mlp._pooled_cotangent(yk, g, pk).reshape(R, ck)
@@ -695,6 +704,11 @@ def test_fused_dense_bwd_kernel_matches_plain(dev, rs, dtype, top_pool, G, S,
         dz = g.float()
     dout, yhat = fused_mlp._bn_bwd_terms(yk.reshape(R, ck), dz, pk)
     dy = fused_mlp._bn_dy(dout, yhat, pk)
+    if dtype == torch.float32:
+        d = (gp - wg).abs()
+        assert float(d.max()) <= 1e-5 * float(wg.abs().max())
+    else:
+        assert g_ok(torch, gp, dy.to(dtype), w)
     dyc = dy.to(dtype).double()
     z = fused_mlp.affine_fwd_plain(yp, pp[0], pp[1]).double()  # >= 0
     assert sum_ok(dw, dyc.t() @ z, dyc.abs().t() @ z)
@@ -702,6 +716,16 @@ def test_fused_dense_bwd_kernel_matches_plain(dev, rs, dtype, top_pool, G, S,
     assert sum_ok(db, dy.double().sum(0), dy.double().abs().sum(0))
     (w1, w2), (a1, a2) = chain_terms(torch, yp, gp, pp, False)
     assert sum_ok(t1, w1, a1) and sum_ok(t2, w2, a2)
+
+
+def test_dense_bwd_products_on_the_tensor_cores_in_bf16_only(dev):
+    """The built library's SASS: HMMA/HGMMA in the bf16 g and dW kernels,
+    none in the f32 ones (CUDA cores, no TF32)."""
+    from pointnet2_tpu_torch.ops import _build
+
+    check = Checks()
+    check_tensor_cores(_build, check)
+    assert not check.failed, check.failed
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -765,16 +789,6 @@ def test_eval_fused_chain_backward_raises_on_card(dev, rs):
         out.sum().backward()
 
 
-_BWD = ("fused_top_stats", "fused_dense_bwd", "fused_first_bwd")
-
-
-def _fixed_step(dev, batch, dtype, impl, fused, double=False):
-    """`chip_smoke.fixed_step` and the launches of the chain's kernels."""
-    before = {k: ops.KERNELS[k].launches for k in _BWD}
-    out = fixed_step(torch, dev, batch, dtype, impl, fused, double)
-    return (*out, {k: ops.KERNELS[k].launches - before[k] for k in _BWD})
-
-
 def _points(rs, dev):
     return torch.from_numpy(rs.rand(4, 512, 3).astype(np.float32)).to(dev)
 
@@ -795,15 +809,16 @@ def test_fused_train_step_against_float64(dev, rs):
     batch = {"points": _points(rs, dev),
              "label": torch.from_numpy(rs.randint(0, 40, 4)).to(dev),
              "mask": torch.ones(4, device=dev)}
-    ref = _fixed_step(dev, batch, None, "torch", False, double=True)
+    ref = fixed_step(torch, dev, batch, None, "torch", False, double=True)
     top = max(float(g.norm()) for g in ref[1].values())
     compared = [k for k, g in ref[1].items() if float(g.norm()) >= 1e-6 * top]
     for impl, fused in (("auto", True), ("torch", True), ("auto", False)):
-        loss, g, b, launched = _fixed_step(dev, batch, None, impl, fused)
+        loss, g, b, launched = fixed_step(torch, dev, batch, None, impl,
+                                          fused)
         assert launched == ({"fused_top_stats": 2, "fused_dense_bwd": 4,
                              "fused_first_bwd": 2}
                             if impl == "auto" and fused
-                            else dict.fromkeys(_BWD, 0))
+                            else dict.fromkeys(BWD, 0))
         worst = max(float((g[k] - ref[1][k]).norm() / ref[1][k].norm())
                     for k in compared)
         stats = max(float((b[k] - ref[2][k]).abs().max()
@@ -821,9 +836,9 @@ def test_fused_layers_kernels_vs_plain(dev, rs, dtype, name):
     and cotangents (`chip_smoke.fused_layer_errs`): outputs, gradients and
     running statistics within `chip_smoke.LAYER_LIMITS`."""
     config.disable_tf32()
-    before = {k: ops.KERNELS[k].launches for k in _BWD}
+    before = {k: ops.KERNELS[k].launches for k in BWD}
     errs = fused_layer_errs(torch, dev, dtype, _points(rs, dev))
-    assert {k: ops.KERNELS[k].launches - before[k] for k in _BWD} == {
+    assert {k: ops.KERNELS[k].launches - before[k] for k in BWD} == {
         "fused_top_stats": 2, "fused_dense_bwd": 4, "fused_first_bwd": 2}
     assert all(errs[k] <= LAYER_LIMITS[name][k] for k in errs), errs
 
@@ -836,13 +851,13 @@ def test_trainer_on_card_with_the_gate_on(dev, tmp_path, name, chains):
 
     ds = SyntheticClassification(num_classes=4, samples_per_class=4,
                                  npoints=256, batch_size=8)
-    before = {k: ops.KERNELS[k].launches for k in _BWD}
+    before = {k: ops.KERNELS[k].launches for k in BWD}
     with config.fused_mlp(True), Trainer(TrainConfig(
             model=name, batch_size=8, augment="cls",
             log_dir=str(tmp_path))) as tr:
         state = tr.fit(ds, max_epoch=2)
     assert state.step == 4
-    assert {k: ops.KERNELS[k].launches - before[k] for k in _BWD} == {
+    assert {k: ops.KERNELS[k].launches - before[k] for k in BWD} == {
         "fused_top_stats": chains * 4, "fused_dense_bwd": 2 * chains * 4,
         "fused_first_bwd": chains * 4}
     assert all(bool(torch.isfinite(p).all())

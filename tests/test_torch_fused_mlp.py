@@ -430,7 +430,7 @@ def test_layers_that_never_take_the_fused_chain(rng, count_chains, case):
     _close(got, want, "f32")
 
 
-def test_train_mode_with_the_gate_on_raises(rng, count_chains):
+def test_train_mode_with_the_gate_on_runs_the_fused_chain(rng, count_chains):
     """A train-mode SA or MSG layer with the gate on runs the train-mode
     fused chain (it used to raise NotImplementedError), and is
     differentiable; the same layer in eval mode runs the eval chain, and a
@@ -456,7 +456,7 @@ def test_train_mode_with_the_gate_on_raises(rng, count_chains):
     assert count_chains["torch"] == 3
 
 
-def test_trainer_epoch_with_the_gate_on_raises(tmp_path, count_chains):
+def test_trainer_epoch_with_the_gate_on_trains_fused(tmp_path, count_chains):
     """A Trainer epoch of pointnet2_cls_ssg with the gate on trains through
     the fused chain, two chains a step (it used to raise
     NotImplementedError), and leaves finite weights."""
