@@ -25,11 +25,12 @@ Phases:
 1. build the kernels from ``pointnet2_tpu_torch/csrc/`` with nvcc, one
    process per source, all at once; log ``ptxas -v`` of ``scatter.cu`` and
    ``fused_mlp.cu``, and check in the built library's SASS that the bf16
-   dense backward's two products run on the tensor cores (HMMA) and its
-   f32 ones do not;
+   dense pass's product and the bf16 dense backward's two run on the
+   tensor cores (HMMA) and the f32 ones do not;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving path's shapes, B=16 and B=768 (12 votes x bucket 64): FPS and
-   ball-query outputs bit-identical, gathers bitwise equal;
+   ball-query outputs bit-identical, gathers bitwise equal; and FPS at
+   sem_seg SA1's shape (B=16, 8192 -> 1024), bit-identical;
 3. serve batches of 1, 16, 64 and 100 in bf16 and f32 and a 12-vote call,
    with every launch counter set to 0 just before and read just after;
    compare the logits with the same requests forced to the plain versions
@@ -37,8 +38,9 @@ Phases:
 4. check ``predict_votes(num_votes=12)`` at B=16: finite, (16, 40), and
    the same for the same seed;
 5. time each kernel, its plain version and (for the gather) one PyTorch
-   call computing the same function, the serving forward and the vote
-   call, and break a bf16 forward's device time down by kernel;
+   call computing the same function, FPS also at sem_seg SA1's shape (µs
+   a selection step), the serving forward and the vote call, and break a
+   bf16 forward's device time down by kernel;
 6. hold the scatter-add kernel bit for bit against its plain version on
    CPU copies of the same inputs at the train path's shapes (the backward
    of the SA1 and SA2 gathers at B=16, f32 and bf16), at sem_seg SA1's
@@ -91,10 +93,12 @@ Phases:
 16. hold the fused chain's three kernels against their plain versions at
     every fused chain of the five models at B=16 (their own weights and BN
     statistics, random inputs), f32 and bf16, and at a ragged shape (1000
-    rows, 196 -> 40): the dense pass within 1e-5 of max|y| in f32 and one
-    bf16 ulp in bf16, its column statistics within 1e-4 of sum|terms| of
-    their exact (float64) sums and bit for bit across two launches; the
-    pooled and affine tails bit for bit;
+    rows, 196 -> 40): the dense pass within 1e-5 of max|y| of plain in
+    f32 and, in bf16, within one bf16 ulp of the exact product of its
+    rounded operands plus the f32 accumulation bound (`y_ok`), its column
+    statistics within 1e-4 of sum|terms| of their exact (float64) sums and
+    bit for bit across two launches; the pooled and affine tails bit for
+    bit;
 17. serve cls_ssg, cls_msg, sem_seg, part_seg and part_seg_msg (with
     labels) with ``config.fused_mlp(True)``, requests of 16 and 64 in bf16
     and f32, each model's run with every launch counter set to 0 just
@@ -103,9 +107,10 @@ Phases:
     within 2%), and with the CPU on 2 inputs;
 18. time the three kernels per launch at a bf16 cls_ssg forward's shapes
     beside their bounds, their plain versions and the unfused PyTorch ops
-    each stands for; the fused and unfused forwards of the five models at
-    B=16 and 64 in bf16 and f32 (host ms, device time, peak memory); and a
-    fused bf16 B=16 forward's device time by op;
+    each stands for (and the dense pass beside the bare bf16 ``addmm`` of
+    its rounded operands); the fused and unfused forwards of the five
+    models at B=16 and 64 in bf16 and f32 (host ms, device time, peak
+    memory); and a fused bf16 B=16 forward's device time by op;
 19. hold the chain's backward kernels against their plain versions along
     every fused chain of cls_ssg and cls_msg at B=16 (the models' own BN
     scales and biases, random pre-BN activations and cotangents, batch
@@ -204,16 +209,19 @@ SOURCES = {
     "fused_first_bwd": "pointnet2_tpu_torch/csrc/fused_mlp.cu",
 }
 # device kernels a wrapper launches besides its `<name>_kernel`: the CSR
-# passes of csrc/scatter.cu, the passes of fused_dense_bwd (f32 on the CUDA
-# cores, bf16 on the tensor cores with W rounded first) and the fixed-order
+# passes of csrc/scatter.cu, the bf16 dense pass on the tensor cores, the
+# passes of fused_dense_bwd (f32 on the CUDA cores, bf16 on the tensor
+# cores), the rounding of W to bf16 both take first, and the fixed-order
 # column sums of csrc/fused_mlp.cu
 HELPERS = ("scatter_count", "scatter_offsets", "scatter_place",
-           "dense_bwd_g", "dense_bwd_dw", "dense_bwd_g_mma", "dense_bwd_dw_mma",
-           "round_bf16", "sum_rows")
-# the kernels of row 14's two products in csrc/fused_mlp.cu: bf16 on the
-# tensor cores, f32 on the CUDA cores (phase 1 reads their SASS)
-MMA_KERNELS = ("dense_bwd_g_mma_kernel", "dense_bwd_dw_mma_kernel")
-FMA_KERNELS = ("dense_bwd_g_kernel", "dense_bwd_dw_kernel")
+           "fused_dense_mma", "dense_bwd_g", "dense_bwd_dw", "dense_bwd_g_mma",
+           "dense_bwd_dw_mma", "round_bf16", "sum_rows")
+# the kernels of rows 10 and 14's products in csrc/fused_mlp.cu: bf16 on
+# the tensor cores, f32 on the CUDA cores (phase 1 reads their SASS)
+MMA_KERNELS = ("fused_dense_mma_kernel", "dense_bwd_g_mma_kernel",
+               "dense_bwd_dw_mma_kernel")
+FMA_KERNELS = ("fused_dense_kernel", "dense_bwd_g_kernel",
+               "dense_bwd_dw_kernel")
 TRAIN_EPOCHS = 4  # per dtype in phase 8
 # the serving path's kernel shapes: (B, N) -> npoint, then the ball query
 # (radius, nsample) and the width of the lifted rows group_point moves
@@ -406,6 +414,29 @@ def check_kernels(torch, dev, B: int, check: Checks, errs: dict) -> None:
     torch.cuda.synchronize()
 
 
+# sem_seg SA1's FPS, the longest launch on any path: (B, N) -> npoint
+FPS_SEG = (16, 8192, 1024)
+
+
+def fps_seg_input(torch, dev):
+    B, N, _ = FPS_SEG
+    return torch.from_numpy(make_clouds(B, N, SEED + 2)).to(dev)
+
+
+def check_fps_seg(torch, dev, check: Checks, errs: dict) -> None:
+    """Phase 2 at sem_seg SA1's shape: FPS bit-identical to its plain
+    version."""
+    from pointnet2_tpu_torch import ops
+    from pointnet2_tpu_torch.ops import sampling
+
+    xyz = fps_seg_input(torch, dev)
+    got = ops.fps_kernel(xyz, FPS_SEG[2])
+    want = sampling.fps_plain(xyz, FPS_SEG[2])
+    errs["fps"] = max(errs["fps"], int((got - want).abs().max()))
+    check(torch.equal(got, want), f"fps sem_seg SA1 {tuple(xyz.shape)} -> "
+          f"{FPS_SEG[2]} bit-identical")
+
+
 def drive_main_path(torch, predictors: dict, clouds: np.ndarray) -> dict:
     """Phase 3's main-path run through the Predictor entry points; returns
     the logits by (dtype, batch) and the 12-vote sums."""
@@ -443,9 +474,16 @@ def add_time(rows: dict, name, shape, ms, plain, bound: tuple, library=None):
         f"{plain:.6f} ms  bound {bound[0]:.6f} ms ({bound[1]}){lib}")
 
 
+def fps_bound(B: int, n: int, npoint: int) -> tuple:
+    """Per step and point: 3 sub, 3 mul, 2 add, 1 min, 1 compare; xyz read
+    once, the indices written once."""
+    return roofline(B * (npoint - 1) * n * 10, B * n * 3 * 4 + B * npoint * 4)
+
+
 def time_kernels(torch, dev, gpu: str, rows: dict) -> None:
     """Phase 5a: per-forward kernel, plain and library times at B=16 bf16,
-    and the least time the card could take for the same work."""
+    and the least time the card could take for the same work; and (logged)
+    FPS at sem_seg SA1's shape."""
     from pointnet2_tpu_torch.ops import grouping, sampling
 
     B = 16
@@ -463,10 +501,8 @@ def time_kernels(torch, dev, gpu: str, rows: dict) -> None:
         ms = event_ms(torch, lambda: sampling.launch_fps(xyz, out), 20,
                       prefill=True)
         plain = event_ms(torch, lambda: sampling.fps_plain(xyz, npoint), 3)
-        # per step and point: 3 sub, 3 mul, 2 add, 1 min, 1 compare
-        ops_ = B * (npoint - 1) * n * 10
-        byts = xyz.numel() * 4 + out.numel() * 4
-        add("fps", f"({B},{n},3)->{npoint}", ms, plain, roofline(ops_, byts))
+        add("fps", f"({B},{n},3)->{npoint}", ms, plain,
+            fps_bound(B, n, npoint))
         log(f"  fps latency per selection step: {ms * 1e3 / (npoint - 1):.4f}"
             " us")
 
@@ -500,6 +536,17 @@ def time_kernels(torch, dev, gpu: str, rows: dict) -> None:
                     + o.numel() * o.element_size())
             add("gather_rows", f"{tuple(pts.shape)} {str(pts.dtype)[6:]} by "
                 f"{tuple(ix.shape)}", ms, plain, roofline(0, byts), library)
+    Bs, n, npoint = FPS_SEG
+    xyz = fps_seg_input(torch, dev)
+    out = torch.empty((Bs, npoint), dtype=torch.int32, device=dev)
+    ms = event_ms(torch, lambda: sampling.launch_fps(xyz, out), 10,
+                  prefill=True)
+    plain = event_ms(torch, lambda: sampling.fps_plain(xyz, npoint), 2)
+    bound = fps_bound(Bs, n, npoint)
+    log(f"  fps sem_seg SA1 ({Bs},{n},3)->{npoint}: kernel {ms:.6f} ms "
+        f"({ms * 1e3 / (npoint - 1):.4f} us a selection step), plain "
+        f"{plain:.6f} ms, bound {bound[0]:.6f} ms ({bound[1]}); logged, not "
+        "in the table (a sem_seg forward's launch)")
 
 
 def kernel_table(rows: dict, launches: dict, errs: dict) -> list:
@@ -579,8 +626,10 @@ def profile_device(torch, fn, reps: int, label: str, unit: str,
     if host_us is not None:
         log(f"   device busy {busy / host_us:.1%} of the unprofiled "
             f"{host_us:.1f} us/{unit} (idle {1 - busy / host_us:.1%})")
-    seen = {k: round(sum(r[1] for r in kernels if f"{k}_kernel" in r[2])
-                     * reps) for k in ours}
+    # a wrapper's one kernel a call: `<name>_kernel`, or in bf16 on the
+    # tensor cores `<name>_mma_kernel`
+    seen = {k: round(sum(r[1] for r in kernels if f"{k}_kernel" in r[2]
+                         or f"{k}_mma_kernel" in r[2]) * reps) for k in ours}
     missed = {k: (seen[k], launched[k]) for k in ours
               if seen[k] != launched[k]}
     log("   the trace saw every launch of the port's kernels" if not missed
@@ -1666,7 +1715,9 @@ def mlp_affines(mlp) -> list:
 
 def check_dense(torch, tag, x, a, b, w, bias, check: Checks,
                 errs: dict) -> torch.Tensor:
-    """One dense pass, kernel against plain; returns the kernel's y."""
+    """One dense pass, kernel against plain: y within 1e-5 of max|y| of
+    plain (f32) or `y_ok` (bf16), the statistics against their exact sums
+    (`sum_ok`), two launches bitwise equal; returns the kernel's y."""
     from pointnet2_tpu_torch.ops import fused_mlp
 
     y, s, ss = fused_mlp.fused_dense_kernel(x, a, b, w, bias, True)
@@ -1679,8 +1730,11 @@ def check_dense(torch, tag, x, a, b, w, bias, check: Checks,
         ok = float(d.max()) <= 1e-5 * scale
         bound = "1e-5 of max|y|"
     else:
-        ok = bool((d <= bf16_ulp(torch, want.float())).all())
-        bound = "1 bf16 ulp"
+        ok = y_ok(torch, y, x, a, b, w, bias)
+        over = float((d > bf16_ulp(torch, want.float())).float().mean())
+        bound = (f"one bf16 ulp of the exact product plus the f32 "
+                 f"accumulation bound ({over:.2e} of elements more than one "
+                 "ulp from plain)")
     # statistics: f32 sums of the kernel's rounded y and its f32 squares,
     # against their exact sums (`sum_ok`)
     R = x.shape[0]
@@ -1865,7 +1919,8 @@ def time_fused_kernels(torch, dev, gpu: str, chains: list,
     shapes at B=16 (the table holds bf16), their bounds, plain versions and
     the unfused PyTorch ops each stands for (row 10: affine, relu, cast,
     addmm; row 11: relu(y*a + b), cast, amax; row 12: the affine and relu,
-    cast), timed here only."""
+    cast), and row 10's bare bf16 addmm of its rounded operands, timed here
+    only."""
     log(f"phase 18: fused kernels per launch at a cls_ssg forward's shapes, "
         f"B=16, on {gpu} (kernel and unfused ops with the queue pre-filled, "
         "plain with the host in the loop)")
@@ -1891,9 +1946,10 @@ def time_cls_ssg_chains(torch, dev, g, dt, chains: list, rows: dict) -> None:
             w, bias = block.dense.weight, block.dense.bias
             cin, cout = w.shape[1], w.shape[0]
             y = torch.empty((R, cout), dtype=dt, device=dev)
+            w16 = fused_mlp.dense_w16(x, w)
             w_t, bias_t = w.to(dt).t(), bias.to(dt)
             ms = event_ms(torch, lambda: fused_mlp.launch_fused_dense(
-                x, a, b, w, bias, y), 50, prefill=True)
+                x, a, b, w, bias, y, w16), 50, prefill=True)
             plain = event_ms(torch, lambda: fused_mlp.dense_fwd_plain(
                 x, a, b, w, bias), 10)
             library = event_ms(torch, lambda: torch.addmm(
@@ -1901,6 +1957,13 @@ def time_cls_ssg_chains(torch, dev, g, dt, chains: list, rows: dict) -> None:
                 prefill=True)
             emit(torch, rows, "fused_dense", f"{tag} ({R},{cin})->{cout}",
                  dt, ms, plain, dense_bound(R, cin, cout, isz), library)
+            if dt == torch.bfloat16:  # a yardstick, logged only
+                z = fused_mlp.affine_fwd_plain(x, a, b)
+                mm = event_ms(torch, lambda: torch.addmm(bias_t, z, w_t), 50,
+                              prefill=True)
+                log(f"   fused_dense {tag} ({R},{cin})->{cout}: the bare bf16 "
+                    f"torch.addmm of the rounded z and W at its shapes "
+                    f"{mm:.6f} ms")
             x = y
         a, b = affines[-1]
         C = x.shape[1]
@@ -1990,10 +2053,11 @@ BWD = ("fused_top_stats", "fused_dense_bwd", "fused_first_bwd")
 # phase 19's ragged chain: groups, S, Ck, Cp (1000 rows, 196 -> 40)
 RAGGED_BWD = (125, 8, 40, 196)
 # phase 20's fused layers, kernels vs plain (`fused_layer_errs`), on these
-# inputs: (B, N, kind). The limits stand 2.5x or more above the largest
-# readings on an H100 (PERF.md); in f32 most output elements differ in
-# their last bits, so that share is not bounded. A zeroed or scaled
-# gradient reads 1 or more.
+# inputs: (B, N, kind). The limits stand 1.8x or more above the largest
+# readings on an H100 (PERF.md; a bf16 gradient reads up to 2.7e-2 since
+# the bf16 dense pass adds in the tensor cores' order, no longer cuBLAS's);
+# in f32 most output elements differ in their last bits, so that share is
+# not bounded. A zeroed or scaled gradient reads 1 or more.
 LAYER_INPUTS = ((16, N_POINT, "clouds"), (16, N_POINT, "uniform"),
                 (4, 512, "clouds"), (4, 512, "uniform"))
 LAYER_LIMITS = {
@@ -2050,6 +2114,26 @@ def g_ok(torch, gp, dyc, w) -> bool:
     bound = (bf16_ulp(torch, exact)
              + dyc.shape[1] * 2.0 ** -22 * (d.abs() @ wc.abs()))
     return bool(((gp.double() - exact).abs() <= bound).all())
+
+
+def y_ok(torch, y, x, a, b, w, bias) -> bool:
+    """bf16 y = bf16(z @ bf16(W)^T + bias), z = bf16(relu(x*a + b)) (the
+    plain version's z), x (R, Cin), against the exact (float64) product of
+    the rounded z and W plus bias: each element within one bf16 ulp of it
+    plus Cin * 2^-22 * sum|terms|, the bound of an f32 accumulation on the
+    tensor cores (Cin/16 mma steps, each within about 17 * 2^-23 of the
+    running sum|terms|), as `g_ok` holds row 14's g. One bf16 ulp of the
+    plain version would hold only cuBLAS's own summation order
+    (tests/test_torch_dense_fwd_order.py). A zeroed, scaled, partial or
+    bias-less y fails."""
+    from pointnet2_tpu_torch.ops import fused_mlp
+
+    z = fused_mlp._affine_relu(x, a, b).double()  # relu: >= 0
+    wc = w.to(y.dtype).double()
+    exact = torch.addmm(bias.double(), z, wc.t())
+    bound = (bf16_ulp(torch, exact)
+             + x.shape[1] * 2.0 ** -22 * (z @ wc.abs().t()))
+    return bool(((y.double() - exact).abs() <= bound).all())
 
 
 def sum_err(got, exact, abs_sum) -> float:
@@ -2658,8 +2742,9 @@ def time_fused_train(torch, dev, gpu: str, log_dir: str) -> None:
 
 def check_tensor_cores(_build, check: Checks) -> None:
     """Phase 1: in the built fused_mlp library's SASS, the bf16 dense
-    backward's two products are tensor-core instructions (HMMA or HGMMA)
-    and the f32 ones, on the CUDA cores without TF32, are not."""
+    pass's product and the bf16 dense backward's two are tensor-core
+    instructions (HMMA or HGMMA) and the f32 ones, on the CUDA cores
+    without TF32, are not."""
     counts = _build.sass_mma_counts("fused_mlp")
     for kernel in (*MMA_KERNELS, *FMA_KERNELS):
         found = {k: n for k, n in counts.items() if kernel in k}
@@ -2715,6 +2800,7 @@ def main() -> int:
             "fused_dense_bwd": 0.0, "fused_first_bwd": 0.0}
     for B in (16, 768):
         check_kernels(torch, dev, B, check, errs)
+    check_fps_seg(torch, dev, check, errs)
 
     log("phase 3: serve pointnet2_cls_ssg at N=1024 through the kernels")
     sd = random_state_dict(torch, SEED)

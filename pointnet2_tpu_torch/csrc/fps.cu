@@ -7,13 +7,20 @@
 //
 // Bound on this card: latency. The npoint-1 selections form a serial chain;
 // each one is a distance update over the cloud and a block-wide argmax. The
-// bytes (one read of xyz, one write of idx) and the operations (~9 per point
+// bytes (one read of xyz, one write of idx) and the operations (~10 per point
 // per step) are far below what the card could do in that time. The design
 // therefore keeps everything on chip and makes one step as short as it can:
 // one CTA per cloud, the cloud's xyz in shared memory (12 KB at N=1024),
-// each thread's points and their running min distance in registers, and the
-// argmax as warp shuffles carrying (value, index) plus one exchange through
-// shared memory. Clouds run as independent CTAs, several per SM.
+// each thread's points and their running min distance in registers, and one
+// __syncthreads a step. Each warp reduces its (distance, index) pairs with
+// two redux.sync (the largest distance's bits, then the lowest index holding
+// them: the bits of non-negative floats order as their values) and writes
+// its partial into a shared buffer chosen by the step's parity; after the
+// barrier every warp reduces all the partials itself, so every thread knows
+// the step's pick without a second exchange. The parity keeps step s+1's
+// writes off step s's buffer: a warp reaches step s+2's writes only after
+// step s+1's barrier, which no warp passes before every warp has read step
+// s's partials. Clouds run as independent CTAs, several per SM.
 
 #include <climits>
 
@@ -21,33 +28,23 @@
 
 namespace {
 
-// (v, i) <- the better of (v, i) and (v2, i2): larger value, then lower
-// index. A total order, so every shuffle step may apply it.
-__device__ __forceinline__ void take_better(float& v, int& i, float v2,
-                                            int i2) {
-  if (v2 > v || (v2 == v && i2 < i)) {
-    v = v2;
-    i = i2;
-  }
-}
-
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float v2 = __shfl_xor_sync(0xffffffffu, v, off);
-    const int i2 = __shfl_xor_sync(0xffffffffu, i, off);
-    take_better(v, i, v2, i2);
-  }
+// (bits, idx) <- the warp's largest distance bits and the lowest index
+// holding them. A lane without a point holds (0, INT_MAX), which loses to
+// every real point, a distance of 0 included, by its index.
+__device__ __forceinline__ void warp_argmax(unsigned& bits, int& idx) {
+  const unsigned top = __reduce_max_sync(0xffffffffu, bits);
+  idx = __reduce_min_sync(0xffffffffu, bits == top ? idx : INT_MAX);
+  bits = top;
 }
 
 template <int kBlock, int kPerThread>
 __global__ void __launch_bounds__(kBlock)
     fps_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n,
                int npoint) {
+  constexpr int kWarps = kBlock / 32;
   extern __shared__ float s_xyz[];  // (n, 3), as in device memory
-  __shared__ float s_val[kBlock / 32];
-  __shared__ int s_idx[kBlock / 32];
-  __shared__ int s_best;
+  __shared__ unsigned s_bits[2][kWarps];
+  __shared__ int s_idx[2][kWarps];
 
   const float* cloud = xyz + static_cast<size_t>(blockIdx.x) * n * 3;
   int* dst = out + static_cast<size_t>(blockIdx.x) * npoint;
@@ -75,41 +72,43 @@ __global__ void __launch_bounds__(kBlock)
     const float lx = s_xyz[3 * last];
     const float ly = s_xyz[3 * last + 1];
     const float lz = s_xyz[3 * last + 2];
-    float best_v = -1.f;  // below every real distance (all are >= 0)
+    // every distance is >= +0 (a sum of squares), so its bits order as its
+    // value; the sentinel is bits 0 with the largest index
+    unsigned best = 0;
     int best_i = INT_MAX;
 #pragma unroll
     for (int j = 0; j < kPerThread; ++j) {
       const int k = threadIdx.x + j * kBlock;
       if (k < n) {
         dmin[j] = fminf(dmin[j], sq_dist(px[j], py[j], pz[j], lx, ly, lz));
-        take_better(best_v, best_i, dmin[j], k);
+        const unsigned b = __float_as_uint(dmin[j]);
+        if (b > best || best_i == INT_MAX) {
+          best = b;
+          best_i = k;
+        }
       }
     }
-    warp_argmax(best_v, best_i);
+    warp_argmax(best, best_i);
+    const int p = s & 1;
     if (lane == 0) {
-      s_val[warp] = best_v;
-      s_idx[warp] = best_i;
+      s_bits[p][warp] = best;
+      s_idx[p][warp] = best_i;
     }
-    __syncthreads();
-    if (warp == 0) {
-      best_v = lane < kBlock / 32 ? s_val[lane] : -1.f;
-      best_i = lane < kBlock / 32 ? s_idx[lane] : INT_MAX;
-      warp_argmax(best_v, best_i);
-      if (lane == 0) {
-        s_best = best_i;
-        dst[s] = best_i;
-      }
-    }
-    __syncthreads();
-    last = s_best;
+    __syncthreads();  // the step's one barrier
+    unsigned bits = lane < kWarps ? s_bits[p][lane] : 0u;
+    last = lane < kWarps ? s_idx[p][lane] : INT_MAX;
+    warp_argmax(bits, last);
+    if (threadIdx.x == 0) dst[s] = last;
   }
 }
 
 template <int kBlock, int kPerThread>
 cudaError_t launch(const float* xyz, int* out, int b, int n, int npoint,
                    cudaStream_t stream) {
+  // the cloud, dynamic, beside the partials' static 16 bytes a warp: above
+  // 48 KB in all only after the opt-in
   const size_t smem = static_cast<size_t>(n) * 3 * sizeof(float);
-  if (smem > 48 * 1024) {
+  if (smem + 16 * (kBlock / 32) > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fps_kernel<kBlock, kPerThread>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -132,11 +131,13 @@ extern "C" int pn2_fps(const void* xyz, void* out, int b, int n, int npoint,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b <= 0 || npoint <= 0) return cudaSuccess;
   if (n <= 0 || n > pn2_fps_max_points()) return cudaErrorInvalidValue;
+  // threads a cloud by measurement on an H100 (fewer points a thread won
+  // up to 1024 threads; the reduction is two redux.sync whatever the warps)
   if (n <= 256) return launch<256, 1>(x, o, b, n, npoint, st);
   if (n <= 512) return launch<256, 2>(x, o, b, n, npoint, st);
-  if (n <= 1024) return launch<256, 4>(x, o, b, n, npoint, st);
-  if (n <= 2048) return launch<256, 8>(x, o, b, n, npoint, st);
-  if (n <= 4096) return launch<256, 16>(x, o, b, n, npoint, st);
-  if (n <= 8192) return launch<512, 16>(x, o, b, n, npoint, st);
+  if (n <= 1024) return launch<1024, 1>(x, o, b, n, npoint, st);
+  if (n <= 2048) return launch<1024, 2>(x, o, b, n, npoint, st);
+  if (n <= 4096) return launch<1024, 4>(x, o, b, n, npoint, st);
+  if (n <= 8192) return launch<1024, 8>(x, o, b, n, npoint, st);
   return launch<1024, 16>(x, o, b, n, npoint, st);
 }

@@ -26,14 +26,14 @@
 //   elementwise step of the backward: out = y*a + b, yhat = (y - mu)*r,
 //   dout = dz*(out > 0), dy = gr*((dout - m1) - yhat*m2), so dy, dx and the
 //   tails are bit for bit their plain versions;
-// - W is nn.Linear's (Cout, Cin) f32 weight, rounded to T as it is loaded;
+// - W is nn.Linear's (Cout, Cin) f32 weight, rounded to T (in bf16 once
+//   per launch into a scratch, round_bf16_kernel);
 // - acc = sum_k z*W in f32 (a bf16 product is exact in f32), y = T(acc +
 //   bias): the plain version's z.float() @ w.float() up to summation order;
 // - with statistics, the column sum and sum of squares of float(y), the
-//   rounded y, in f32: each 64-row block writes its partial sums, in a
-//   fixed order, into row blockIdx.x of a (row blocks, Cout) scratch; a
-//   second kernel adds the rows in an order fixed by their count
-//   (sum_rows_kernel);
+//   rounded y, in f32: each 64-row block's partial sums, in a fixed order,
+//   go into its row of a (row blocks, Cout) scratch; a second kernel adds
+//   the rows in an order fixed by their count (sum_rows_kernel);
 // - pool: max over S of T(relu(y*a + b)); affine: T(relu(y*a + b));
 // - backward (the pack p of a BN holds rows a, b, mu, r, gr, m1, m2): the
 //   pooled cotangent goes to the first-occurrence argmax over S of
@@ -51,19 +51,32 @@
 // fused_dense and fused_dense_bwd move few bytes for their work (bf16
 // cls_ssg SA1 64 -> 128 at B=16: 101 MB forward, 30 us at 3.35 TB/s) and
 // their bound is bytes against the tensor cores' rate.
-// fused_dense, and fused_dense_bwd in f32, do their products as f32 FMAs on
+// In f32, fused_dense and fused_dense_bwd do their products as f32 FMAs on
 // the CUDA cores from shared memory: 64x64 output tiles, 128 threads, each
 // with a 4x8 accumulator in registers, the contracted dimension in chunks
 // of 32 staged through shared memory with the affine, the ReLU and the
 // rounding applied as the operands are loaded. Each thread reads 12 shared
 // values for 32 FMAs, so shared memory, not the FMA pipe, sets its pace;
 // the f32 products stay there (no TF32: the f32 contract is full f32).
-// fused_dense_bwd in bf16 runs its two products on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 accumulators; mma_bf16.cuh): the same
-// 64x64 block tiles, four warps of 32x32, operands staged by cp.async in a
-// three-stage ring of 32-deep chunks. A bf16 product is exact in f32, so
-// only the order and the depth of the f32 additions differ from the CUDA
-// cores (each mma adds 16 products and the accumulator in one step).
+// In bf16 all three products (row 10's, row 14's g and dW) run on the
+// tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulators; mma_bf16.cuh):
+// warps of 32x32 output, operands staged by cp.async in a ring of 32-deep
+// chunks. A bf16 product is exact in f32, so only the order and the depth
+// of the f32 additions differ from the CUDA cores (each mma adds 16
+// products and the accumulator in one step).
+// Row 10 in bf16 moves few bytes a row for its work (cls_ssg SA2 128 ->
+// 256 at B=16: 101 MB, 30 us at 3.35 TB/s, against 9 us of bf16 tensor
+// work), so it is bound by bytes, and by the latency of getting them in:
+// its grid is persistent (as many tiles at once as fit, each block walking
+// its row tiles with one ring through all their chunks, so the next
+// tile's x is in flight during a tile's epilogue), x is staged raw and
+// each thread turns the pieces it staged into z = bf16(relu(x*a + b)) in
+// place before the chunk's one barrier, B is W rounded to bf16 once per
+// launch and read in its own (Cout, Cin) layout (mma's "col" B), and y
+// leaves through shared memory, 16 bytes a thread along each row. What it
+// pays over the bytes: x read once per column tile (from L2: the column
+// tiles of a row tile run side by side), W once per row tile, and the
+// transform once per column tile.
 // fused_dense_bwd runs three passes: the elementwise dy pass (the pool
 // routing recomputed, dy_c written to a scratch, db partials per 64 items),
 // g_{k-1} = dy_c @ W over 64-row tiles with T1/T2 partials in the epilogue
@@ -208,12 +221,14 @@ __device__ __forceinline__ void write_column_partials(
   }
 }
 
-template <typename T, bool kStats>
+// Row 10 in f32 on the CUDA cores (bf16: fused_dense_mma_kernel)
+template <bool kStats>
 __global__ void __launch_bounds__(kThreads)
-    fused_dense_kernel(const T* __restrict__ x, const float* __restrict__ a,
+    fused_dense_kernel(const float* __restrict__ x,
+                       const float* __restrict__ a,
                        const float* __restrict__ b,
                        const float* __restrict__ w,
-                       const float* __restrict__ bias, T* __restrict__ y,
+                       const float* __restrict__ bias, float* __restrict__ y,
                        float* __restrict__ part_s,
                        float* __restrict__ part_ss, long long rows, int cin,
                        int cout) {
@@ -244,7 +259,7 @@ __global__ void __launch_bounds__(kThreads)
       const int kk = k0 + k;
       float z = 0.0f;  // masked rows and channels contribute nothing
       if (row < rows && kk < cin) {
-        z = round_to<T>(affine_relu(to_f32(x[row * cin + kk]), a[kk], b[kk]));
+        z = affine_relu(x[row * cin + kk], a[kk], b[kk]);
       }
       zs[r][k] = z;
     }
@@ -257,7 +272,7 @@ __global__ void __launch_bounds__(kThreads)
       const int kk = k0 + k;
       float v = 0.0f;
       if (col < cout && kk < cin) {
-        v = round_to<T>(w[static_cast<long long>(col) * cin + kk]);
+        v = w[static_cast<long long>(col) * cin + kk];
       }
       ws[n][k] = v;
     }
@@ -283,10 +298,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 8; ++j) {
       const int col = col0 + tx + 8 * j;
       if (col >= cout) continue;
-      const T out = from_f32<T>(__fadd_rn(acc[i][j], bias_r[j]));
-      y[row * cout + col] = out;
+      const float f = __fadd_rn(acc[i][j], bias_r[j]);
+      y[row * cout + col] = f;
       if (kStats) {
-        const float f = to_f32(out);  // statistics of the rounded y
         cs[j] = __fadd_rn(cs[j], f);
         css[j] = __fadd_rn(css[j], __fmul_rn(f, f));
       }
@@ -634,7 +648,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// --- row 14 in bf16 on the tensor cores --------------------------------------
+// --- rows 10 and 14 in bf16 on the tensor cores ----------------------------
 
 constexpr int kMmaStages = 3;              // cp.async ring depth, dW pass
 constexpr int kGStages = 4;  // g pass: ck <= 128 is in flight at once
@@ -647,7 +661,8 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// W (ck, cp) f32 -> bf16, once per launch, for the g pass's B operand
+// W f32 -> bf16, once per launch, for the B operand of row 10 (Cout, Cin)
+// and of row 14's g pass (ck, cp)
 __global__ void round_bf16_kernel(const float* __restrict__ w,
                                   __nv_bfloat16* __restrict__ out,
                                   long long total) {
@@ -937,6 +952,262 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Row 10 in bf16: y (rows, cout) = bf16(z @ w16^T + bias) for z =
+// bf16(relu(x*a + b)) of x (rows, cin) and w16 (cout, cin), both bf16, with
+// the column sum and sumsq partials of float(y) per 64-row block when
+// kStats. A tile is 32*kRowWarps rows by 32*kColWarps columns, warps of
+// 32x32; its y goes out through shared memory, 16 bytes a thread along
+// each row. The grid is persistent: block i keeps column tile i % ntiles
+// and walks the row tiles i / ntiles, + gridDim.x / ntiles, ..., and one
+// cp.async ring of kStages runs through all of its tiles' 32-deep chunks, so
+// the next tile's x is in flight while a tile's epilogue runs. Blocks next
+// to each other take the column tiles of one row tile, which share x in
+// L2. Which block takes a tile changes no sum: two launches, on any card,
+// give the same bits. Rows past `rows` stage as zeros and are neither
+// stored nor summed.
+template <int kRowWarps, int kColWarps, int kStages>
+struct DenseMmaSmem {
+  static constexpr int kRows = 32 * kRowWarps;
+  static constexpr int kCols = 32 * kColWarps;
+  static constexpr int kLdO = kCols + mma::kPad;  // the staged y tile's rows
+  __nv_bfloat16 zs[kStages][kRows][kLdK];
+  __nv_bfloat16 ws[kStages][kCols][kLdK];
+  __nv_bfloat16 os[kRows][kLdO];
+  float red[2][kRowWarps][kCols];  // column sums of each warp row
+};
+
+template <int kRowWarps, int kColWarps, int kStages, bool kStats>
+__global__ void __launch_bounds__(32 * kRowWarps * kColWarps)
+    fused_dense_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                           const float* __restrict__ a,
+                           const float* __restrict__ b,
+                           const __nv_bfloat16* __restrict__ w16,
+                           const float* __restrict__ bias,
+                           __nv_bfloat16* __restrict__ y,
+                           float* __restrict__ part_s,
+                           float* __restrict__ part_ss, long long rows,
+                           int cin, int cout) {
+  using Smem = DenseMmaSmem<kRowWarps, kColWarps, kStages>;
+  constexpr int kRows = Smem::kRows;
+  constexpr int kCols = Smem::kCols;
+  constexpr int kT = 32 * kRowWarps * kColWarps;
+  extern __shared__ __align__(16) unsigned char dense_smem[];
+  Smem& sm = *reinterpret_cast<Smem*>(dense_smem);
+  auto& zs = sm.zs;
+  auto& ws = sm.ws;
+  auto& os = sm.os;
+  auto& red = sm.red;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / kColWarps, wn = warp % kColWarps;  // its 32x32
+  const int gid = lane >> 2, tig = lane & 3;
+  const int ntiles = (cout + kCols - 1) / kCols;
+  const int col0 = static_cast<int>(blockIdx.x % ntiles) * kCols;
+  const long long rt0 = blockIdx.x / ntiles;
+  const long long rstep = gridDim.x / ntiles;
+  const long long rtiles = (rows + kRows - 1) / kRows;
+  const long long my_tiles =
+      rt0 < rtiles ? (rtiles - rt0 + rstep - 1) / rstep : 0;
+  const bool a_vec = cin % 8 == 0 && aligned16(x);
+  const bool b_vec = cin % 8 == 0 && aligned16(w16);
+  const int chunks = (cin + kMmaK - 1) / kMmaK;
+  // kT is a multiple of 4, so this thread's pieces of x always start at k
+  // offset kc of a chunk
+  const int kc = (tid & 3) * 8;
+
+  // the next chunk to stage: chunk sc of this block's tile sj
+  long long sj = 0;
+  int sc = 0;
+  auto stage_next = [&](int st) {
+    if (sj >= my_tiles) return;
+    const long long row0 = (rt0 + sj * rstep) * kRows;
+    const int k0 = sc * kMmaK;
+#pragma unroll
+    for (int e = tid; e < kRows * 4; e += kT) {  // x: rows x 4 pieces of 8
+      const int r = e >> 2;
+      const long long row = row0 + r;
+      mma::stage8(&zs[st][r][kc], x + row * cin + k0 + kc, row < rows,
+                  cin - k0 - kc, a_vec);
+    }
+#pragma unroll
+    for (int e = tid; e < kCols * 4; e += kT) {  // w16: columns x 4 pieces
+      const int n = e >> 2, c = (e & 3) * 8;
+      const int col = col0 + n;
+      mma::stage8(&ws[st][n][c],
+                  w16 + static_cast<long long>(col) * cin + k0 + c,
+                  col < cout, cin - k0 - c, b_vec);
+    }
+    if (++sc == chunks) {
+      sc = 0;
+      ++sj;
+    }
+  };
+  // a and b at this thread's 8 k of chunk c (0 past cin), loaded a chunk
+  // ahead of their use
+  float av[8], bv[8];
+  auto load_ab = [&](int c) {
+    const int k0 = c * kMmaK + kc;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      av[t] = k0 + t < cin ? a[k0 + t] : 0.0f;
+      bv[t] = k0 + t < cin ? b[k0 + t] : 0.0f;
+    }
+  };
+  // z = bf16(relu(x*a + b)) over the pieces of x this thread staged, in
+  // place: visible to this thread after its own cp_async_wait, to the
+  // others after the chunk's barrier. Past cin, x stages as 0 and a and b
+  // load as 0, so z = relu(0*0 + 0) = +0 (relu(b) would not be 0).
+  auto transform = [&](int st) {
+#pragma unroll
+    for (int e = tid; e < kRows * 4; e += kT) {
+      uint4* piece = reinterpret_cast<uint4*>(&zs[st][e >> 2][kc]);
+      uint4 v = *piece;
+      __nv_bfloat162 h[4];
+      memcpy(h, &v, sizeof(v));
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 f = __bfloat1622float2(h[q]);
+        h[q] = __floats2bfloat162_rn(affine_relu(f.x, av[2 * q], bv[2 * q]),
+                                     affine_relu(f.y, av[2 * q + 1],
+                                                 bv[2 * q + 1]));
+      }
+      memcpy(&v, h, sizeof(v));
+      *piece = v;
+    }
+  };
+
+  float bias_r[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = col0 + wn * 32 + 8 * j + 2 * tig + e;
+      bias_r[j][e] = col < cout ? bias[col] : 0.0f;
+    }
+  }
+  const bool y_vec = cout % 8 == 0 && aligned16(y);
+
+  // y = bf16(acc + bias) of the tile at row0 into os, then out along its
+  // rows; the statistics of the rounded y from the registers: each
+  // thread's rows in ascending order, the 8 row groups of a column in a
+  // fixed xor tree, then the warp rows of each 64-row block in ascending
+  // order, one partial row a 64 rows. os and red are written again only
+  // after the next chunk's barrier.
+  auto epilogue = [&](const float (&acc)[2][4][4], long long row0) {
+    float cs[4][2] = {}, css[4][2] = {};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 32 + 16 * i + 8 * h + gid;
+        const bool in = row0 + r < rows;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = wn * 32 + 8 * j + 2 * tig;
+          const __nv_bfloat162 out = __floats2bfloat162_rn(
+              __fadd_rn(acc[i][j][2 * h], bias_r[j][0]),
+              __fadd_rn(acc[i][j][2 * h + 1], bias_r[j][1]));
+          *reinterpret_cast<__nv_bfloat162*>(&os[r][c]) = out;
+          if (kStats && in) {
+            // columns past cout hold bias 0 and acc 0 (W staged as 0)
+            const float2 o = __bfloat1622float2(out);
+            cs[j][0] = __fadd_rn(cs[j][0], o.x);
+            css[j][0] = __fadd_rn(css[j][0], __fmul_rn(o.x, o.x));
+            cs[j][1] = __fadd_rn(cs[j][1], o.y);
+            css[j][1] = __fadd_rn(css[j][1], __fmul_rn(o.y, o.y));
+          }
+        }
+      }
+    }
+    if (kStats) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) {
+            cs[j][e] = __fadd_rn(cs[j][e], __shfl_xor_sync(0xffffffffu,
+                                                           cs[j][e], o));
+            css[j][e] = __fadd_rn(css[j][e], __shfl_xor_sync(
+                                                 0xffffffffu, css[j][e], o));
+          }
+          if (gid == 0) {
+            red[0][wm][wn * 32 + 8 * j + 2 * tig + e] = cs[j][e];
+            red[1][wm][wn * 32 + 8 * j + 2 * tig + e] = css[j][e];
+          }
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int e = tid; e < kRows * kCols / 8; e += kT) {  // pieces of 8
+      const int r = e / (kCols / 8), c = e % (kCols / 8) * 8;
+      const long long row = row0 + r;
+      const int col = col0 + c;
+      if (row >= rows) continue;
+      __nv_bfloat16* q = y + row * cout + col;
+      if (y_vec && col + 8 <= cout) {
+        *reinterpret_cast<uint4*>(q) =
+            *reinterpret_cast<const uint4*>(&os[r][c]);
+      } else {
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          if (col + t < cout) q[t] = os[r][c + t];
+        }
+      }
+    }
+    if (!kStats) return;
+    for (int t = tid; t < kRowWarps / 2 * kCols; t += kT) {
+      const int half = t / kCols, cc = t % kCols;
+      const long long prow = row0 / 64 + half;
+      if (prow * 64 < rows && col0 + cc < cout) {
+        const long long at = prow * cout + col0 + cc;
+        part_s[at] = __fadd_rn(red[0][2 * half][cc], red[0][2 * half + 1][cc]);
+        part_ss[at] =
+            __fadd_rn(red[1][2 * half][cc], red[1][2 * half + 1][cc]);
+      }
+    }
+  };
+
+  for (int st = 0; st < kStages - 1; ++st) {
+    stage_next(st);
+    mma::cp_async_commit();
+  }
+  load_ab(0);
+  float acc[2][4][4] = {};
+  const long long total = my_tiles * chunks;
+  int c = 0;  // the chunk consumed: chunk c of this block's tile j
+  long long j = 0;
+  for (long long q = 0; q < total; ++q) {
+    const int st = static_cast<int>(q % kStages);
+    mma::cp_async_wait<kStages - 2>();  // this thread's pieces of chunk q
+    transform(st);
+    __syncthreads();  // chunk q's z is in; the stage refilled below is read
+    stage_next(static_cast<int>((q + kStages - 1) % kStages));
+    mma::cp_async_commit();
+    load_ab(c + 1 < chunks ? c + 1 : 0);
+#pragma unroll
+    for (int kk = 0; kk < kMmaK; kk += 16) {
+      uint32_t af[2][4], bf[4][2];
+      mma::load_a_mk(af, &zs[st][0][0], kLdK, wm * 32, kk);
+      mma::load_b_nk(bf, &ws[st][0][0], kLdK, wn * 32, kk);
+      mma::warp_mma(acc, af, bf);
+    }
+    if (++c == chunks) {
+      epilogue(acc, (rt0 + j * rstep) * kRows);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][jj][e] = 0.0f;
+        }
+      }
+      c = 0;
+      ++j;
+    }
+  }
+}
+
 // Row 15: dx = T(gr*((dout - m1) - yhat*m2)) of BN_0, x and g (rows, c)
 template <typename T>
 __global__ void fused_first_bwd_kernel(const T* __restrict__ x,
@@ -961,38 +1232,89 @@ unsigned grid_for(long long total, int threads) {
   return static_cast<unsigned>(want < 132LL * 32 ? want : 132LL * 32);
 }
 
-template <typename T>
-cudaError_t launch_dense(const void* x, const float* a, const float* b,
-                         const float* w, const float* bias, void* y,
-                         float* part_s, float* part_ss, long long rows,
-                         int cin, int cout, cudaStream_t st) {
-  const dim3 grid(static_cast<unsigned>((rows + kBM - 1) / kBM),
-                  (cout + kBN - 1) / kBN);
-  const T* xt = static_cast<const T*>(x);
-  T* yt = static_cast<T*>(y);
-  if (part_s != nullptr) {
-    fused_dense_kernel<T, true><<<grid, kThreads, 0, st>>>(
-        xt, a, b, w, bias, yt, part_s, part_ss, rows, cin, cout);
-  } else {
-    fused_dense_kernel<T, false><<<grid, kThreads, 0, st>>>(
-        xt, a, b, w, bias, yt, nullptr, nullptr, rows, cin, cout);
+// The persistent row-10 bf16 kernel for one tile shape: as many row tiles
+// at once as fit on the card, each with every column tile.
+template <int kRowWarps, int kColWarps, int kStages, bool kStats>
+cudaError_t launch_dense_mma(const void* x, const float* a, const float* b,
+                             const __nv_bfloat16* w16, const float* bias,
+                             void* y, float* part_s, float* part_ss,
+                             long long rows, int cin, int cout,
+                             cudaStream_t st) {
+  using Smem = DenseMmaSmem<kRowWarps, kColWarps, kStages>;
+  constexpr int kT = 32 * kRowWarps * kColWarps;
+  constexpr int kSmem = sizeof(Smem);
+  const auto kernel =
+      fused_dense_mma_kernel<kRowWarps, kColWarps, kStages, kStats>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem)) !=
+          cudaSuccess ||
+      (err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kT, kSmem)) != cudaSuccess) {
+    return err;
   }
+  const long long ntiles = (cout + Smem::kCols - 1) / Smem::kCols;
+  const long long rtiles = (rows + Smem::kRows - 1) / Smem::kRows;
+  long long at_once = static_cast<long long>(sms) * per_sm / ntiles;
+  at_once = at_once < 1 ? 1 : (at_once > rtiles ? rtiles : at_once);
+  kernel<<<static_cast<unsigned>(at_once * ntiles), kT, kSmem, st>>>(
+      static_cast<const __nv_bfloat16*>(x), a, b, w16, bias,
+      static_cast<__nv_bfloat16*>(y), part_s, part_ss, rows, cin, cout);
   return cudaGetLastError();
+}
+
+template <bool kStats>
+cudaError_t launch_dense(const void* x, const float* a, const float* b,
+                         const float* w, void* w16, const float* bias,
+                         void* y, float* part_s, float* part_ss,
+                         long long rows, int cin, int cout, int itemsize,
+                         cudaStream_t st) {
+  if (itemsize == 4) {
+    const dim3 grid(static_cast<unsigned>((rows + kBM - 1) / kBM),
+                    (cout + kBN - 1) / kBN);
+    fused_dense_kernel<kStats><<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(x), a, b, w, bias, static_cast<float*>(y),
+        part_s, part_ss, rows, cin, cout);
+    return cudaGetLastError();
+  }
+  const long long wn = static_cast<long long>(cout) * cin;
+  auto* w16b = static_cast<__nv_bfloat16*>(w16);
+  round_bf16_kernel<<<grid_for(wn, 256), 256, 0, st>>>(w, w16b, wn);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // tiles by measurement on an H100 at the models' shapes: 128 x 64 with
+  // a 4-deep ring up to 64 columns, 128 x 128 with a 3-deep one above
+  if (cout <= 64) {
+    return launch_dense_mma<4, 2, 4, kStats>(x, a, b, w16b, bias, y, part_s,
+                                             part_ss, rows, cin, cout, st);
+  }
+  return launch_dense_mma<4, 4, 3, kStats>(x, a, b, w16b, bias, y, part_s,
+                                           part_ss, rows, cin, cout, st);
 }
 
 }  // namespace
 
 // y (rows, cout) = T(T(relu(x*a + b)) @ T(w)^T + bias) for x (rows, cin)
-// of T, a, b (cin) f32, w (cout, cin) f32, bias (cout) f32. With part_s
-// non-null, also sum and sumsq (cout) f32 of float(y), through the
-// (ceil(rows/64), cout) f32 scratches part_s and part_ss.
+// of T, a, b (cin) f32, w (cout, cin) f32, bias (cout) f32; w16 a (cout,
+// cin) bf16 scratch in bf16 (null in f32). With part_s non-null, also sum
+// and sumsq (cout) f32 of float(y), through the (ceil(rows/64), cout) f32
+// scratches part_s and part_ss.
 extern "C" int pn2_fused_dense(const void* x, const void* a, const void* b,
-                               const void* w, const void* bias, void* y,
-                               void* part_s, void* part_ss, void* sum,
-                               void* sumsq, long long rows, int cin, int cout,
-                               int itemsize, void* stream) {
+                               const void* w, void* w16, const void* bias,
+                               void* y, void* part_s, void* part_ss,
+                               void* sum, void* sumsq, long long rows,
+                               int cin, int cout, int itemsize,
+                               void* stream) {
   if (rows <= 0 || cout <= 0) return cudaSuccess;  // empty output
-  if (cin <= 0 || (rows + kBM - 1) / kBM > 0x7fffffffLL) {
+  const long long rblocks = (rows + kBM - 1) / kBM;
+  const long long tiles = (cout + kBN - 1) / kBN;
+  if (cin <= 0 || (itemsize != 4 && itemsize != 2) ||
+      (itemsize == 2 && w16 == nullptr) || tiles > 65535 ||
+      rblocks > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1002,21 +1324,16 @@ extern "C" int pn2_fused_dense(const void* x, const void* a, const void* b,
   const float* biasf = static_cast<const float*>(bias);
   float* ps = static_cast<float*>(part_s);
   float* pss = static_cast<float*>(part_ss);
-  cudaError_t err;
-  if (itemsize == 4) {
-    err = launch_dense<float>(x, af, bf, wf, biasf, y, ps, pss, rows, cin,
-                              cout, st);
-  } else if (itemsize == 2) {
-    err = launch_dense<__nv_bfloat16>(x, af, bf, wf, biasf, y, ps, pss, rows,
-                                      cin, cout, st);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+  cudaError_t err =
+      ps != nullptr
+          ? launch_dense<true>(x, af, bf, wf, w16, biasf, y, ps, pss, rows,
+                               cin, cout, itemsize, st)
+          : launch_dense<false>(x, af, bf, wf, w16, biasf, y, nullptr,
+                                nullptr, rows, cin, cout, itemsize, st);
   if (err != cudaSuccess || ps == nullptr) return err;
-  const long long blocks = (rows + kBM - 1) / kBM;
-  err = sum_rows(ps, static_cast<float*>(sum), blocks, cout, st);
+  err = sum_rows(ps, static_cast<float*>(sum), rblocks, cout, st);
   if (err != cudaSuccess) return err;
-  return sum_rows(pss, static_cast<float*>(sumsq), blocks, cout, st);
+  return sum_rows(pss, static_cast<float*>(sumsq), rblocks, cout, st);
 }
 
 // out (groups, c) = max over s of T(relu(y*a + b)), y (groups, s, c) of T

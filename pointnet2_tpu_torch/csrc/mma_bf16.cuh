@@ -12,9 +12,10 @@
 // both halves of a register share the column, so a per-column transform of
 // B (an affine, a ReLU) can be applied to the registers after ldmatrix.
 //
-// Used by csrc/fused_mlp.cu's bf16 dense backward (row 14): the g pass
-// takes A from a [m][k] tile (load_a_mk), the dW pass from a [k][m] tile
-// (load_a_km); both take B from a [k][n] tile (load_b_kn).
+// Used by csrc/fused_mlp.cu's bf16 dense forward (row 10: A from a [m][k]
+// tile, load_a_mk; B from W's own [n][k] layout, load_b_nk) and backward
+// (row 14: the g pass takes A from a [m][k] tile, the dW pass from a [k][m]
+// tile, load_a_km; both take B from a [k][n] tile, load_b_kn).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -128,6 +129,25 @@ __device__ __forceinline__ void load_b_kn(uint32_t (&b)[4][2],
     uint32_t r[4];
     ldsm_x4_trans(r, s + (k0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + n0 +
                          16 * j + (l >> 4) * 8);
+    b[2 * j][0] = r[0];
+    b[2 * j][1] = r[1];
+    b[2 * j + 1][0] = r[2];
+    b[2 * j + 1][1] = r[3];
+  }
+}
+
+// the same fragments from a [n][k] tile (k contiguous): ldmatrix's rows
+// are columns n, and lane l's pair (n = gid, k = 2*tig, 2*tig + 1) is what
+// mma's "col" B operand wants, with no transpose
+__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4][2],
+                                          const __nv_bfloat16* s, int ld,
+                                          int n0, int k0) {
+  const int l = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    uint32_t r[4];
+    ldsm_x4(r, s + (n0 + 16 * j + (l & 7) + (l >> 4) * 8) * ld + k0 +
+                   ((l >> 3) & 1) * 8);
     b[2 * j][0] = r[0];
     b[2 * j][1] = r[1];
     b[2 * j + 1][0] = r[2];

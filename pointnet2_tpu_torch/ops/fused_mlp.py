@@ -187,6 +187,14 @@ def first_bwd_plain(x2d: torch.Tensor, g: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+# the kernels' fixed partition (csrc/fused_mlp.cu kItems, kBM, kSlab):
+# items (pooled groups or rows) a block of the elementwise passes, rows a
+# partial of the statistics and of T1/T2 (the dense passes' 64-row blocks),
+# rows a slab of the dW product. Each depends on the shape only, so the
+# cross-block sums are reproducible.
+_ITEMS, _ROWS, _SLAB = 64, 64, 1024
+
+
 def _check_affine(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                   what: str) -> None:
     """x of the activation type, a and b its (C,) f32 affine, one card."""
@@ -201,13 +209,15 @@ def _check_affine(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"{what} needs at least one channel")
 
 
-def launch_fused_dense(x2d, a, b, w, bias, y, part=None, sums=None) -> None:
+def launch_fused_dense(x2d, a, b, w, bias, y, w16=None, part=None,
+                       sums=None) -> None:
     """Launch pn2_fused_dense on checked, preallocated buffers (no launch
-    count: :func:`fused_dense_kernel` counts). ``part`` (2, row blocks,
+    count: :func:`fused_dense_kernel` counts). ``w16`` (Cout, Cin) bf16
+    scratch for W rounded (bf16 only, else None); ``part`` (2, row blocks,
     Cout) and ``sums`` (2, Cout) f32 for the statistics, or None."""
     R, Cin = x2d.shape
     fn = _build.bind("fused_mlp", "pn2_fused_dense",
-                     [ctypes.c_void_p] * 10
+                     [ctypes.c_void_p] * 11
                      + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, ctypes.c_void_p])
     ptrs = ((None,) * 4 if part is None else
@@ -215,9 +225,18 @@ def launch_fused_dense(x2d, a, b, w, bias, y, part=None, sums=None) -> None:
              sums[1].data_ptr()))
     with torch.cuda.device(x2d.device):
         err = fn(x2d.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
-                 bias.data_ptr(), y.data_ptr(), *ptrs, R, Cin, w.shape[0],
-                 x2d.element_size(), _stream(x2d))
+                 None if w16 is None else w16.data_ptr(), bias.data_ptr(),
+                 y.data_ptr(), *ptrs, R, Cin, w.shape[0], x2d.element_size(),
+                 _stream(x2d))
     _build.check("fused_mlp", err, "fused_dense launch")
+
+
+def dense_w16(x2d: torch.Tensor, w: torch.Tensor):
+    """The (Cout, Cin) bf16 scratch a bf16 dense pass rounds W into, or
+    None for f32."""
+    if x2d.dtype != torch.bfloat16:
+        return None
+    return torch.empty(w.shape, dtype=torch.bfloat16, device=x2d.device)
 
 
 def fused_dense_kernel(x2d: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -225,7 +244,8 @@ def fused_dense_kernel(x2d: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                        want_stats: bool = False):
     """CUDA dense pass (csrc/fused_mlp.cu): contiguous x2d (R, Cin) f32 or
     bf16, a, b (Cin) f32, w (Cout, Cin) f32, bias (Cout) f32, on one card ->
-    as :func:`dense_fwd_plain`. Any R >= 0; Cin, Cout >= 1."""
+    as :func:`dense_fwd_plain` (bf16: the product on the tensor cores, f32:
+    on the CUDA cores, no TF32). Any R >= 0; Cin, Cout >= 1."""
     _check_affine(x2d, a, b, "x2d")
     if x2d.dim() != 2:
         raise ValueError(f"x2d must be (R, Cin), got {tuple(x2d.shape)}")
@@ -242,11 +262,12 @@ def fused_dense_kernel(x2d: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     y = torch.empty((R, Cout), dtype=x2d.dtype, device=dev)
     part = sums = None
     if want_stats:
-        part = torch.empty((2, -(-R // 64), Cout), dtype=torch.float32,
+        part = torch.empty((2, -(-R // _ROWS), Cout), dtype=torch.float32,
                            device=dev)
         sums = torch.zeros((2, Cout), dtype=torch.float32, device=dev)
     if R > 0:
-        launch_fused_dense(x2d, a, b, w, bias, y, part, sums)
+        launch_fused_dense(x2d, a, b, w, bias, y, dense_w16(x2d, w), part,
+                           sums)
         fused_dense_kernel.launches += 1
     return (y, None, None) if sums is None else (y, sums[0], sums[1])
 
@@ -317,12 +338,6 @@ def fused_affine_kernel(y2d: torch.Tensor, a: torch.Tensor,
 
 
 fused_affine_kernel.launches = 0
-
-# the backward kernels' fixed partition (csrc/fused_mlp.cu kItems, kBM,
-# kSlab): items (pooled groups or rows) a block of the elementwise passes,
-# rows a block of the g_{k-1} product, rows a slab of the dW product. Each
-# depends on the shape only, so the cross-block sums are reproducible.
-_ITEMS, _ROWS, _SLAB = 64, 64, 1024
 
 
 def _check_pack(p: torch.Tensor, C: int, dev, name: str = "p") -> None:

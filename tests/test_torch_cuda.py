@@ -13,7 +13,7 @@ import torch
 
 from chip_smoke import (BWD, LAYER_LIMITS, Checks, chain_terms,
                         check_tensor_cores, fixed_step, fused_layer_errs,
-                        g_ok, scatter_same, sum_ok)
+                        g_ok, scatter_same, sum_ok, y_ok)
 from pointnet2_tpu_torch import Predictor, config
 from pointnet2_tpu_torch import ops
 
@@ -38,14 +38,37 @@ def _plain(fn, *args):
 
 
 @pytest.mark.parametrize("B,N,npoint", [(2, 1024, 512), (3, 100, 17),
-                                        (1, 40, 64), (2, 5000, 64)])
+                                        (1, 40, 64), (2, 5000, 64),
+                                        (2, 8192, 1024), (2, 4096, 64),
+                                        (1, 16384, 100)])
 def test_fps_kernel_bit_identical(dev, rs, B, N, npoint):
+    """(2, 8192, 1024) is sem_seg SA1's shape at B=2; at N=4096 the cloud
+    alone fills the 48 KB of shared memory a block has without the
+    opt-in, and the partials beside it need the opt-in."""
     xyz = torch.from_numpy(rs.rand(B, N, 3).astype(np.float32)).to(dev)
     before = ops.fps_kernel.launches
     got = ops.farthest_point_sample(xyz, npoint)
     assert ops.fps_kernel.launches == before + 1
     torch.testing.assert_close(got, _plain(ops.farthest_point_sample, xyz,
                                            npoint), rtol=0, atol=0)
+
+
+def test_fps_kernel_repeated_points(dev):
+    """Every distance is 0 after the seed: each step picks index 0, the
+    lowest of the tied points, over the (bits 0, INT_MAX) sentinel of the
+    threads without a point; two distinct points repeated: the other one,
+    then 0."""
+    same = torch.full((2, 1000, 3), 0.25, device=dev)
+    got = ops.farthest_point_sample(same, 50)
+    torch.testing.assert_close(got, _plain(ops.farthest_point_sample, same,
+                                           50), rtol=0, atol=0)
+    assert not bool(got.any())
+    two = torch.zeros((1, 600, 3), device=dev)
+    two[0, 1::2] = 1.0
+    got = ops.farthest_point_sample(two, 6)
+    torch.testing.assert_close(got, _plain(ops.farthest_point_sample, two, 6),
+                               rtol=0, atol=0)
+    assert got.tolist() == [[0, 1, 0, 0, 0, 0]]
 
 
 def test_fps_kernel_ties(dev):
@@ -516,11 +539,6 @@ def test_unfused_msg_layer_launches_grouped_xyz_kernel(dev, rs):
 # --- the fused SA chain (csrc/fused_mlp.cu) ---------------------------------
 
 
-def _bf16_ulp(x):
-    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
-    return torch.exp2(e - 7)
-
-
 def _dense_inputs(rs, dev, R, cin, cout, dtype):
     def t(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
@@ -532,11 +550,19 @@ def _dense_inputs(rs, dev, R, cin, cout, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("R,cin,cout", [(2 * 512 * 32, 64, 128),
-                                        (1000, 196, 40), (77, 3, 3)])
+                                        (1000, 196, 40), (77, 3, 3),
+                                        (2 * 512 * 128, 96, 128),
+                                        (333, 24, 131)])
 def test_fused_dense_kernel_matches_plain(dev, rs, dtype, R, cin, cout):
-    """y: f32 within 1e-5 of max|y| (summation order), bf16 within one bf16
-    ulp; the column statistics against the exact sums of the same rounded
-    y (`sum_ok`), and bit for bit across two launches."""
+    """y: f32 within 1e-5 of max|y| of plain (summation order), bf16 within
+    one bf16 ulp of the exact product of its rounded operands plus the f32
+    accumulation bound (`chip_smoke.y_ok`); the column statistics against
+    the exact sums of the same rounded y (`sum_ok`), and bit for bit across
+    two launches. cls_msg's fused denses take Cin 32, 64, 96 and 128:
+    (2*512*128, 96, 128) is SA1's third scale at B=2, whose Cin ends half
+    way through a 32-deep chunk; Cin 196, 24 and 3 are no multiple of 16
+    (k past Cin stages as z = 0 and W = 0), Cout 131 and 3 no multiple of
+    the 64-column tile."""
     from pointnet2_tpu_torch.ops import fused_mlp
 
     args = _dense_inputs(rs, dev, R, cin, cout, dtype)
@@ -551,7 +577,7 @@ def test_fused_dense_kernel_matches_plain(dev, rs, dtype, R, cin, cout):
     if dtype == torch.float32:
         assert float(d.max()) <= 1e-5 * float(wy.abs().max())
     else:
-        assert bool((d <= _bf16_ulp(wy.float())).all())
+        assert y_ok(torch, y, *args)
     assert sum_ok(s, y1.sum(0), y1.abs().sum(0))
     assert sum_ok(ss, y2.sum(0), y2.sum(0))
     assert torch.equal(s, s2) and torch.equal(ss, ss2)
