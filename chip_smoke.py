@@ -23,14 +23,16 @@ and the fused chain in train mode through ``Trainer.fit`` of
 Phases:
 
 1. build the kernels from ``pointnet2_tpu_torch/csrc/`` with nvcc, one
-   process per source, all at once; log ``ptxas -v`` of ``scatter.cu`` and
-   ``fused_mlp.cu``, and check in the built library's SASS that the bf16
-   dense pass's product and the bf16 dense backward's two run on the
-   tensor cores (HMMA) and the f32 ones do not;
+   process per source, all at once; log ``ptxas -v`` of ``ball_query.cu``,
+   ``scatter.cu`` and ``fused_mlp.cu``, and check in the built library's
+   SASS that the bf16 dense pass's product and the bf16 dense backward's
+   two run on the tensor cores (HMMA) and the f32 ones do not;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving path's shapes, B=16 and B=768 (12 votes x bucket 64): FPS and
-   ball-query outputs bit-identical, gathers bitwise equal; and FPS at
-   sem_seg SA1's shape (B=16, 8192 -> 1024), bit-identical;
+   ball-query outputs bit-identical, gathers bitwise equal; and FPS and
+   the ball query at sem_seg SA1's shape (B=16, 8192 -> 1024; r=0.1,
+   nsample 32, on the generated room's columns of phase 11),
+   bit-identical;
 3. serve batches of 1, 16, 64 and 100 in bf16 and f32 and a 12-vote call,
    with every launch counter set to 0 just before and read just after;
    compare the logits with the same requests forced to the plain versions
@@ -38,9 +40,10 @@ Phases:
 4. check ``predict_votes(num_votes=12)`` at B=16: finite, (16, 40), and
    the same for the same seed;
 5. time each kernel, its plain version and (for the gather) one PyTorch
-   call computing the same function, FPS also at sem_seg SA1's shape (µs
-   a selection step), the serving forward and the vote call, and break a
-   bf16 forward's device time down by kernel;
+   call computing the same function, FPS and the ball query also at
+   sem_seg SA1's shape (µs a selection step, µs a query), the serving
+   forward and the vote call, and break a bf16 forward's device time down
+   by kernel;
 6. hold the scatter-add kernel bit for bit against its plain version on
    CPU copies of the same inputs at the train path's shapes (the backward
    of the SA1 and SA2 gathers at B=16, f32 and bf16), at sem_seg SA1's
@@ -121,7 +124,10 @@ Phases:
     terms, g_{k-1} within 1e-5 of max|g| of plain (f32) or, in bf16,
     within one bf16 ulp of the exact product of its rounded operands plus
     the f32 accumulation bound (`g_ok`), the leading BN's dx bit for bit,
-    every kernel bitwise equal across two launches;
+    every kernel bitwise equal across two launches; and the top BN's
+    totals on inputs where only the first-occurrence argmax passes (tied z
+    over rows whose y differ, NaNs before and after a channel's max) at
+    cls_ssg SA2's top shape and a ragged one;
 20. one full-width cls_ssg train step with the gate on through the
     kernels, the plain versions and the unfused route, each f32 route
     against a float64 run of the same step (fixed dropout masks, no
@@ -437,6 +443,52 @@ def check_fps_seg(torch, dev, check: Checks, errs: dict) -> None:
           f"{FPS_SEG[2]} bit-identical")
 
 
+# sem_seg SA1's ball query, on the generated room's columns that phase 11
+# serves: (B, N) -> npoint queries, radius, nsample
+BQ_SEG = (16, 8192, 1024, 0.1, 32)
+
+
+def ball_query_seg_input(torch, dev, blocks: np.ndarray):
+    """sem_seg SA1's ball-query inputs: the first B blocks and their FPS
+    centres, through the kernels."""
+    from pointnet2_tpu_torch import ops
+
+    B, _, npoint, _, _ = BQ_SEG
+    xyz = torch.from_numpy(np.ascontiguousarray(blocks[:B, :, :3])).to(dev)
+    return xyz, ops.gather_rows_kernel(xyz, ops.fps_kernel(xyz, npoint))
+
+
+def check_ball_query_seg(torch, dev, blocks: np.ndarray, check: Checks,
+                         errs: dict) -> None:
+    """Phase 2 at sem_seg SA1's shape: the ball query bit-identical to its
+    plain version on the room's columns."""
+    from pointnet2_tpu_torch import ops
+    from pointnet2_tpu_torch.ops import grouping
+
+    _, _, _, r, ns = BQ_SEG
+    xyz, new_xyz = ball_query_seg_input(torch, dev, blocks)
+    idx, cnt = ops.ball_query_kernel(r, ns, xyz, new_xyz)
+    widx, wcnt = grouping.ball_query_plain(r, ns, xyz, new_xyz)
+    errs["ball_query"] = max(errs["ball_query"],
+                             int((idx - widx).abs().max()),
+                             int((cnt - wcnt).abs().max()))
+    check(torch.equal(idx, widx) and torch.equal(cnt, wcnt),
+          f"ball_query sem_seg SA1 {tuple(xyz.shape)} -> {BQ_SEG[2]} r={r} "
+          f"ns={ns} on the room's columns bit-identical (mean cnt "
+          f"{cnt.float().mean():.2f}, {float((cnt == ns).float().mean()):.1%}"
+          " of the balls full)")
+
+
+def ball_query_bound(xyz, new_xyz, idx, cnt, nsample: int) -> tuple:
+    """The least time for one launch: the points each query must scan (up
+    to its nsample-th hit, else all N) times 3 sub, 3 mul, 2 add and 1
+    compare, at the f32 rate without FMA; xyz read once, idx and cnt
+    written once."""
+    last = idx[..., -1].masked_fill(cnt != nsample, xyz.shape[1] - 1)
+    byts = (xyz.numel() + new_xyz.numel() + idx.numel() + cnt.numel()) * 4
+    return roofline(int((last.long() + 1).sum()) * 9, byts)
+
+
 def drive_main_path(torch, predictors: dict, clouds: np.ndarray) -> dict:
     """Phase 3's main-path run through the Predictor entry points; returns
     the logits by (dtype, batch) and the 12-vote sums."""
@@ -480,10 +532,11 @@ def fps_bound(B: int, n: int, npoint: int) -> tuple:
     return roofline(B * (npoint - 1) * n * 10, B * n * 3 * 4 + B * npoint * 4)
 
 
-def time_kernels(torch, dev, gpu: str, rows: dict) -> None:
+def time_kernels(torch, dev, gpu: str, rows: dict,
+                 blocks: np.ndarray) -> None:
     """Phase 5a: per-forward kernel, plain and library times at B=16 bf16,
     and the least time the card could take for the same work; and (logged)
-    FPS at sem_seg SA1's shape."""
+    FPS and the ball query at sem_seg SA1's shape."""
     from pointnet2_tpu_torch.ops import grouping, sampling
 
     B = 16
@@ -512,13 +565,10 @@ def time_kernels(torch, dev, gpu: str, rows: dict) -> None:
             r, xyz, new_xyz, idx, cnt), 50, prefill=True)
         plain = event_ms(torch, lambda: grouping.ball_query_plain(
             r, ns, xyz, new_xyz), 5)
-        # points each query must scan: up to its nsample-th hit, else all N
-        scanned = torch.where(lv["cnt"] == ns, lv["idx"][..., -1] + 1,
-                              torch.full_like(lv["cnt"], n))
-        ops_ = int(scanned.sum()) * 9  # 3 sub, 3 mul, 2 add, 1 compare
-        byts = (xyz.numel() + new_xyz.numel() + idx.numel() + cnt.numel()) * 4
         add("ball_query", f"N={n} M={npoint} ns={ns} r={r}", ms, plain,
-            roofline(ops_, byts))
+            ball_query_bound(xyz, new_xyz, lv["idx"], lv["cnt"], ns))
+        log(f"  ball_query latency per query: {ms * 1e3 / (B * npoint):.6f}"
+            " us")
 
         flat = lv["idx"].reshape(B, -1)
         for pts, ix in ((xyz, lv["fidx"]),
@@ -547,6 +597,33 @@ def time_kernels(torch, dev, gpu: str, rows: dict) -> None:
         f"({ms * 1e3 / (npoint - 1):.4f} us a selection step), plain "
         f"{plain:.6f} ms, bound {bound[0]:.6f} ms ({bound[1]}); logged, not "
         "in the table (a sem_seg forward's launch)")
+    time_ball_query_seg(torch, dev, blocks)
+
+
+def time_ball_query_seg(torch, dev, blocks: np.ndarray) -> float:
+    """Phase 5: the ball query at sem_seg SA1's shape on the room's columns,
+    logged (a sem_seg forward's launch, not in the table); returns the
+    kernel's ms a launch. It drives whichever ``pointnet2_tpu_torch`` is
+    imported, so it also times another checkout's kernel in the same
+    process (``make_room``/``room_blocks`` as ``main`` makes them)."""
+    from pointnet2_tpu_torch.ops import grouping
+
+    Bq, n, npoint, r, ns = BQ_SEG
+    xyz, new_xyz = ball_query_seg_input(torch, dev, blocks)
+    want_idx, want_cnt = grouping.ball_query_plain(r, ns, xyz, new_xyz)
+    idx, cnt = torch.empty_like(want_idx), torch.empty_like(want_cnt)
+    ms = event_ms(torch, lambda: grouping.launch_ball_query(
+        r, xyz, new_xyz, idx, cnt), 20, prefill=True)
+    plain = event_ms(torch, lambda: grouping.ball_query_plain(
+        r, ns, xyz, new_xyz), 2)
+    bound = ball_query_bound(xyz, new_xyz, want_idx, want_cnt, ns)
+    same = torch.equal(idx, want_idx) and torch.equal(cnt, want_cnt)
+    log(f"  ball_query sem_seg SA1 ({Bq},{n},3)->{npoint} r={r} ns={ns} on "
+        f"the room's columns: kernel {ms:.6f} ms "
+        f"({ms * 1e3 / (Bq * npoint):.6f} us a query), plain {plain:.6f} ms, "
+        f"bound {bound[0]:.6f} ms ({bound[1]}), bit-identical {same}; "
+        "logged, not in the table (a sem_seg forward's launch)")
+    return ms
 
 
 def kernel_table(rows: dict, launches: dict, errs: dict) -> list:
@@ -2097,6 +2174,33 @@ def sum_ok(got, exact, abs_sum, nonzero: bool = True) -> bool:
             and not (nonzero and bool((exact.abs() <= bound).all())))
 
 
+def first_occurrence_case(torch, G: int, S: int, C: int, dtype, seed: int,
+                          nan: bool = False):
+    """Row 13's inputs on which only the first-occurrence argmax over S
+    passes `sum_ok`: y (G, S, C), g (G, C) of dtype and the (7, C) f32 pack
+    p, on the CPU. With a = 2^-40, b = 1, z = T(relu(y*a + b)) is exactly 1
+    on the tied rows, where y is drawn from [1, 2) (about 30% of each
+    group's rows per channel, at least two), and 0 where y = -2^41, so the
+    tied rows' y differ; mu = 0 and r = 64 make picking any tied row but
+    the first move T2 by about 20|g|, where `sum_ok`'s bound is about
+    0.01|g| a group. With `nan`, the channels c % 4 == 0 hold one NaN a
+    group: at row 0 (before the group's first tied row) in even groups, at
+    row S-1 (after it) in odd ones; the NaN is the pick, its T2 NaN."""
+    rng = np.random.default_rng(seed)
+    tie = rng.random((G, S, C)) < 0.3
+    tie |= rng.random((G, S, C)).argsort(1) < 2
+    y = np.where(tie, rng.uniform(1.0, 2.0, (G, S, C)),
+                 -2.0 ** 41).astype(np.float32)
+    if nan:
+        y[0::2, 0, 0::4] = np.nan
+        y[1::2, S - 1, 0::4] = np.nan
+    g = rng.standard_normal((G, C)).astype(np.float32)
+    p = np.zeros((7, C), np.float32)
+    p[0], p[1], p[3], p[4] = 2.0 ** -40, 1.0, 64.0, 1.0
+    return (torch.from_numpy(y).to(dtype), torch.from_numpy(g).to(dtype),
+            torch.from_numpy(p))
+
+
 def g_ok(torch, gp, dyc, w) -> bool:
     """bf16 g_{k-1} = bf16(dyc @ bf16(W)), dyc (R, Ck), against the exact
     (float64) product of its rounded operands: each element within one
@@ -2310,7 +2414,40 @@ def check_fused_bwd_kernels(torch, dev, chains: list, check: Checks,
             w = torch.randn((ck, cp), generator=g, device=dev) / cp ** 0.5
             check_bwd_chain(torch, dev, g, "ragged", ys, stats, [w], S,
                             check, errs)
+    check_top_first(torch, dev, check)
     torch.cuda.synchronize()
+
+
+# row 13's first-occurrence checks: cls_ssg SA2's top layer and a ragged
+# shape (C not a multiple of the 16-byte vector)
+TOP_FIRST = ((2048, 64, 256), (333, 5, 131))
+
+
+def check_top_first(torch, dev, check: Checks) -> None:
+    """Phase 19: row 13 on `first_occurrence_case` inputs, where only the
+    first-occurrence argmax passes: T1/T2 within `sum_ok` of the exact sums
+    of the plain version's terms, NaN in the same channels."""
+    from pointnet2_tpu_torch.ops import fused_mlp as fm
+
+    with torch.no_grad():
+        for G, S, C in TOP_FIRST:
+            for dt in (torch.bfloat16, torch.float32):
+                for nan in (False, True):
+                    y, gg, p = (t.to(dev) for t in first_occurrence_case(
+                        torch, G, S, C, dt, SEED + 19, nan))
+                    t1, t2 = fm.fused_top_stats_kernel(y, gg, p, True)
+                    (w1, w2), (a1, a2) = chain_terms(torch, y, gg, p, True)
+                    same_nan = (torch.equal(t1.isnan(), w1.isnan())
+                                and torch.equal(t2.isnan(), w2.isnan()))
+                    fin = ~w2.isnan()
+                    ok = sum_ok(t1, w1, a1) and sum_ok(t2[fin], w2[fin],
+                                                       a2[fin])
+                    check(ok and same_nan,
+                          f"fused_top_stats first occurrence {(G, S, C)} "
+                          f"{str(dt)[6:]}{' with NaNs' if nan else ''}: "
+                          f"T1/T2 within {SUM_RTOL} of sum|terms| of the "
+                          f"exact sums {ok}, NaN in the same channels "
+                          f"{same_nan} ({int((~fin).sum())} NaN channels)")
 
 
 def fixed_step(torch, dev, batch: dict, dtype, impl: str, fused: bool,
@@ -2609,8 +2746,7 @@ def time_fused_bwd_kernels(torch, dev, gpu: str, chains: list,
                 gcur = torch.randn((R // ns, y_top.shape[-1]), generator=g,
                                    device=dev).to(dt)
                 C = y_top.shape[-1]
-                part = torch.empty((2, -(-(R // ns) // 64), C),
-                                   device=dev)
+                part = fm.top_stats_part(R // ns, C, dev)
                 sums = torch.zeros((2, C), device=dev)
                 ms = event_ms(torch, lambda: fm.launch_fused_top_stats(
                     y_top, gcur, packs[D], part, sums, ns), 50, prefill=True)
@@ -2786,7 +2922,7 @@ def main() -> int:
     _build.build_all()
     log(f"  built {len(_build.SOURCES)} sources ({', '.join(_build.SOURCES)})"
         f" in {time.perf_counter() - t0:.2f} s into {_build.BUILD_DIR.name}/")
-    for src in ("scatter", "fused_mlp"):
+    for src in ("ball_query", "scatter", "fused_mlp"):
         log(f"  ptxas -v of csrc/{src}.cu (registers, shared memory, "
             "spills):")
         for line in _build.ptxas_report(src):
@@ -2798,9 +2934,16 @@ def main() -> int:
             "three_nn": 0, "fused_dense": 0.0, "fused_pool": 0.0,
             "fused_affine": 0.0, "fused_top_stats": 0.0,
             "fused_dense_bwd": 0.0, "fused_first_bwd": 0.0}
+    t0 = time.perf_counter()
+    room = make_room(100_000, SEED + 10)
+    blocks = room_blocks(room, 100, SEED + 11)
+    parts = make_clouds(64, PART_N, SEED + 12, normals=True)
+    log(f"  generated a room of {len(room)} points, 100 blocks of {SEM_N} "
+        f"and 64 part clouds of {PART_N} in {time.perf_counter() - t0:.2f} s")
     for B in (16, 768):
         check_kernels(torch, dev, B, check, errs)
     check_fps_seg(torch, dev, check, errs)
+    check_ball_query_seg(torch, dev, blocks, check, errs)
 
     log("phase 3: serve pointnet2_cls_ssg at N=1024 through the kernels")
     sd = random_state_dict(torch, SEED)
@@ -2882,7 +3025,7 @@ def main() -> int:
     rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                 "library_ms": None, "by": {"bytes": 0.0, "operations": 0.0}}
             for k in REPLACES}
-    time_kernels(torch, dev, gpu, rows)
+    time_kernels(torch, dev, gpu, rows, blocks)
     log(f"phase 5: serving times (host clock, numpy in and out) on {gpu}")
     for name in ("bf16", "f32"):
         pred = predictors[name]
@@ -2912,12 +3055,6 @@ def main() -> int:
     time_train(torch, dev, gpu, log_dir)
     time_scatter(torch, dev, gpu, rows)
 
-    t0 = time.perf_counter()
-    room = make_room(100_000, SEED + 10)
-    blocks = room_blocks(room, 100, SEED + 11)
-    parts = make_clouds(64, PART_N, SEED + 12, normals=True)
-    log(f"  generated a room of {len(room)} points, 100 blocks of {SEM_N} "
-        f"and 64 part clouds of {PART_N} in {time.perf_counter() - t0:.2f} s")
     shapes = fp_shapes(torch, dev, blocks[:16], parts[:16])
     check_three_nn(torch, shapes, check, errs)
     log("phase 11: serve pointnet2_sem_seg (N=8192) and pointnet2_part_seg "

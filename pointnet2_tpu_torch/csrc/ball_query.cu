@@ -12,14 +12,33 @@
 // copy (the TPU kernel's masked sum turns a -0.0 coordinate into +0.0).
 //
 // Bound on this card: the distance work the data needs (each query stops at
-// its nsample-th hit) and the latency of the scan, not bytes: a cloud's
-// points are read from L1/L2 by every query of that cloud. The TPU kernel
-// ranks hits with an MXU cumsum over a whole (queries, N) tile; here one
-// warp owns one query and walks the dataset 32 points at a time, in order:
-// __ballot_sync gives the chunk's hit mask, __popc of the lanes below a hit
-// gives its slot, and the walk ends as soon as nsample hits are found. The
-// lane that owns a hit already holds its coordinates, so grouped xyz costs
-// one store of 12 bytes a slot and no second gather.
+// its nsample-th hit) and the latency of the scan, not bytes; at the
+// classifiers' sizes a launch is a few microseconds of staging and of each
+// warp's chain of ballots. More queries a block, more points a lane, larger
+// tiles or fewer registers measured no faster.
+// The TPU kernel ranks hits with an MXU cumsum over a whole (queries, N)
+// tile. Here one warp owns one query and walks the dataset in scan order:
+// __ballot_sync gives a 32-point chunk's hit mask, __popc of the lanes
+// below a hit gives its slot, and the walk ends as soon as nsample hits
+// are found.
+//
+// ball_query_kernel (row 2): a block serves kQueryWarps queries of one
+// cloud and stages that cloud into shared memory by cp.async, in tiles of
+// kTile points, two buffers, so the next tile is in flight while the warps
+// walk this one; between tiles __syncthreads_or ends the walk for the
+// whole block once every query holds nsample hits. A cloud at most one
+// tile long (the classifiers' 1024 and 512 points) is staged once. Each
+// lane takes kLanePts points an iteration and computes all their
+// distances before the chunks' ballots run in scan order, so a warp has
+// several shared-memory loads and distance chains in flight instead of one
+// L1/L2 latency an iteration; a tile's last iteration is padded with +inf
+// points, so the walk has no bounds check. Rows 3 and 4
+// (ball_query_group_xyz_kernel, ball_query_multi_kernel) keep the warp
+// that reads its points from L1/L2 one chunk at a time; they could take
+// this design too.
+//
+// The lane that owns a hit already holds its coordinates, so grouped xyz
+// costs one store of 12 bytes a slot and no second gather.
 //
 // The multi-radius kernel walks the dataset once for up to kMaxRadii radii:
 // one squared distance a point, one ballot per radius that is not full yet,
@@ -28,13 +47,16 @@
 
 #include "common.cuh"
 
+#include <cmath>
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kMaxRadii = 8;
 
-// One warp per query; the two kernels below are its two instances, named
-// apart so that a profiler's trace tells them apart.
+// One warp per query, reading its points from L1/L2;
+// ball_query_group_xyz_kernel below is its one instance (kWithXyz), and
+// row 2's ball_query_kernel stages the cloud in shared memory instead.
 template <bool kWithXyz>
 __device__ __forceinline__ void ball_query_warp(
     const float* __restrict__ xyz1, const float* __restrict__ xyz2,
@@ -95,13 +117,123 @@ __device__ __forceinline__ void ball_query_warp(
   if (lane == 0) cnt[q] = c;
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+constexpr int kQueryWarps = 8;  // queries a block of ball_query_kernel
+constexpr int kTile = 1024;     // points a staged tile
+constexpr int kLanePts = 4;     // points a lane an iteration
+static_assert(kTile % (32 * kLanePts) == 0,
+              "a tile is whole iterations: its padding stays inside");
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// copy the np points of one tile (np * 3 floats) into shared memory as one
+// cp.async group, 16 bytes a copy when `wide` (src 16-byte aligned, np % 4
+// == 0), and fill the rest of the tile's last iteration with +inf
+// coordinates, whose squared distance (+inf) is never under r2: the walk
+// needs no bounds check
+__device__ __forceinline__ void stage_tile(float* dst, const float* src,
+                                           int np, bool wide) {
+  const int nf = np * 3;
+  if (wide) {
+    for (int i = 4 * threadIdx.x; i < nf; i += 4 * blockDim.x) {
+      cp_async16(dst + i, src + i);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nf; i += blockDim.x) {
+      cp_async4(dst + i, src + i);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  constexpr int kStep = 32 * kLanePts;
+  const int end = (np + kStep - 1) / kStep * kStep * 3;
+  for (int i = nf + threadIdx.x; i < end; i += blockDim.x) dst[i] = INFINITY;
+}
+
+// Row 2. blockIdx.x = cloud * qtiles + query tile; warp w of the block owns
+// query tile * kQueryWarps + w of the cloud, if there is one (a warp
+// without a query still stages and syncs).
+__global__ void __launch_bounds__(kQueryWarps * 32)
     ball_query_kernel(const float* __restrict__ xyz1,
                       const float* __restrict__ xyz2, int* __restrict__ idx,
-                      int* __restrict__ cnt, long long queries, int n, int m,
-                      int nsample, float r2) {
-  ball_query_warp<false>(xyz1, xyz2, idx, cnt, nullptr, queries, n, m,
-                         nsample, r2);
+                      int* __restrict__ cnt, int n, int m, int nsample,
+                      float r2, int qtiles, int wide) {
+  __shared__ __align__(16) float tile[2][kTile * 3];
+  const int lane = threadIdx.x & 31;
+  const long long b = blockIdx.x / qtiles;
+  const int qi = static_cast<int>(blockIdx.x - b * qtiles) * kQueryWarps +
+                 (threadIdx.x >> 5);
+  const bool live = qi < m;
+  const long long q = b * m + qi;
+  const float* data = xyz1 + b * n * 3;
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (live) {
+    qx = xyz2[q * 3];
+    qy = xyz2[q * 3 + 1];
+    qz = xyz2[q * 3 + 2];
+  }
+  int* out = idx + q * nsample;
+  const unsigned below = (1u << lane) - 1u;  // lanes ahead of this one
+
+  int found = 0;  // warp-uniform: built from ballots only
+  int first = 0;
+  const int tiles = (n + kTile - 1) / kTile;
+  stage_tile(tile[0], data, min(n, kTile), wide);
+  for (int t = 0; t < tiles; ++t) {
+    const int t0 = t * kTile;
+    if (t + 1 < tiles) {
+      stage_tile(tile[(t + 1) & 1], data + (t0 + kTile) * 3LL,
+                 min(n - t0 - kTile, kTile), wide);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();  // tile t is in place for every warp
+    const float* pts = tile[t & 1];
+    const int np = min(n - t0, kTile);
+    if (live) {
+      for (int base = 0; base < np && found < nsample;
+           base += 32 * kLanePts) {
+        float d2[kLanePts];
+#pragma unroll
+        for (int j = 0; j < kLanePts; ++j) {
+          const int k = base + 32 * j + lane;
+          d2[j] = sq_dist(qx, qy, qz, pts[3 * k], pts[3 * k + 1],
+                          pts[3 * k + 2]);
+        }
+#pragma unroll
+        for (int j = 0; j < kLanePts; ++j) {
+          const bool hit = d2[j] < r2;  // a padded point: +inf
+          const unsigned mask = __ballot_sync(0xffffffffu, hit);
+          if (mask != 0u) {  // most chunks of a small ball have no hit
+            if (found == 0) first = t0 + base + 32 * j + __ffs(mask) - 1;
+            const int slot = found + __popc(mask & below);
+            if (hit && slot < nsample) out[slot] = t0 + base + 32 * j + lane;
+            found += __popc(mask);
+          }
+        }
+      }
+    }
+    // every warp is done with tile t (its buffer is refilled next) and the
+    // walk goes on only while some query lacks nsample hits
+    if (!__syncthreads_or(live && found < nsample)) break;
+  }
+  // a walk that ended early leaves the next tile's copy in flight
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  if (!live) return;
+  const int c = min(found, nsample);
+  for (int s = c + lane; s < nsample; s += 32) out[s] = first;
+  if (lane == 0) cnt[q] = c;
 }
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -197,15 +329,18 @@ long long query_blocks(int b, int n, int m, int* err) {
 extern "C" int pn2_ball_query(const void* xyz1, const void* xyz2, void* idx,
                               void* cnt, int b, int n, int m, int nsample,
                               float r2, void* stream) {
-  if (nsample <= 0) return cudaSuccess;
-  int err;
-  const long long blocks = query_blocks(b, n, m, &err);
-  if (err != cudaSuccess || blocks == 0) return err;
-  ball_query_kernel<<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0,
+  if (nsample <= 0 || b <= 0 || m <= 0) return cudaSuccess;
+  // a block a (cloud, tile of kQueryWarps queries)
+  const long long qtiles = (m + kQueryWarps - 1) / kQueryWarps;
+  const long long blocks = static_cast<long long>(b) * qtiles;
+  if (n <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // 16-byte copies when every cloud and tile starts on a 16-byte boundary
+  const int wide = reinterpret_cast<uintptr_t>(xyz1) % 16 == 0 && n % 4 == 0;
+  ball_query_kernel<<<static_cast<unsigned>(blocks), kQueryWarps * 32, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xyz1), static_cast<const float*>(xyz2),
-      static_cast<int*>(idx), static_cast<int*>(cnt),
-      static_cast<long long>(b) * m, n, m, nsample, r2);
+      static_cast<int*>(idx), static_cast<int*>(cnt), n, m, nsample, r2,
+      static_cast<int>(qtiles), wide);
   return cudaGetLastError();
 }
 

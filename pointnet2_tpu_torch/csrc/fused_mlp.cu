@@ -48,6 +48,20 @@
 // Bound on this card. fused_pool, fused_affine, fused_top_stats and
 // fused_first_bwd are bound by bytes: each input element is read once and
 // each output written once, neighbouring threads on neighbouring channels.
+// fused_top_stats reads each group's s x c block once, and nears the byte
+// rate only with many wide loads in flight: a thread owns 16 bytes of
+// channels, loads kTopChunk rows before comparing any, keeps the y value
+// at each channel's running argmax (the argmax row is never read again),
+// and the lanes that took other rows of the same channels combine by
+// shuffles in the sequential scan's own order; one warp an item, 8 items
+// a block, so cls_ssg's top layers (8192 x 32 x 128, 2048 x 64 x 256 at
+// B=16) give 1024 and 256 blocks of 256 threads. In bf16 an element costs
+// about a dozen instructions (unpack, affine, ReLU, rounding, key, compare,
+// three selects) against 2 bytes, so instruction throughput, not bytes,
+// sets its pace near half the byte rate; f32 reads twice the bytes for
+// the same work.
+// Fewer registers (spills), more lanes across rows, or longer or shorter
+// row chunks measured slower.
 // fused_dense and fused_dense_bwd move few bytes for their work (bf16
 // cls_ssg SA1 64 -> 128 at B=16: 101 MB forward, 30 us at 3.35 TB/s) and
 // their bound is bytes against the tensor cores' rate.
@@ -423,33 +437,175 @@ __device__ __forceinline__ void write_lane_partials(float v1, float v2,
 
 // Row 13: T1 = sum dout, T2 = sum dout*yhat of the top BN. An item is a
 // pooled group of s rows (its cotangent g[item] goes to the argmax row) or,
-// with s = 1, one row; y (items, s, c), g (items, c). One thread a (item,
-// channel), channels across a warp; partials per block of kItems items.
+// with s = 1, one row; y (items, s, c), g (items, c).
+//
+// One warp an item, kTopWarps items a block. A thread owns kTopVec<T>
+// consecutive channels (16 bytes: 8 bf16 or 4 f32); tx lanes of the warp
+// span the block's channel tile and the warp's other 32/tx lanes (ty) take
+// the item's rows ty, ty + 32/tx, ... A lane loads kTopChunk rows before it
+// compares any (its g piece is in flight meanwhile), keeps for each channel
+// the running max of z, its row and the y value at that row (no reread of
+// the argmax row), and the lanes of one channel vector then combine by xor
+// shuffles in the sequential scan's own order, so the pick is
+// first_argmax's bit for bit. kVec: rows and g start on 16-byte boundaries
+// (c a multiple of kTopVec<T>, aligned bases) and load as one 16-byte
+// piece; else element by element, masked at c. The warps' per-channel
+// terms go to row blockIdx.x of part1/part2 in ascending warp order;
+// sum_rows_kernel adds the rows.
+constexpr int kTopWarps = 8;  // items a block, one a warp
+constexpr int kTopChunk = 8;  // rows a lane loads before comparing
+constexpr int kTopTx = 32;    // lanes across channels at most
+constexpr int kTopCols = 256;  // channels a block at most
+static_assert(kTopWarps * 32 >= kTopCols,
+              "a thread a channel adds the warps' terms");
+
 template <typename T>
-__global__ void __launch_bounds__(kIx* kIy)
+constexpr int kTopVec = 16 / static_cast<int>(sizeof(T));
+
+// element e of a 16-byte piece of T, as f32 (exact for bf16)
+template <typename T>
+__device__ __forceinline__ float piece_at(const uint4& u, int e) {
+  const unsigned w = (&u.x)[sizeof(T) == 2 ? e >> 1 : e];
+  if constexpr (sizeof(T) == 2) {
+    return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+  } else {
+    return __uint_as_float(w);
+  }
+}
+
+// the 16 bytes at p: one load with kVec, else the first `valid` elements
+// one by one (the rest 0)
+template <typename T, bool kVec>
+__device__ __forceinline__ uint4 load_piece(const T* p, int valid) {
+  if constexpr (kVec) {
+    return *reinterpret_cast<const uint4*>(p);
+  } else {
+    using Bits = std::conditional_t<sizeof(T) == 2, unsigned short, unsigned>;
+    const Bits* b = reinterpret_cast<const Bits*>(p);
+    unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int e = 0; e < kTopVec<T>; ++e) {
+      if (e < valid) {
+        const unsigned v = b[e];
+        if constexpr (sizeof(T) == 2) {
+          w[e >> 1] |= (e & 1) ? v << 16 : v;
+        } else {
+          w[e] = v;
+        }
+      }
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// z's place in first_argmax's order, as an int: z = T(relu(y*a + b)) is
+// -0.0, +0.0, a positive number, +inf or a NaN, and the card's arithmetic
+// (and its rounding to bf16) gives the canonical NaN, so |bits| orders z
+// as the scan compares it: -0.0 == +0.0, a NaN above +inf, NaNs equal.
+// -1 stands for no row yet.
+__device__ __forceinline__ int z_key(float z) {
+  return __float_as_int(z) & 0x7fffffff;
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kTopWarps * 32)
     fused_top_stats_kernel(const T* __restrict__ y, const T* __restrict__ g,
                            const float* __restrict__ p,
                            float* __restrict__ part1,
                            float* __restrict__ part2, long long items, int s,
-                           int c) {
-  const int ch = blockIdx.y * kIx + threadIdx.x;
-  float t1 = 0.0f, t2 = 0.0f;
-  if (ch < c) {
-    const float a = p[ch], b = p[c + ch], mu = p[2 * c + ch];
-    const float r = p[3 * c + ch];
-    for (int q = 0; q < kItems / kIy; ++q) {
-      const long long it = static_cast<long long>(blockIdx.x) * kItems +
-                           threadIdx.y + kIy * q;
-      if (it >= items) break;
-      const T* py = y + it * s * c + ch;
-      const int am = first_argmax<T>(py, s, c, a, b);
-      const float v = to_f32(py[static_cast<long long>(am) * c]);
-      const float dout = relu_gate(to_f32(g[it * c + ch]), bn_out(v, a, b));
-      t1 = __fadd_rn(t1, dout);
-      t2 = __fadd_rn(t2, __fmul_rn(dout, bn_hat(v, mu, r)));
+                           int c, int tx_lanes) {
+  constexpr int V = kTopVec<T>;
+  __shared__ float r1[kTopWarps][kTopCols], r2[kTopWarps][kTopCols];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tx = lane % tx_lanes, ty = lane / tx_lanes;
+  const int ty_lanes = 32 / tx_lanes;
+  const int col = (blockIdx.y * tx_lanes + tx) * V;  // first channel
+  const int valid = min(V, c - col);  // channels of this lane, <= 0: none
+  const long long it = static_cast<long long>(blockIdx.x) * kTopWarps + warp;
+  const bool live = it < items && valid > 0;
+  uint4 gp = make_uint4(0u, 0u, 0u, 0u);
+  if (live && ty == 0) gp = load_piece<T, kVec>(g + it * c + col, valid);
+  float a[V], b[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    a[e] = e < valid ? p[col + e] : 0.0f;
+    b[e] = e < valid ? p[c + col + e] : 0.0f;
+  }
+  int mk[V], am[V];  // the running max's key and row
+  float yv[V];       // y at that row
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    mk[e] = -1;
+    am[e] = 0x7fffffff;
+    yv[e] = 0.0f;
+  }
+  const T* py = y + it * s * c + col;
+  const int nr = live && ty < s ? (s - ty + ty_lanes - 1) / ty_lanes : 0;
+  for (int i0 = 0; i0 < nr; i0 += kTopChunk) {
+    uint4 raw[kTopChunk];
+#pragma unroll
+    for (int j = 0; j < kTopChunk; ++j) {
+      const long long row = ty + static_cast<long long>(i0 + j) * ty_lanes;
+      raw[j] = i0 + j < nr ? load_piece<T, kVec>(py + row * c, valid)
+                           : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int j = 0; j < kTopChunk; ++j) {
+      if (i0 + j >= nr) break;
+      const int row = ty + (i0 + j) * ty_lanes;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float v = piece_at<T>(raw[j], e);
+        const int key = z_key(round_to<T>(affine_relu(v, a[e], b[e])));
+        if (key > mk[e]) {  // rows ascend: the first of equal keys stays
+          mk[e] = key;
+          am[e] = row;
+          yv[e] = v;
+        }
+      }
     }
   }
-  write_lane_partials(t1, t2, ch, c, part1, part2);
+  // the lanes of one channel vector: every one ends with the winner, the
+  // larger key or, of equal keys, the lower row
+  for (int off = tx_lanes; off < 32; off <<= 1) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const int ko = __shfl_xor_sync(0xffffffffu, mk[e], off);
+      const int ro = __shfl_xor_sync(0xffffffffu, am[e], off);
+      const float vo = __shfl_xor_sync(0xffffffffu, yv[e], off);
+      if (ko > mk[e] || (ko == mk[e] && ro < am[e])) {
+        mk[e] = ko;
+        am[e] = ro;
+        yv[e] = vo;
+      }
+    }
+  }
+  if (ty == 0) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      float t1 = 0.0f, t2 = 0.0f;
+      if (live && e < valid) {
+        const float mu = p[2 * c + col + e], r = p[3 * c + col + e];
+        t1 = relu_gate(piece_at<T>(gp, e), bn_out(yv[e], a[e], b[e]));
+        t2 = __fmul_rn(t1, bn_hat(yv[e], mu, r));
+      }
+      r1[warp][tx * V + e] = t1;
+      r2[warp][tx * V + e] = t2;
+    }
+  }
+  __syncthreads();
+  const int k = threadIdx.x;  // one channel of the block's tile a thread
+  const int ch = blockIdx.y * tx_lanes * V + k;
+  if (k < tx_lanes * V && ch < c) {
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int w = 0; w < kTopWarps; ++w) {
+      s1 = __fadd_rn(s1, r1[w][k]);
+      s2 = __fadd_rn(s2, r2[w][k]);
+    }
+    const long long at = static_cast<long long>(blockIdx.x) * c + ch;
+    part1[at] = s1;
+    part2[at] = s2;
+  }
 }
 
 // Row 14, pass 1: dy of dense k's BN_k for every row, rounded to T into
@@ -1389,16 +1545,34 @@ unsigned item_blocks(long long items) {
   return static_cast<unsigned>((items + kItems - 1) / kItems);
 }
 
+// Row 13's grid: item blocks of kTopWarps by channel tiles of tx lanes
+// (the channel vectors rounded up to a power of two, at most kTopTx) of
+// kTopVec<T> channels; kVec where every row of y and g starts on a
+// 16-byte boundary.
 template <typename T>
 cudaError_t launch_top_stats(const void* y, const void* g, const float* p,
                              float* part, float* sums, long long items, int s,
                              int c, cudaStream_t st) {
-  const unsigned blocks = item_blocks(items);
-  const dim3 grid(blocks, (c + kIx - 1) / kIx);
+  constexpr int V = kTopVec<T>;
+  const int vecs = (c + V - 1) / V;
+  int tx = 1;
+  while (tx < vecs && tx < kTopTx) tx <<= 1;
+  const unsigned blocks =
+      static_cast<unsigned>((items + kTopWarps - 1) / kTopWarps);
+  const dim3 grid(blocks, (vecs + tx - 1) / tx);
   float* part2 = part + static_cast<long long>(blocks) * c;
-  fused_top_stats_kernel<T><<<grid, dim3(kIx, kIy), 0, st>>>(
-      static_cast<const T*>(y), static_cast<const T*>(g), p, part, part2,
-      items, s, c);
+  const bool vec = c % V == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const T* yt = static_cast<const T*>(y);
+  const T* gt = static_cast<const T*>(g);
+  if (vec) {
+    fused_top_stats_kernel<T, true><<<grid, kTopWarps * 32, 0, st>>>(
+        yt, gt, p, part, part2, items, s, c, tx);
+  } else {
+    fused_top_stats_kernel<T, false><<<grid, kTopWarps * 32, 0, st>>>(
+        yt, gt, p, part, part2, items, s, c, tx);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if ((err = sum_rows(part, sums, blocks, c, st)) != cudaSuccess) return err;
@@ -1486,14 +1660,16 @@ cudaError_t launch_dense_bwd(const DenseBwd& a, long long items, int s,
 }  // namespace
 
 // T1, T2 (sums, 2 x c f32) of the top BN: y (items, s, c) of T, g (items,
-// c) of T, p the (7, c) f32 pack; part a (2, ceil(items/64), c) f32
-// scratch. s = 1 is the unpooled chain.
+// c) of T, p the (7, c) f32 pack; part a (2, ceil(items/kTopWarps), c) f32
+// scratch (kTopWarps = 8). s = 1 is the unpooled chain. Any base address:
+// rows that do not start on 16-byte boundaries load element by element.
 extern "C" int pn2_fused_top_stats(const void* y, const void* g,
                                    const void* p, void* part, void* sums,
                                    long long items, int s, int c,
                                    int itemsize, void* stream) {
   if (items <= 0 || c <= 0) return cudaSuccess;
-  if (s <= 0 || (items + kItems - 1) / kItems > 0x7fffffffLL) {
+  if (s <= 0 || (items + kTopWarps - 1) / kTopWarps > 0x7fffffffLL ||
+      (c + 127) / 128 > 65535) {  // channel tiles of 128 (f32) or 256
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);

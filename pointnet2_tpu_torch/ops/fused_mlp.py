@@ -187,12 +187,12 @@ def first_bwd_plain(x2d: torch.Tensor, g: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-# the kernels' fixed partition (csrc/fused_mlp.cu kItems, kBM, kSlab):
-# items (pooled groups or rows) a block of the elementwise passes, rows a
-# partial of the statistics and of T1/T2 (the dense passes' 64-row blocks),
-# rows a slab of the dW product. Each depends on the shape only, so the
-# cross-block sums are reproducible.
-_ITEMS, _ROWS, _SLAB = 64, 64, 1024
+# the kernels' fixed partition (csrc/fused_mlp.cu kTopWarps, kItems, kBM,
+# kSlab): items (pooled groups or rows) a block of row 13, items a block of
+# row 14's dy pass, rows a partial of the statistics and of T1/T2 (the
+# dense passes' 64-row blocks), rows a slab of the dW product. Each
+# depends on the shape only, so the cross-block sums are reproducible.
+_TOP_ITEMS, _ITEMS, _ROWS, _SLAB = 8, 64, 64, 1024
 
 
 def _check_affine(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -363,9 +363,16 @@ def _check_cotangent(y: torch.Tensor, g: torch.Tensor, pool: bool) -> tuple:
     return items, S, C
 
 
+def top_stats_part(items: int, C: int, device) -> torch.Tensor:
+    """Row 13's f32 scratch: (2, item blocks of _TOP_ITEMS, C)."""
+    return torch.empty((2, -(-items // _TOP_ITEMS), C), dtype=torch.float32,
+                       device=device)
+
+
 def launch_fused_top_stats(y, g, p, part, sums, S: int) -> None:
-    """Launch pn2_fused_top_stats: ``part`` (2, item blocks, C) f32
-    scratch, ``sums`` (2, C) f32 out."""
+    """Launch pn2_fused_top_stats: ``part`` the (2, ceil(items /
+    _TOP_ITEMS), C) f32 scratch of :func:`top_stats_part`, ``sums`` (2, C)
+    f32 out."""
     items, C = y.shape[0], y.shape[-1]
     fn = _build.bind("fused_mlp", "pn2_fused_top_stats",
                      [ctypes.c_void_p] * 5
@@ -386,9 +393,8 @@ def fused_top_stats_kernel(y: torch.Tensor, g: torch.Tensor, p: torch.Tensor,
     _check_pack(p, C, y.device)
     sums = torch.zeros((2, C), dtype=torch.float32, device=y.device)
     if items > 0:
-        part = torch.empty((2, -(-items // _ITEMS), C), dtype=torch.float32,
-                           device=y.device)
-        launch_fused_top_stats(y, g, p, part, sums, S)
+        launch_fused_top_stats(y, g, p, top_stats_part(items, C, y.device),
+                               sums, S)
         fused_top_stats_kernel.launches += 1
     return sums[0], sums[1]
 

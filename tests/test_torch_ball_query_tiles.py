@@ -1,0 +1,128 @@
+"""The walk of row 2's CUDA kernel (csrc/ball_query.cu ball_query_kernel),
+emulated in numpy on the CPU.
+
+A block serves kQueryWarps queries of one cloud, stages the cloud in tiles
+of kTile points, and each warp walks a tile kLanePts * 32 points an
+iteration: the distances of every lane's points first, then one ballot per
+32-point chunk in scan order. A warp stops once its query holds nsample
+hits, and the block leaves the tile loop once every warp has stopped. The
+emulation reads those constants from the source and must give the same
+indices and counts as ``ball_query_plain`` and JAX's ``ball_query_pallas``
+(interpret mode) bit for bit, at and around the tile edges, with nsample >
+N, an empty ball and a ball that holds every point.
+"""
+
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pointnet2_tpu import ops as jops
+from pointnet2_tpu_torch.ops import grouping
+
+SRC = (Path(__file__).resolve().parent.parent / "pointnet2_tpu_torch"
+       / "csrc" / "ball_query.cu").read_text()
+
+
+def _const(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", SRC).group(1))
+
+
+WARPS, TILE, LANE_PTS = (_const("kQueryWarps"), _const("kTile"),
+                         _const("kLanePts"))
+
+
+def emulate(radius: float, nsample: int, xyz1: np.ndarray,
+            xyz2: np.ndarray):
+    """(idx, cnt, tiles walked by each block) of the kernel's walk."""
+    B, N, _ = xyz1.shape
+    M = xyz2.shape[1]
+    r2 = np.float32(grouping._r2(radius))
+    idx = np.zeros((B, M, nsample), np.int32)
+    cnt = np.zeros((B, M), np.int32)
+    walked = []
+    lanes = np.arange(32)
+    for b in range(B):
+        for q0 in range(0, M, WARPS):
+            qs = range(q0, min(q0 + WARPS, M))
+            found = {q: 0 for q in qs}
+            first = {q: 0 for q in qs}
+            tiles = 0
+            for t0 in range(0, N, TILE):
+                tiles += 1
+                pts = xyz1[b, t0:t0 + TILE]
+                np_ = len(pts)
+                for q in qs:
+                    qx, qy, qz = xyz2[b, q]
+                    base = 0
+                    while base < np_ and found[q] < nsample:
+                        k = base + np.arange(32 * LANE_PTS)
+                        ok = k < np_
+                        p = pts[np.minimum(k, np_ - 1)]
+                        dx, dy, dz = qx - p[:, 0], qy - p[:, 1], qz - p[:, 2]
+                        d2 = (dx * dx + dy * dy) + dz * dz  # f32, no FMA
+                        hit = ok & (d2 < r2)
+                        for j in range(LANE_PTS):
+                            h = hit[32 * j:32 * j + 32]
+                            if not h.any():
+                                continue
+                            if found[q] == 0:
+                                first[q] = t0 + base + 32 * j + int(
+                                    np.argmax(h))
+                            slot = found[q] + np.cumsum(h) - 1
+                            put = h & (slot < nsample)
+                            idx[b, q, slot[put]] = t0 + base + 32 * j \
+                                + lanes[put]
+                            found[q] += int(h.sum())
+                        base += 32 * LANE_PTS
+                if not any(found[q] < nsample for q in qs):
+                    break  # __syncthreads_or: every query is full
+            walked.append(tiles)
+            for q in qs:
+                c = min(found[q], nsample)
+                idx[b, q, c:] = first[q]
+                cnt[b, q] = c
+    return idx, cnt, walked
+
+
+def _cloud(rng, B, N, M, empty: bool):
+    xyz1 = rng.rand(B, N, 3).astype(np.float32)
+    qidx = rng.randint(0, N, (B, M))
+    xyz2 = np.stack([xyz1[b][qidx[b]] for b in range(B)])
+    if empty:
+        xyz2[:, -1] = -3.0  # an empty ball, in the last block
+    return xyz1, xyz2
+
+
+@pytest.mark.parametrize("B,N,M,radius,nsample", [
+    (2, TILE - 1, 12, 0.1, 64), (2, TILE, 12, 0.1, 64),
+    (2, TILE + 1, 12, 0.1, 64), (1, 2 * TILE - 1, 9, 0.15, 32),
+    (1, 2 * TILE, 9, 0.5, 32), (1, 2 * TILE + 1, 9, 0.15, 32),
+    (2, 20, 9, 0.5, 32),  # nsample > N
+    (2, 1, 5, 0.2, 4),  # N = 1
+    (1, 2 * TILE + 7, 10, 2.0, 32),  # every point a hit
+])
+def test_emulated_walk_bit_identical(rng, B, N, M, radius, nsample):
+    full = radius == 2.0
+    xyz1, xyz2 = _cloud(rng, B, N, M, empty=not full)
+    idx, cnt, walked = emulate(radius, nsample, xyz1, xyz2)
+    widx, wcnt = grouping.ball_query_plain(radius, nsample,
+                                           torch.from_numpy(xyz1),
+                                           torch.from_numpy(xyz2))
+    np.testing.assert_array_equal(cnt, wcnt.numpy())
+    np.testing.assert_array_equal(idx, widx.numpy())
+    jidx, jcnt = jops.query_ball_point(radius, nsample, jnp.asarray(xyz1),
+                                       jnp.asarray(xyz2), impl="pallas")
+    np.testing.assert_array_equal(cnt, np.asarray(jcnt))
+    np.testing.assert_array_equal(idx, np.asarray(jidx))
+    tiles = -(-N // TILE)
+    if full:  # every block is full in the first tile and walks no other
+        assert (cnt == nsample).all() and walked == [1] * len(walked)
+        return
+    assert not cnt[:, -1].any() and not idx[:, -1].any()  # the empty ball
+    assert max(walked) == tiles  # the empty ball's block walks every tile
+    if radius >= 0.5 and N > TILE:  # the other blocks stop after one
+        assert min(walked) == 1

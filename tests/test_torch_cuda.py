@@ -12,8 +12,9 @@ import pytest
 import torch
 
 from chip_smoke import (BWD, LAYER_LIMITS, Checks, chain_terms,
-                        check_tensor_cores, fixed_step, fused_layer_errs,
-                        g_ok, scatter_same, sum_ok, y_ok)
+                        check_tensor_cores, first_occurrence_case,
+                        fixed_step, fused_layer_errs, g_ok, scatter_same,
+                        sum_ok, y_ok)
 from pointnet2_tpu_torch import Predictor, config
 from pointnet2_tpu_torch import ops
 
@@ -82,7 +83,17 @@ def test_fps_kernel_ties(dev):
 @pytest.mark.parametrize("B,N,M,radius,nsample",
                          [(2, 1024, 512, 0.2, 32), (2, 512, 128, 0.4, 64),
                           (3, 100, 17, 0.2, 8), (2, 20, 8, 0.5, 32),
-                          (1, 300, 40, 2.0, 64)])
+                          (1, 300, 40, 2.0, 64),
+                          # each side of the staged tiles' edges (1024 and
+                          # 2048 points), walks through every tile and
+                          # walks that end in the first
+                          (2, 1023, 40, 0.1, 64), (2, 1024, 40, 0.1, 64),
+                          (2, 1025, 40, 0.1, 64), (2, 2047, 24, 0.15, 32),
+                          (2, 2048, 24, 0.5, 32), (2, 2049, 24, 0.15, 32),
+                          (16, 8192, 1024, 0.1, 32),  # sem_seg SA1
+                          (3, 700, 13, 0.3, 16),  # M not a multiple of 8
+                          (2, 1, 5, 0.2, 4),  # N = 1
+                          (2, 3000, 40, 2.0, 32)])  # every point a hit
 def test_ball_query_kernel_bit_identical(dev, rs, B, N, M, radius, nsample):
     xyz1 = torch.from_numpy(rs.rand(B, N, 3).astype(np.float32)).to(dev)
     xyz2 = xyz1[:, torch.from_numpy(rs.randint(0, N, M)).to(dev)]
@@ -669,8 +680,14 @@ def _pack_on(rs, dev, c, m=True):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pool", [True, False])
 @pytest.mark.parametrize("G,S,C", [(2 * 512, 32, 128), (1000, 7, 40),
-                                   (3, 1, 3)])
+                                   (3, 1, 3),
+                                   (2048, 64, 256),  # cls_ssg SA2 at B=16
+                                   (2 * 512, 128, 128),  # cls_msg SA1 r=0.4
+                                   (333, 5, 131)])
 def test_fused_top_stats_kernel_matches_plain(dev, rs, dtype, pool, G, S, C):
+    """Also on copies of y and g that start one element into their storage
+    (not on a 16-byte boundary: the kernel loads them element by element),
+    which must give the same bits: the summation order is the shape's."""
     from pointnet2_tpu_torch.ops import fused_mlp
 
     shape = (G, S, C) if pool else (G * S, C)
@@ -685,6 +702,41 @@ def test_fused_top_stats_kernel_matches_plain(dev, rs, dtype, pool, G, S, C):
     assert torch.equal(t1, u1) and torch.equal(t2, u2)
     (w1, w2), (a1, a2) = chain_terms(torch, y, g, p, pool)
     assert sum_ok(t1, w1, a1) and sum_ok(t2, w2, a2)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    yo, go = shifted(y), shifted(g)
+    assert yo.storage_offset() == go.storage_offset() == 1
+    o1, o2 = fused_mlp.top_stats(yo, go, p, pool)
+    assert torch.equal(t1, o1) and torch.equal(t2, o2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("G,S,C", [(64, 32, 128), (50, 13, 40),
+                                   (16, 64, 16)])
+def test_fused_top_stats_first_occurrence(dev, dtype, nan, G, S, C):
+    """Tied z whose rows' y differ, and NaNs before and after a channel's
+    max (chip_smoke.first_occurrence_case): only the first-occurrence
+    argmax (a NaN the largest) passes; a kernel that took the last tied
+    row, or the other lanes' row on a tie, would move T2 far past
+    `sum_ok` (tests/test_torch_top_stats_order.py shows it on the CPU)."""
+    from pointnet2_tpu_torch.ops import fused_mlp
+
+    y, g, p = (t.to(dev) for t in first_occurrence_case(torch, G, S, C,
+                                                         dtype, 7, nan))
+    t1, t2 = fused_mlp.top_stats(y, g, p, True)
+    w1, w2 = fused_mlp.top_stats_plain(y, g, p, True)
+    assert torch.equal(t1.isnan(), w1.isnan())
+    assert torch.equal(t2.isnan(), w2.isnan())
+    assert bool(t2.isnan().any()) == nan and not bool(t1.isnan().any())
+    (e1, e2), (a1, a2) = chain_terms(torch, y, g, p, True)
+    fin = ~e2.isnan()
+    assert sum_ok(t1, e1, a1) and sum_ok(t2[fin], e2[fin], a2[fin])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
