@@ -24,9 +24,10 @@ Phases:
 
 1. build the kernels from ``pointnet2_tpu_torch/csrc/`` with nvcc, one
    process per source, all at once; log ``ptxas -v`` of ``ball_query.cu``,
-   ``scatter.cu`` and ``fused_mlp.cu``, and check in the built library's
-   SASS that the bf16 dense pass's product and the bf16 dense backward's
-   two run on the tensor cores (HMMA) and the f32 ones do not;
+   ``scatter.cu``, ``three_nn.cu`` and ``fused_mlp.cu``, and check in the
+   built library's SASS that the bf16 dense pass's product and the bf16
+   dense backward's two run on the tensor cores (HMMA) and the f32 ones do
+   not;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving path's shapes, B=16 and B=768 (12 votes x bucket 64): FPS and
    ball-query outputs bit-identical, gathers bitwise equal; and FPS and
@@ -64,14 +65,20 @@ Phases:
 10. hold the three-NN kernel against its plain version, bit for bit, at
     every FP shape of the two segmentation models at B=16 (part_seg's FP1
     has one known point), and check that two launches give the same bits;
+    and on ties: a known set repeated at a stride of 13 (the walk with a
+    bit a known point) and of 7 (the direct walk), at one and two unknown
+    points a thread, so that an unknown point's nearest copies lie at equal
+    distances in one batch of the bit walk and in two;
 11. serve sem_seg (requests of 1, 16, 64 and 100 blocks, and
     ``predict_scene`` on a generated room of 100000 points, 6 x 5 m) and
     part_seg (16 and 64 clouds) in bf16 and f32, each model's run with
     every launch counter set to 0 just before and read just after;
     compare with the plain versions on the card at B <= 16, with the CPU
     on 2 inputs, and ``predict_scene`` kernel vs plain in f32;
-12. time three-NN per launch beside its bound, its plain version and
-    ``cdist`` + ``topk``, ``three_interpolate``, the seg forwards at B=16
+12. time three-NN per launch beside its bound (which counts the points
+    each unknown point's scan inserts), its plain version, ``cdist`` +
+    ``topk`` and, where the launch takes two unknown points a thread, the
+    same launch with one; ``three_interpolate``, the seg forwards at B=16
     and 64, ``predict_scene``, peak memory, and a bf16 B=16 forward's
     device time by op.
 13. hold the ball query with grouped xyz (idx and cnt bit for bit, the
@@ -1135,6 +1142,32 @@ def check_three_nn(torch, shapes: list, check: Checks, errs: dict) -> None:
         check(same and again, f"three_nn {tag} N={xyz1.shape[1]} "
               f"M={xyz2.shape[1]}: bit-identical to plain, two launches "
               f"equal ({zero:.1%} of nearest distances exactly 0)")
+    # ties: a known set repeated at a stride of 13 (260 points, the walk
+    # with bits) and of 7 (63 points, the direct walk), each unknown
+    # point's three nearest the copies j, j + s, j + 2s of one point, at
+    # one (1536 unknown points) and two (65536) unknown points a thread;
+    # with s = 13 some copies fall in different batches of 32 known points
+    dev = shapes[0][1].device
+    rng = np.random.default_rng(SEED + 10)
+    for stride, copies in ((13, 20), (7, 9)):
+        known = torch.from_numpy(rng.random((16, stride, 3), np.float32)).to(
+            dev).repeat(1, copies, 1).contiguous()
+        for n in (96, 4096):
+            xyz1 = torch.from_numpy(rng.random((16, n, 3), np.float32)).to(
+                dev)
+            d, i = interpolate.three_nn_kernel(xyz1, known)
+            wd, wi = interpolate.three_nn_plain(xyz1, known)
+            same = torch.equal(i, wi) and torch.equal(
+                d.view(torch.int32), wd.view(torch.int32))
+            tied = bool(torch.equal(wd[..., 0], wd[..., 2]) and torch.equal(
+                wi[..., 2] - wi[..., 0],
+                torch.full_like(wi[..., 0], 2 * stride)))
+            cross = int((wi[..., 0] // 32 != wi[..., 2] // 32).sum())
+            check(same and tied and (stride == 7 or cross > 0),
+                  f"three_nn ties (16, {n}, 3) x (16, {stride * copies}, 3):"
+                  f" bit-identical to plain, every unknown point's three "
+                  f"nearest at equal distances {stride} apart ({cross} "
+                  f"across two batches of 32)")
     torch.cuda.synchronize()
 
 
@@ -1260,6 +1293,45 @@ def check_seg(torch, preds, run, blocks, parts, room, sds,
     torch.cuda.synchronize()
 
 
+def three_nn_entries(torch, xyz1, xyz2, k: int = 32) -> int:
+    """The (unknown, known) pairs whose distance the ascending scan with a
+    strict < inserts into the three best so far, from plain PyTorch ops
+    on the card, k known points at a time."""
+    B, N, M = xyz1.shape[0], xyz1.shape[1], xyz2.shape[1]
+    best = torch.full((B, N, 3), float("inf"), device=xyz1.device)
+    pos = torch.arange(3 + k, device=xyz1.device)
+    total = 0
+    for c0 in range(0, M, k):
+        p = xyz2[:, c0:c0 + k]
+        n = p.shape[1]
+        dx, dy, dz = (xyz1[:, :, None, c] - p[:, None, :, c] for c in range(3))
+        d = (dx * dx + dy * dy) + dz * dz  # (B, N, n), op by op
+        seen = torch.cat([best, d], -1)
+        # column u sees the three best before this slab and its u first
+        before = pos[:3 + n] < 3 + torch.arange(n, device=xyz1.device)[:, None]
+        third = torch.where(before, seen[:, :, None, :], float("inf")).topk(
+            3, -1, largest=False).values[..., 2]
+        total += int((d < third).sum())
+        best = seen.topk(3, -1, largest=False).values
+    return total
+
+
+def launch_three_nn_q(torch, xyz1, xyz2, dist, idx, q: int) -> None:
+    """csrc/three_nn.cu's launch with q unknown points a thread, whichever
+    the shape takes, to measure the launch's own choice."""
+    import ctypes
+
+    from pointnet2_tpu_torch.ops import _build
+
+    B, N, M = xyz1.shape[0], xyz1.shape[1], xyz2.shape[1]
+    fn = _build.bind("three_nn", "pn2_three_nn_q",
+                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                     + [ctypes.c_void_p])
+    _build.check("three_nn", fn(
+        xyz1.data_ptr(), xyz2.data_ptr(), dist.data_ptr(), idx.data_ptr(), B,
+        N, M, q, torch.cuda.current_stream().cuda_stream), "three_nn launch")
+
+
 def time_seg(torch, gpu: str, preds, shapes, blocks, parts, room,
              rows: dict) -> None:
     """Phase 12: three_nn per launch at every FP shape beside its bound,
@@ -1284,7 +1356,10 @@ def time_seg(torch, gpu: str, preds, shapes, blocks, parts, room,
         k = min(3, M)
         library = event_ms(torch, lambda: torch.topk(
             torch.cdist(xyz1, xyz2), k, largest=False), 50, prefill=True)
-        ops_ = B * N * M * 9  # 3 sub, 3 mul, 2 add, 1 compare per pair
+        # a pair's bit: 3 FMAs and a compare; each point the ascending
+        # scan inserts: sq_dist's 3 sub, 3 mul, 2 add and a compare
+        entries = three_nn_entries(torch, xyz1, xyz2)
+        ops_ = B * N * M * 4 + entries * 9
         byts = (xyz1.numel() + xyz2.numel()) * 4 + B * N * 3 * 8
         bound = roofline(ops_, byts)
         shape = f"{tag} ({B},{N},3) x ({B},{M},3)"
@@ -1295,7 +1370,12 @@ def time_seg(torch, gpu: str, preds, shapes, blocks, parts, room,
                 f"{plain:.6f} ms  bound {bound[0]:.6f} ms library "
                 f"{library:.6f} ms")
         log(f"  three_nn {tag}: {bound[0] / ms:.1%} of the {bound[1]} "
-            "roofline")
+            f"roofline ({entries / (B * N):.1f} inserts an unknown point)")
+        if B * N >= 65536:  # the launch takes two unknown points a thread
+            one = event_ms(torch, lambda: launch_three_nn_q(
+                torch, xyz1, xyz2, dist, idx, 1), 50, prefill=True)
+            log(f"  three_nn {tag}: one unknown point a thread {one:.6f} ms "
+                f"against two {ms:.6f} ms")
 
     # three_interpolate at sem_seg fp4 (B=16, bf16, the 128-wide lifted
     # rows): one gather of the (B, 3N, C) rows, then the f32 combine
@@ -2922,7 +3002,7 @@ def main() -> int:
     _build.build_all()
     log(f"  built {len(_build.SOURCES)} sources ({', '.join(_build.SOURCES)})"
         f" in {time.perf_counter() - t0:.2f} s into {_build.BUILD_DIR.name}/")
-    for src in ("ball_query", "scatter", "fused_mlp"):
+    for src in ("ball_query", "scatter", "three_nn", "fused_mlp"):
         log(f"  ptxas -v of csrc/{src}.cu (registers, shared memory, "
             "spills):")
         for line in _build.ptxas_report(src):

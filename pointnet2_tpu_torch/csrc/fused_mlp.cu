@@ -62,6 +62,24 @@
 // the same work.
 // Fewer registers (spills), more lanes across rows, or longer or shorter
 // row chunks measured slower.
+// fused_first_bwd is elementwise: 6 bytes an element in bf16 (x and g in,
+// dx out) against about fifteen instructions, so it reaches the byte rate
+// only with wide accesses, many of them in flight and nothing else per
+// element. A thread owns 16 bytes of channels at an offset fixed for the
+// launch (no division or modulo in the loop: a flat index's 64-bit modulo
+// is a called routine, dozens of instructions an element), holds their
+// seven pack values in registers (56 floats in bf16, loaded once), and
+// loads kFirstRows = 4 rows of x and g as 16-byte pieces before computing
+// any. A row's vectors are spread over neighbouring lanes (8 at cls_ssg
+// SA1's c = 64, 16 at SA2's 128) and the block's other lanes take the next
+// rows, so a warp's accesses are contiguous; blocks of kFirstThreads =
+// 128, one a row block up to kFirstBlocks = 65536 (past it the grid
+// strides): about 80% of the byte rate in bf16 and 86% in f32 at
+// cls_ssg's shapes. 256 or 512 threads, 2 or 8 rows in flight and a grid
+// of 2-8 blocks an SM that strides measured no faster; evict-first loads
+// and stores helped the largest shapes a little and hurt those that fit
+// in L2. Ragged c and unaligned bases take the same walk element by
+// element.
 // fused_dense and fused_dense_bwd move few bytes for their work (bf16
 // cls_ssg SA1 64 -> 128 at B=16: 101 MB forward, 30 us at 3.35 TB/s) and
 // their bound is bytes against the tensor cores' rate.
@@ -1364,22 +1382,106 @@ __global__ void __launch_bounds__(32 * kRowWarps * kColWarps)
   }
 }
 
-// Row 15: dx = T(gr*((dout - m1) - yhat*m2)) of BN_0, x and g (rows, c)
+// Row 15: dx = T(gr*((dout - m1) - yhat*m2)) of BN_0, x and g (rows, c).
+// A thread owns kTopVec<T> consecutive channels (16 bytes: 8 bf16 or 4 f32)
+// at a channel offset fixed for the launch: tx lanes span a row's channel
+// vectors (blockIdx.y tiles rows wider than kFirstThreads vectors), the
+// block's kFirstThreads / tx row lanes take neighbouring rows, so a warp
+// reads contiguous bytes. The thread keeps its channels' seven pack values
+// in registers, walks rows with a grid stride and loads kFirstRows rows of
+// x and g before computing any. kVec: every row starts on a 16-byte
+// boundary (c a multiple of the vector, aligned bases) and x, g and dx
+// move as 16-byte pieces; else element by element, masked at c.
+constexpr int kFirstThreads = 128;  // threads a block
+constexpr int kFirstRows = 4;       // rows a thread loads before computing
+constexpr int kFirstBlocks = 65536;  // row blocks at most (a grid stride)
+
+// the V floats in a 16-byte piece of T, each rounded to T (round to
+// nearest even for bf16)
 template <typename T>
-__global__ void fused_first_bwd_kernel(const T* __restrict__ x,
-                                       const T* __restrict__ g,
-                                       const float* __restrict__ p,
-                                       T* __restrict__ dx, long long total,
-                                       int c) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       t < total; t += stride) {
-    const int ch = static_cast<int>(t % c);
-    const float v = to_f32(x[t]);
-    const float dout = relu_gate(to_f32(g[t]), bn_out(v, p[ch], p[c + ch]));
-    dx[t] = from_f32<T>(bn_dy(dout, bn_hat(v, p[2 * c + ch], p[3 * c + ch]),
-                              p[4 * c + ch], p[5 * c + ch], p[6 * c + ch]));
+__device__ __forceinline__ uint4 pack_piece(const float (&v)[kTopVec<T>]) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(T) == 2) {
+      w[i] = static_cast<unsigned>(__bfloat16_as_ushort(
+                 __float2bfloat16_rn(v[2 * i]))) |
+             static_cast<unsigned>(__bfloat16_as_ushort(
+                 __float2bfloat16_rn(v[2 * i + 1])))
+                 << 16;
+    } else {
+      w[i] = __float_as_uint(v[i]);
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// a 16-byte piece to p: one store with kVec, else its first `valid`
+// elements one by one
+template <typename T, bool kVec>
+__device__ __forceinline__ void store_piece(T* p, const uint4& u,
+                                            int valid) {
+  if constexpr (kVec) {
+    *reinterpret_cast<uint4*>(p) = u;
+  } else {
+    using Bits = std::conditional_t<sizeof(T) == 2, unsigned short, unsigned>;
+    Bits* b = reinterpret_cast<Bits*>(p);
+#pragma unroll
+    for (int e = 0; e < kTopVec<T>; ++e) {
+      if (e < valid) {
+        const unsigned w = (&u.x)[sizeof(T) == 2 ? e >> 1 : e];
+        b[e] = static_cast<Bits>(sizeof(T) == 2 && (e & 1) ? w >> 16 : w);
+      }
+    }
+  }
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kFirstThreads)
+    fused_first_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                           const float* __restrict__ p, T* __restrict__ dx,
+                           long long rows, int c, int tx_lanes) {
+  constexpr int V = kTopVec<T>;
+  const int tx = threadIdx.x % tx_lanes, ty = threadIdx.x / tx_lanes;
+  const int ty_lanes = kFirstThreads / tx_lanes;
+  const int col = (blockIdx.y * tx_lanes + tx) * V;  // first channel
+  const int valid = min(V, c - col);  // channels of this thread
+  if (ty >= ty_lanes || valid <= 0) return;
+  float pk[7][V];  // a, b, mu, r, gr, m1, m2 of the thread's channels
+#pragma unroll
+  for (int k = 0; k < 7; ++k) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      pk[k][e] = e < valid ? p[k * c + col + e] : 0.0f;
+    }
+  }
+  const long long step = static_cast<long long>(gridDim.x) * ty_lanes;
+  for (long long r0 = static_cast<long long>(blockIdx.x) * ty_lanes + ty;
+       r0 < rows; r0 += kFirstRows * step) {
+    uint4 xr[kFirstRows], gr[kFirstRows];
+#pragma unroll
+    for (int j = 0; j < kFirstRows; ++j) {
+      const long long at = (r0 + j * step) * c + col;
+      if (r0 + j * step < rows) {
+        xr[j] = load_piece<T, kVec>(x + at, valid);
+        gr[j] = load_piece<T, kVec>(g + at, valid);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kFirstRows; ++j) {
+      if (r0 + j * step >= rows) break;
+      float o[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float v = piece_at<T>(xr[j], e);
+        const float dout = relu_gate(piece_at<T>(gr[j], e),
+                                     bn_out(v, pk[0][e], pk[1][e]));
+        o[e] = bn_dy(dout, bn_hat(v, pk[2][e], pk[3][e]), pk[4][e],
+                     pk[5][e], pk[6][e]);
+      }
+      store_piece<T, kVec>(dx + (r0 + j * step) * c + col, pack_piece<T>(o),
+                           valid);
+    }
   }
 }
 
@@ -1579,6 +1681,38 @@ cudaError_t launch_top_stats(const void* y, const void* g, const float* p,
   return sum_rows(part2, sums + c, blocks, c, st);
 }
 
+// Row 15's grid: tx lanes span a row's channel vectors (at most
+// kFirstThreads, more in blockIdx.y tiles), kFirstThreads / tx rows a
+// block, as many row blocks as the rows need up to kFirstBlocks.
+template <typename T>
+cudaError_t launch_first_bwd(const void* x, const void* g, const float* p,
+                             void* dx, long long rows, int c,
+                             cudaStream_t st) {
+  constexpr int V = kTopVec<T>;
+  const int vecs = (c + V - 1) / V;
+  const int tx = vecs < kFirstThreads ? vecs : kFirstThreads;
+  const long long per = static_cast<long long>(kFirstThreads / tx) *
+                        kFirstRows;
+  const long long want = (rows + per - 1) / per;
+  const dim3 grid(static_cast<unsigned>(want < kFirstBlocks ? want
+                                                            : kFirstBlocks),
+                  (vecs + tx - 1) / tx);
+  const bool vec = c % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  T* dxt = static_cast<T*>(dx);
+  if (vec) {
+    fused_first_bwd_kernel<T, true><<<grid, kFirstThreads, 0, st>>>(
+        xt, gt, p, dxt, rows, c, tx);
+  } else {
+    fused_first_bwd_kernel<T, false><<<grid, kFirstThreads, 0, st>>>(
+        xt, gt, p, dxt, rows, c, tx);
+  }
+  return cudaGetLastError();
+}
+
 struct DenseBwd {
   const void* yk;
   const void* yp;
@@ -1728,26 +1862,21 @@ extern "C" int pn2_fused_dense_bwd(const void* yk, const void* yp,
 }
 
 // dx (rows, c) = T(gr*((dout - m1) - yhat*m2)) of BN_0, x and g (rows, c)
-// of T, p the (7, c) f32 pack
+// of T, p the (7, c) f32 pack. Any base address: rows that do not start on
+// 16-byte boundaries move element by element.
 extern "C" int pn2_fused_first_bwd(const void* x, const void* g,
                                    const void* p, void* dx, long long rows,
                                    int c, int itemsize, void* stream) {
   if (rows <= 0 || c <= 0) return cudaSuccess;
-  const long long total = rows * c;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* pf = static_cast<const float*>(p);
   if (itemsize == 4) {
-    fused_first_bwd_kernel<float><<<grid_for(total, 256), 256, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g), pf,
-        static_cast<float*>(dx), total, c);
-  } else if (itemsize == 2) {
-    fused_first_bwd_kernel<__nv_bfloat16>
-        <<<grid_for(total, 256), 256, 0, st>>>(
-            static_cast<const __nv_bfloat16*>(x),
-            static_cast<const __nv_bfloat16*>(g), pf,
-            static_cast<__nv_bfloat16*>(dx), total, c);
-  } else {
-    return cudaErrorInvalidValue;
+    return launch_first_bwd<float>(x, g, static_cast<const float*>(p), dx,
+                                   rows, c, static_cast<cudaStream_t>(stream));
   }
-  return cudaGetLastError();
+  if (itemsize == 2) {
+    return launch_first_bwd<__nv_bfloat16>(x, g,
+                                           static_cast<const float*>(p), dx,
+                                           rows, c,
+                                           static_cast<cudaStream_t>(stream));
+  }
+  return cudaErrorInvalidValue;
 }

@@ -345,10 +345,20 @@ def _three_nn_bitwise(xyz1, xyz2):
 
 @pytest.mark.parametrize("B,N,M", [(2, 1024, 256), (3, 100, 17),
                                    (2, 1000, 1), (2, 257, 2), (1, 300, 3),
-                                   (2, 300, 5000), (1, 8192, 1024)])
+                                   (2, 300, 5000), (1, 8192, 1024),
+                                   (16, 64, 16), (16, 256, 64),
+                                   (16, 1024, 256), (2, 4 * 256 + 5, 64),
+                                   (2, 300, 1023), (2, 300, 1024),
+                                   (2, 300, 1025), (1, 37, 1), (1, 37, 2),
+                                   (9, 8191, 100), (2, 300, 64),
+                                   (2, 300, 65), (16, 4096, 64)])
 def test_three_nn_kernel_bit_identical(dev, rs, B, N, M):
-    """Random clouds; M = 1, 2, 3; M past one shared-memory tile (1024);
-    N not a multiple of the block (256)."""
+    """Random clouds; M = 1, 2, 3; M past one shared-memory tile (1024)
+    and at its edges; N not a multiple of a block's unknown points, with
+    one (B*N under 65536) and two (9 x 8191, 16 x 4096) a thread; sem_seg
+    FP1-FP3's shapes at B=16; M = 1 and 2 at few unknown points; and M at
+    the edge of the direct walk (kDirect = 64 known points, each inserted
+    without a bit), with one and two unknown points a thread."""
     xyz1 = torch.from_numpy(rs.rand(B, N, 3).astype(np.float32)).to(dev)
     xyz2 = torch.from_numpy(rs.rand(B, M, 3).astype(np.float32)).to(dev)
     dist, idx = _three_nn_bitwise(xyz1, xyz2)
@@ -358,7 +368,11 @@ def test_three_nn_kernel_bit_identical(dev, rs, B, N, M):
 
 def test_three_nn_kernel_ties(dev, rs):
     """Exact ties: integer grids, the known set repeated three times, and
-    unknown points that are known points (distance 0)."""
+    unknown points that are known points (distance 0); and a known set
+    repeated at a stride of 13 (260 points, the walk with bits) and of 7
+    (63 points, the direct walk), at one and two unknown points a thread,
+    so that the equal distances of an unknown point's nearest copies, at
+    j, j + 13, j + 26, fall in one batch of 32 known points and in two."""
     g = np.stack(np.meshgrid(*[np.arange(4.0)] * 3, indexing="ij"), -1)
     grid = torch.from_numpy(g.reshape(1, 64, 3).astype(np.float32)).to(dev)
     _three_nn_bitwise(grid[:, ::3] + 0.5, grid)
@@ -368,6 +382,56 @@ def test_three_nn_kernel_ties(dev, rs):
     xyz = torch.from_numpy(rs.rand(2, 2000, 3).astype(np.float32)).to(dev)
     dist, _ = _three_nn_bitwise(xyz, xyz[:, 500:1700].contiguous())
     assert not dist[:, 500:1700, 0].any()
+    for stride, copies in ((13, 20), (7, 9)):
+        known = torch.from_numpy(rs.rand(16, stride, 3).astype(
+            np.float32)).to(dev).repeat(1, copies, 1).contiguous()
+        for n in (96, 4096):  # 1536 and 65536 unknown points
+            dist, idx = _three_nn_bitwise(torch.from_numpy(rs.rand(
+                16, n, 3).astype(np.float32)).to(dev), known)
+            assert torch.equal(dist[..., 0], dist[..., 2])
+            assert torch.equal(idx[..., 2] - idx[..., 0],
+                               torch.full_like(idx[..., 0], 2 * stride))
+            if stride == 13:
+                assert (idx[..., 0] // 32 != idx[..., 2] // 32).any()
+
+
+def test_three_nn_kernel_either_unknown_points_a_thread(dev, rs):
+    """The launch with one and with two unknown points a thread, whichever
+    the shape would take, gives the same bits; another count is refused."""
+    import ctypes
+
+    from pointnet2_tpu_torch.ops import _build, interpolate
+
+    fn = _build.bind("three_nn", "pn2_three_nn_q",
+                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                     + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream().cuda_stream
+    for B, N, M in ((2, 300, 100), (2, 300, 40), (4, 16384, 300)):
+        xyz1 = torch.from_numpy(rs.rand(B, N, 3).astype(np.float32)).to(dev)
+        xyz2 = torch.from_numpy(rs.rand(B, M, 3).astype(np.float32)).to(dev)
+        wd, wi = interpolate.three_nn_plain(xyz1, xyz2)
+        for q in (1, 2):
+            dist = torch.empty_like(wd)
+            idx = torch.empty_like(wi)
+            assert fn(xyz1.data_ptr(), xyz2.data_ptr(), dist.data_ptr(),
+                      idx.data_ptr(), B, N, M, q, stream) == 0
+            assert torch.equal(idx, wi)
+            assert torch.equal(dist.view(torch.int32), wd.view(torch.int32))
+        assert fn(xyz1.data_ptr(), xyz2.data_ptr(), dist.data_ptr(),
+                  idx.data_ptr(), B, N, M, 3, stream) != 0
+
+
+@pytest.mark.parametrize("centre", [1000.0, -1e5, 3e18])
+def test_three_nn_kernel_far_from_the_origin(dev, rs, centre):
+    """Clouds far from the origin: the known points' bits (|p|^2 - 2q.p
+    against the third best, margin 2^-18 (|p|^2 + |q|^2)) let many more
+    points through to the exact test, and past 2^120 every point; the bits
+    stay those of the plain version."""
+    xyz1 = torch.from_numpy((centre + rs.rand(2, 2000, 3)).astype(
+        np.float32)).to(dev)
+    xyz2 = torch.from_numpy((centre + rs.rand(2, 500, 3)).astype(
+        np.float32)).to(dev)
+    _three_nn_bitwise(xyz1, xyz2)
 
 
 def test_three_nn_kernel_refuses_what_it_does_not_take(dev):
@@ -807,8 +871,12 @@ def test_dense_bwd_products_on_the_tensor_cores_in_bf16_only(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("R,C", [(2 * 512 * 32, 64), (1000, 3)])
+@pytest.mark.parametrize("R,C", [(2 * 512 * 32, 64), (1000, 3),
+                                 (2 * 128 * 64, 128), (2 * 512 * 16, 32),
+                                 (1000, 40), (777, 131), (1, 64), (1, 131)])
 def test_fused_first_bwd_kernel_bitwise(dev, rs, dtype, R, C):
+    """cls_ssg SA1's and SA2's shapes at B=2, a cls_msg SA1 scale (C=32),
+    C not a multiple of the 16-byte vector (3, 40, 131), one row."""
     from pointnet2_tpu_torch.ops import fused_mlp
 
     x = torch.from_numpy(rs.randn(R, C).astype(np.float32)).to(dev, dtype)
@@ -820,6 +888,31 @@ def test_fused_first_bwd_kernel_bitwise(dev, rs, dtype, R, C):
     view = torch.int16 if dtype == torch.bfloat16 else torch.int32
     assert torch.equal(got.view(view),
                        fused_mlp.first_bwd_plain(x, g, p).view(view))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,C", [(2 * 512 * 32, 64), (777, 131)])
+def test_fused_first_bwd_kernel_unaligned(dev, rs, dtype, R, C):
+    """x and g one element into their storage (rows off the 16-byte
+    boundary): element by element, the same bits."""
+    from pointnet2_tpu_torch.ops import fused_mlp
+
+    x = torch.from_numpy(rs.randn(R, C).astype(np.float32)).to(dev, dtype)
+    g = torch.from_numpy(rs.randn(R, C).astype(np.float32)).to(dev, dtype)
+    p = _pack_on(rs, dev, C)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    xo, go = shifted(x), shifted(g)
+    assert xo.storage_offset() == go.storage_offset() == 1
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    want = fused_mlp.first_bwd_plain(x, g, p).view(view)
+    assert torch.equal(fused_mlp.first_bwd(xo, go, p).view(view), want)
+    assert torch.equal(fused_mlp.first_bwd(xo, g, p).view(view), want)
 
 
 def test_fused_backward_kernels_refuse_what_they_do_not_take(dev, rs):
