@@ -97,7 +97,8 @@ Phases:
     B <= 16 and with the CPU on 2 inputs;
 15. time both new kernels per launch beside their bounds, their plain
     versions and the launches of the default path they stand for (the ball
-    query plus the xyz gather; the per-radius ball queries), the MSG
+    query plus the xyz gather; the per-radius ball queries), the grouped-xyz
+    query beside the bare ball query at the same shapes, the MSG
     forwards at B=16 and 64, peak memory, and a bf16 B=16 forward's device
     time by op;
 16. hold the fused chain's three kernels against their plain versions at
@@ -108,7 +109,8 @@ Phases:
     rounded operands plus the f32 accumulation bound (`y_ok`), its column
     statistics within 1e-4 of sum|terms| of their exact (float64) sums and
     bit for bit across two launches; the pooled and affine tails bit for
-    bit;
+    bit, and the affine tail also on inputs one element into their storage
+    (the element-by-element route) at the ragged shape and at 131 channels;
 17. serve cls_ssg, cls_msg, sem_seg, part_seg and part_seg_msg (with
     labels) with ``config.fused_mlp(True)``, requests of 16 and 64 in bf16
     and f32, each model's run with every launch counter set to 0 just
@@ -688,6 +690,19 @@ def trace_device(torch, fn, reps: int) -> tuple:
     return kernels, ops_, wall_us, launched
 
 
+# rows 2 and 3 are two instances of one kernel template
+TRACE_NAMES = {"ball_query": ("ball_query_kernel<false>",),
+               "ball_query_group_xyz": ("ball_query_kernel<true>",)}
+
+
+def traced(name: str, key: str) -> bool:
+    """Whether a trace's kernel `key` is the one kernel a call of wrapper
+    `name` launches: `<name>_kernel`, in bf16 on the tensor cores
+    `<name>_mma_kernel`, or its template instance (TRACE_NAMES)."""
+    names = TRACE_NAMES.get(name, (f"{name}_kernel", f"{name}_mma_kernel"))
+    return any(n in key for n in names)
+
+
 def profile_device(torch, fn, reps: int, label: str, unit: str,
                    ours=tuple(REPLACES), host_us: float | None = None) -> None:
     """Where the device time of `reps` calls of `fn` goes, by
@@ -710,10 +725,8 @@ def profile_device(torch, fn, reps: int, label: str, unit: str,
     if host_us is not None:
         log(f"   device busy {busy / host_us:.1%} of the unprofiled "
             f"{host_us:.1f} us/{unit} (idle {1 - busy / host_us:.1%})")
-    # a wrapper's one kernel a call: `<name>_kernel`, or in bf16 on the
-    # tensor cores `<name>_mma_kernel`
-    seen = {k: round(sum(r[1] for r in kernels if f"{k}_kernel" in r[2]
-                         or f"{k}_mma_kernel" in r[2]) * reps) for k in ours}
+    seen = {k: round(sum(r[1] for r in kernels if traced(k, r[2])) * reps)
+            for k in ours}
     missed = {k: (seen[k], launched[k]) for k in ours
               if seen[k] != launched[k]}
     log("   the trace saw every launch of the port's kernels" if not missed
@@ -1746,6 +1759,8 @@ def time_msg(torch, dev, gpu: str, levels: list, preds: dict, clouds, parts,
                                             rows_out)
 
             pair = event_ms(torch, two_launches, 50, prefill=True)
+            alone = event_ms(torch, lambda: grouping.launch_ball_query(
+                r, xyz, new_xyz, idx, cnt), 50, prefill=True)
             scanned = scanned_points(torch, idx, cnt, n)
             scans.append(scanned)
             byts = in_bytes + (idx.numel() + cnt.numel() + grp.numel()) * 4
@@ -1758,7 +1773,9 @@ def time_msg(torch, dev, gpu: str, levels: list, preds: dict, clouds, parts,
                     f"{ms:.6f} ms  plain {plain:.6f} ms  bound "
                     f"{bound[0]:.6f} ms ({bound[1]})")
             log(f"   the two launches it replaces (ball_query + gather_rows "
-                f"of xyz): {pair:.6f} ms; this kernel {ms / pair:.2f}x that")
+                f"of xyz): {pair:.6f} ms; this kernel {ms / pair:.2f}x that;"
+                f" the ball query alone (row 2, same walk without grouped):"
+                f" {alone:.6f} ms, this kernel {ms / alone:.2f}x that")
             multi_bytes += (idx.numel() + cnt.numel()) * 4
             per_radius.append((r, idx, cnt))
 
@@ -1834,6 +1851,7 @@ FUSED_PER_FWD = {
     PART_MSG: {**MSG_PER_FWD[PART_MSG], "fused_dense": 10, "fused_pool": 5},
 }
 RAGGED = (1000, 196, 40)  # rows, Cin, Cout of phase 16's ragged shape
+AFFINE_C = 131  # phase 16's affine tail off the 16-byte vector
 
 
 def fused_chains(torch, models: dict, B: int = 16) -> list:
@@ -1973,9 +1991,37 @@ def check_ragged(torch, dev, g, check, errs) -> None:
         w = torch.randn((cout, cin), generator=g, device=dev) / cin ** 0.5
         bias = 0.1 * torch.randn(cout, generator=g, device=dev)
         y = check_dense(torch, "ragged", x, a, b, w, bias, check, errs)
-        check_tails(torch, "ragged", y.reshape(R // 8, 8, cout),
-                    torch.randn(cout, generator=g, device=dev), 0.1 *
-                    torch.randn(cout, generator=g, device=dev), check, errs)
+        a = torch.randn(cout, generator=g, device=dev)
+        b = 0.1 * torch.randn(cout, generator=g, device=dev)
+        check_tails(torch, "ragged", y.reshape(R // 8, 8, cout), a, b, check,
+                    errs)
+        check_affine_unaligned(torch, "ragged", y, a, b, check, errs)
+        c = AFFINE_C
+        check_affine_unaligned(
+            torch, f"{R} x {c}", torch.randn((R, c), generator=g,
+                                             device=dev).to(dt),
+            torch.randn(c, generator=g, device=dev),
+            0.1 * torch.randn(c, generator=g, device=dev), check, errs)
+
+
+def check_affine_unaligned(torch, tag, y2d, a, b, check: Checks,
+                           errs: dict) -> None:
+    """The affine tail on y one element into its storage (rows off the
+    16-byte boundary: the element-by-element route), bit for bit the plain
+    version on the same values."""
+    from pointnet2_tpu_torch.ops import fused_mlp
+
+    buf = torch.empty(y2d.numel() + 1, dtype=y2d.dtype, device=y2d.device)
+    y = buf[1:].view(y2d.shape)
+    y.copy_(y2d)
+    got = fused_mlp.fused_affine_kernel(y, a, b)
+    want = fused_mlp.affine_fwd_plain(y2d, a, b)
+    view = torch.int16 if y.dtype == torch.bfloat16 else torch.int32
+    errs["fused_affine"] = max(errs["fused_affine"],
+                               float((got.float() - want.float()).abs().max()))
+    check(torch.equal(got.view(view), want.view(view)),
+          f"fused_affine {tag} {str(y.dtype)[6:]} {tuple(y.shape)} at storage "
+          "offset 1: bit for bit the plain version")
 
 
 def fused_request(name: str, data: dict, b: int) -> tuple:

@@ -22,7 +22,8 @@
 // below a hit gives its slot, and the walk ends as soon as nsample hits
 // are found.
 //
-// ball_query_kernel (row 2): a block serves kQueryWarps queries of one
+// ball_query_kernel (rows 2 and 3, the latter its kWithXyz instance, as
+// one pallas_call serves both): a block serves kQueryWarps queries of one
 // cloud and stages that cloud into shared memory by cp.async, in tiles of
 // kTile points, two buffers, so the next tile is in flight while the warps
 // walk this one; between tiles __syncthreads_or ends the walk for the
@@ -32,13 +33,14 @@
 // distances before the chunks' ballots run in scan order, so a warp has
 // several shared-memory loads and distance chains in flight instead of one
 // L1/L2 latency an iteration; a tile's last iteration is padded with +inf
-// points, so the walk has no bounds check. Rows 3 and 4
-// (ball_query_group_xyz_kernel, ball_query_multi_kernel) keep the warp
-// that reads its points from L1/L2 one chunk at a time; they could take
-// this design too.
-//
-// The lane that owns a hit already holds its coordinates, so grouped xyz
-// costs one store of 12 bytes a slot and no second gather.
+// points, so the walk has no bounds check. With grouped xyz the lane that
+// owns a hit reads its coordinates from the staged tile and stores them
+// to its slot, 12 bytes, so no second gather; the pad slots take the
+// first hit's coordinates (point 0's for an empty ball), which every lane
+// reads from the tile when that hit is found: no global load waits at the
+// end of the walk (measured faster than reading them from the cloud
+// there). Row 4 (ball_query_multi_kernel) keeps the warp that reads its
+// points from L1/L2 one chunk at a time.
 //
 // The multi-radius kernel walks the dataset once for up to kMaxRadii radii:
 // one squared distance a point, one ballot per radius that is not full yet,
@@ -51,71 +53,8 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kWarpsPerBlock = 8;  // queries a block of row 4
 constexpr int kMaxRadii = 8;
-
-// One warp per query, reading its points from L1/L2;
-// ball_query_group_xyz_kernel below is its one instance (kWithXyz), and
-// row 2's ball_query_kernel stages the cloud in shared memory instead.
-template <bool kWithXyz>
-__device__ __forceinline__ void ball_query_warp(
-    const float* __restrict__ xyz1, const float* __restrict__ xyz2,
-    int* __restrict__ idx, int* __restrict__ cnt, float* __restrict__ grouped,
-    long long queries, int n, int m, int nsample, float r2) {
-  const long long q =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (q >= queries) return;  // the whole warp leaves together
-  const int lane = threadIdx.x & 31;
-  const float* data = xyz1 + (q / m) * n * 3;
-  const float qx = xyz2[q * 3];
-  const float qy = xyz2[q * 3 + 1];
-  const float qz = xyz2[q * 3 + 2];
-  int* out = idx + q * nsample;
-  float* gout = kWithXyz ? grouped + q * nsample * 3 : nullptr;
-  const unsigned below = (1u << lane) - 1u;  // lanes ahead of this one
-
-  int found = 0;  // warp-uniform: built from ballots only
-  int first = 0;
-  for (int base = 0; base < n && found < nsample; base += 32) {
-    const int k = base + lane;
-    bool hit = false;
-    float px = 0.f, py = 0.f, pz = 0.f;
-    if (k < n) {
-      px = data[3 * k];
-      py = data[3 * k + 1];
-      pz = data[3 * k + 2];
-      hit = sq_dist(qx, qy, qz, px, py, pz) < r2;
-    }
-    const unsigned mask = __ballot_sync(0xffffffffu, hit);
-    if (mask != 0u) {
-      if (found == 0) first = base + __ffs(mask) - 1;
-      const int slot = found + __popc(mask & below);
-      if (hit && slot < nsample) {
-        out[slot] = k;
-        if (kWithXyz) {
-          gout[3 * slot] = px;
-          gout[3 * slot + 1] = py;
-          gout[3 * slot + 2] = pz;
-        }
-      }
-      found += __popc(mask);
-    }
-  }
-  const int c = min(found, nsample);
-  for (int s = c + lane; s < nsample; s += 32) out[s] = first;
-  if (kWithXyz) {
-    // pad slots: the first hit's coordinates, point 0's for an empty ball
-    const float fx = data[3 * first];
-    const float fy = data[3 * first + 1];
-    const float fz = data[3 * first + 2];
-    for (int s = c + lane; s < nsample; s += 32) {
-      gout[3 * s] = fx;
-      gout[3 * s + 1] = fy;
-      gout[3 * s + 2] = fz;
-    }
-  }
-  if (lane == 0) cnt[q] = c;
-}
 
 constexpr int kQueryWarps = 8;  // queries a block of ball_query_kernel
 constexpr int kTile = 1024;     // points a staged tile
@@ -160,14 +99,16 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* src,
   for (int i = nf + threadIdx.x; i < end; i += blockDim.x) dst[i] = INFINITY;
 }
 
-// Row 2. blockIdx.x = cloud * qtiles + query tile; warp w of the block owns
-// query tile * kQueryWarps + w of the cloud, if there is one (a warp
-// without a query still stages and syncs).
+// Rows 2 and 3. blockIdx.x = cloud * qtiles + query tile; warp w of the
+// block owns query tile * kQueryWarps + w of the cloud, if there is one (a
+// warp without a query still stages and syncs). kWithXyz: also grouped.
+template <bool kWithXyz>
 __global__ void __launch_bounds__(kQueryWarps * 32)
     ball_query_kernel(const float* __restrict__ xyz1,
                       const float* __restrict__ xyz2, int* __restrict__ idx,
-                      int* __restrict__ cnt, int n, int m, int nsample,
-                      float r2, int qtiles, int wide) {
+                      int* __restrict__ cnt, float* __restrict__ grouped,
+                      int n, int m, int nsample, float r2, int qtiles,
+                      int wide) {
   __shared__ __align__(16) float tile[2][kTile * 3];
   const int lane = threadIdx.x & 31;
   const long long b = blockIdx.x / qtiles;
@@ -183,10 +124,12 @@ __global__ void __launch_bounds__(kQueryWarps * 32)
     qz = xyz2[q * 3 + 2];
   }
   int* out = idx + q * nsample;
+  float* gout = kWithXyz ? grouped + q * nsample * 3 : nullptr;
   const unsigned below = (1u << lane) - 1u;  // lanes ahead of this one
 
   int found = 0;  // warp-uniform: built from ballots only
   int first = 0;
+  float fx = 0.f, fy = 0.f, fz = 0.f;  // kWithXyz: the pad slots' point
   const int tiles = (n + kTile - 1) / kTile;
   stage_tile(tile[0], data, min(n, kTile), wide);
   for (int t = 0; t < tiles; ++t) {
@@ -201,6 +144,11 @@ __global__ void __launch_bounds__(kQueryWarps * 32)
     __syncthreads();  // tile t is in place for every warp
     const float* pts = tile[t & 1];
     const int np = min(n - t0, kTile);
+    if (kWithXyz && t == 0) {
+      fx = pts[0];
+      fy = pts[1];
+      fz = pts[2];
+    }
     if (live) {
       for (int base = 0; base < np && found < nsample;
            base += 32 * kLanePts) {
@@ -216,9 +164,25 @@ __global__ void __launch_bounds__(kQueryWarps * 32)
           const bool hit = d2[j] < r2;  // a padded point: +inf
           const unsigned mask = __ballot_sync(0xffffffffu, hit);
           if (mask != 0u) {  // most chunks of a small ball have no hit
+            const int k = base + 32 * j + lane;
             if (found == 0) first = t0 + base + 32 * j + __ffs(mask) - 1;
+            if constexpr (kWithXyz) {
+              if (found == 0) {  // the first hit's
+                const int kf = first - t0;
+                fx = pts[3 * kf];
+                fy = pts[3 * kf + 1];
+                fz = pts[3 * kf + 2];
+              }
+            }
             const int slot = found + __popc(mask & below);
-            if (hit && slot < nsample) out[slot] = t0 + base + 32 * j + lane;
+            if (hit && slot < nsample) {
+              out[slot] = t0 + k;
+              if constexpr (kWithXyz) {
+                gout[3 * slot] = pts[3 * k];
+                gout[3 * slot + 1] = pts[3 * k + 1];
+                gout[3 * slot + 2] = pts[3 * k + 2];
+              }
+            }
             found += __popc(mask);
           }
         }
@@ -233,17 +197,15 @@ __global__ void __launch_bounds__(kQueryWarps * 32)
   if (!live) return;
   const int c = min(found, nsample);
   for (int s = c + lane; s < nsample; s += 32) out[s] = first;
+  if constexpr (kWithXyz) {
+    // pad slots: the first hit's coordinates, point 0's for an empty ball
+    // (taken from tile 0 before the walk), written as consecutive floats
+    for (int i = 3 * c + lane; i < 3 * nsample; i += 32) {
+      const int e = i % 3;
+      gout[i] = e == 0 ? fx : (e == 1 ? fy : fz);
+    }
+  }
   if (lane == 0) cnt[q] = c;
-}
-
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    ball_query_group_xyz_kernel(const float* __restrict__ xyz1,
-                                const float* __restrict__ xyz2,
-                                int* __restrict__ idx, int* __restrict__ cnt,
-                                float* __restrict__ grouped, long long queries,
-                                int n, int m, int nsample, float r2) {
-  ball_query_warp<true>(xyz1, xyz2, idx, cnt, grouped, queries, n, m, nsample,
-                        r2);
 }
 
 struct MultiParams {
@@ -324,42 +286,42 @@ long long query_blocks(int b, int n, int m, int* err) {
   return blocks;
 }
 
+// Rows 2 and 3's launch: a block a (cloud, tile of kQueryWarps queries),
+// 16-byte copies when every cloud and tile starts on a 16-byte boundary.
+template <bool kWithXyz>
+int launch_ball_query(const void* xyz1, const void* xyz2, void* idx,
+                      void* cnt, void* grouped, int b, int n, int m,
+                      int nsample, float r2, void* stream) {
+  if (nsample <= 0 || b <= 0 || m <= 0) return cudaSuccess;
+  const long long qtiles = (m + kQueryWarps - 1) / kQueryWarps;
+  const long long blocks = static_cast<long long>(b) * qtiles;
+  if (n <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int wide = reinterpret_cast<uintptr_t>(xyz1) % 16 == 0 && n % 4 == 0;
+  ball_query_kernel<kWithXyz><<<static_cast<unsigned>(blocks),
+                                kQueryWarps * 32, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xyz1), static_cast<const float*>(xyz2),
+      static_cast<int*>(idx), static_cast<int*>(cnt),
+      static_cast<float*>(grouped), n, m, nsample, r2,
+      static_cast<int>(qtiles), wide);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int pn2_ball_query(const void* xyz1, const void* xyz2, void* idx,
                               void* cnt, int b, int n, int m, int nsample,
                               float r2, void* stream) {
-  if (nsample <= 0 || b <= 0 || m <= 0) return cudaSuccess;
-  // a block a (cloud, tile of kQueryWarps queries)
-  const long long qtiles = (m + kQueryWarps - 1) / kQueryWarps;
-  const long long blocks = static_cast<long long>(b) * qtiles;
-  if (n <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  // 16-byte copies when every cloud and tile starts on a 16-byte boundary
-  const int wide = reinterpret_cast<uintptr_t>(xyz1) % 16 == 0 && n % 4 == 0;
-  ball_query_kernel<<<static_cast<unsigned>(blocks), kQueryWarps * 32, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xyz1), static_cast<const float*>(xyz2),
-      static_cast<int*>(idx), static_cast<int*>(cnt), n, m, nsample, r2,
-      static_cast<int>(qtiles), wide);
-  return cudaGetLastError();
+  return launch_ball_query<false>(xyz1, xyz2, idx, cnt, nullptr, b, n, m,
+                                  nsample, r2, stream);
 }
 
 extern "C" int pn2_ball_query_group_xyz(const void* xyz1, const void* xyz2,
                                         void* idx, void* cnt, void* grouped,
                                         int b, int n, int m, int nsample,
                                         float r2, void* stream) {
-  if (nsample <= 0) return cudaSuccess;
-  int err;
-  const long long blocks = query_blocks(b, n, m, &err);
-  if (err != cudaSuccess || blocks == 0) return err;
-  ball_query_group_xyz_kernel<<<static_cast<unsigned>(blocks),
-                                kWarpsPerBlock * 32, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xyz1), static_cast<const float*>(xyz2),
-      static_cast<int*>(idx), static_cast<int*>(cnt),
-      static_cast<float*>(grouped), static_cast<long long>(b) * m, n, m,
-      nsample, r2);
-  return cudaGetLastError();
+  return launch_ball_query<true>(xyz1, xyz2, idx, cnt, grouped, b, n, m,
+                                 nsample, r2, stream);
 }
 
 // radii given as r2s[count] (each f32-rounded by the caller), nsamples

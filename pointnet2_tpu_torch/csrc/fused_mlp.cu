@@ -62,24 +62,25 @@
 // the same work.
 // Fewer registers (spills), more lanes across rows, or longer or shorter
 // row chunks measured slower.
-// fused_first_bwd is elementwise: 6 bytes an element in bf16 (x and g in,
-// dx out) against about fifteen instructions, so it reaches the byte rate
-// only with wide accesses, many of them in flight and nothing else per
-// element. A thread owns 16 bytes of channels at an offset fixed for the
-// launch (no division or modulo in the loop: a flat index's 64-bit modulo
-// is a called routine, dozens of instructions an element), holds their
-// seven pack values in registers (56 floats in bf16, loaded once), and
-// loads kFirstRows = 4 rows of x and g as 16-byte pieces before computing
-// any. A row's vectors are spread over neighbouring lanes (8 at cls_ssg
-// SA1's c = 64, 16 at SA2's 128) and the block's other lanes take the next
-// rows, so a warp's accesses are contiguous; blocks of kFirstThreads =
-// 128, one a row block up to kFirstBlocks = 65536 (past it the grid
-// strides): about 80% of the byte rate in bf16 and 86% in f32 at
-// cls_ssg's shapes. 256 or 512 threads, 2 or 8 rows in flight and a grid
-// of 2-8 blocks an SM that strides measured no faster; evict-first loads
-// and stores helped the largest shapes a little and hurt those that fit
-// in L2. Ragged c and unaligned bases take the same walk element by
-// element.
+// fused_affine and fused_first_bwd are elementwise and share one walk: 4 bytes
+// an element in bf16 for fused_affine (y read, out written), 6 for
+// fused_first_bwd (x and g read, dx written), against a few and about fifteen
+// instructions, so they reach the byte rate only with wide accesses, many of
+// them in flight and nothing else per element. A thread owns 16 bytes of
+// channels at an offset fixed for the launch (no division or modulo in the
+// loop: a flat index's 64-bit modulo is a called routine, dozens of
+// instructions an element), holds their a and b, or the seven pack values, in
+// registers (loaded once), and loads kFirstRows = 4 rows of every input as
+// 16-byte pieces before computing any. A row's vectors are spread over
+// neighbouring lanes (8 at cls_ssg SA1's c = 64, 16 at SA2's 128) and the
+// block's other lanes take the next rows, so a warp's accesses are contiguous;
+// blocks of kFirstThreads = 128, one a row block up to kFirstBlocks = 65536
+// (past it the grid strides). fused_first_bwd: about 80% of the byte rate in
+// bf16 and 86% in f32 at cls_ssg's shapes; 256 or 512 threads, 2 or 8 rows in
+// flight and a grid of 2-8 blocks an SM that strides measured no faster;
+// evict-first loads and stores helped its largest shapes a little and hurt
+// those that fit in L2. Ragged c and unaligned bases take the same walk
+// element by element.
 // fused_dense and fused_dense_bwd move few bytes for their work (bf16
 // cls_ssg SA1 64 -> 128 at B=16: 101 MB forward, 30 us at 3.35 TB/s) and
 // their bound is bytes against the tensor cores' rate.
@@ -405,21 +406,6 @@ __global__ void fused_pool_kernel(const T* __restrict__ y,
       m = (v > m || v != v) ? v : m;  // a NaN stays, as in torch.amax
     }
     out[t] = from_f32<T>(m);
-  }
-}
-
-template <typename T>
-__global__ void fused_affine_kernel(const T* __restrict__ y,
-                                    const float* __restrict__ a,
-                                    const float* __restrict__ b,
-                                    T* __restrict__ out, long long total,
-                                    int c) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       t < total; t += stride) {
-    const int ch = static_cast<int>(t % c);
-    out[t] = from_f32<T>(affine_relu(to_f32(y[t]), a[ch], b[ch]));
   }
 }
 
@@ -831,7 +817,7 @@ constexpr int kLdK = kMmaK + mma::kPad;    // [m][k] tile row (g pass A)
 constexpr int kLdN = kBN + mma::kPad;      // [k][n] and [k][m] tile rows
 static_assert(kBM == kBN, "the dW pass's A and B tiles share kLdN");
 
-__device__ __forceinline__ bool aligned16(const void* p) {
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
@@ -1382,16 +1368,19 @@ __global__ void __launch_bounds__(32 * kRowWarps * kColWarps)
   }
 }
 
-// Row 15: dx = T(gr*((dout - m1) - yhat*m2)) of BN_0, x and g (rows, c).
-// A thread owns kTopVec<T> consecutive channels (16 bytes: 8 bf16 or 4 f32)
-// at a channel offset fixed for the launch: tx lanes span a row's channel
-// vectors (blockIdx.y tiles rows wider than kFirstThreads vectors), the
-// block's kFirstThreads / tx row lanes take neighbouring rows, so a warp
-// reads contiguous bytes. The thread keeps its channels' seven pack values
-// in registers, walks rows with a grid stride and loads kFirstRows rows of
-// x and g before computing any. kVec: every row starts on a 16-byte
-// boundary (c a multiple of the vector, aligned bases) and x, g and dx
-// move as 16-byte pieces; else element by element, masked at c.
+// Rows 12 and 15, the elementwise passes over (rows, c) of T with f32
+// values a channel: row 12's out = T(relu(y*a + b)) and row 15's dx =
+// T(gr*((dout - m1) - yhat*m2)) of BN_0 from x and g. One walk serves both
+// (channel_walk). A thread owns kTopVec<T> consecutive channels (16 bytes:
+// 8 bf16 or 4 f32) at a channel offset fixed for the launch: tx lanes span
+// a row's channel vectors (blockIdx.y tiles rows wider than kFirstThreads
+// vectors), the block's kFirstThreads / tx row lanes take neighbouring
+// rows, so a warp reads contiguous bytes. The thread keeps its channels'
+// values (a, b; or the seven of the pack) in registers, walks rows with a
+// grid stride and loads kFirstRows rows of every input before computing
+// any; the loop has no division or modulo. kVec: every row starts on a
+// 16-byte boundary (c a multiple of the vector, aligned bases) and the
+// tensors move as 16-byte pieces; else element by element, masked at c.
 constexpr int kFirstThreads = 128;  // threads a block
 constexpr int kFirstRows = 4;       // rows a thread loads before computing
 constexpr int kFirstBlocks = 65536;  // row blocks at most (a grid stride)
@@ -1436,35 +1425,48 @@ __device__ __forceinline__ void store_piece(T* p, const uint4& u,
   }
 }
 
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kFirstThreads)
-    fused_first_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                           const float* __restrict__ p, T* __restrict__ dx,
-                           long long rows, int c, int tx_lanes) {
+// The tensors of one elementwise pass: kIn inputs and the output (rows, c)
+// of T, and kPack rows of c f32 values a channel.
+template <typename T, int kIn, int kPack>
+struct ChannelPass {
+  const T* in[kIn];
+  const float* pack[kPack];
+  T* out;
+};
+
+// The walk of rows 12 and 15 (the map above): out = f(v, pk, e) for each
+// element, v its kIn inputs as f32, pk the thread's channel values, e its
+// place in the thread's vector.
+template <typename T, bool kVec, int kIn, int kPack, typename F>
+__device__ __forceinline__ void channel_walk(
+    const ChannelPass<T, kIn, kPack>& t, long long rows, int c, int tx_lanes,
+    F f) {
   constexpr int V = kTopVec<T>;
   const int tx = threadIdx.x % tx_lanes, ty = threadIdx.x / tx_lanes;
   const int ty_lanes = kFirstThreads / tx_lanes;
   const int col = (blockIdx.y * tx_lanes + tx) * V;  // first channel
   const int valid = min(V, c - col);  // channels of this thread
   if (ty >= ty_lanes || valid <= 0) return;
-  float pk[7][V];  // a, b, mu, r, gr, m1, m2 of the thread's channels
+  float pk[kPack][V];
 #pragma unroll
-  for (int k = 0; k < 7; ++k) {
+  for (int k = 0; k < kPack; ++k) {
 #pragma unroll
     for (int e = 0; e < V; ++e) {
-      pk[k][e] = e < valid ? p[k * c + col + e] : 0.0f;
+      pk[k][e] = e < valid ? t.pack[k][col + e] : 0.0f;
     }
   }
   const long long step = static_cast<long long>(gridDim.x) * ty_lanes;
   for (long long r0 = static_cast<long long>(blockIdx.x) * ty_lanes + ty;
        r0 < rows; r0 += kFirstRows * step) {
-    uint4 xr[kFirstRows], gr[kFirstRows];
+    uint4 raw[kFirstRows][kIn];
 #pragma unroll
     for (int j = 0; j < kFirstRows; ++j) {
       const long long at = (r0 + j * step) * c + col;
       if (r0 + j * step < rows) {
-        xr[j] = load_piece<T, kVec>(x + at, valid);
-        gr[j] = load_piece<T, kVec>(g + at, valid);
+#pragma unroll
+        for (int i = 0; i < kIn; ++i) {
+          raw[j][i] = load_piece<T, kVec>(t.in[i] + at, valid);
+        }
       }
     }
 #pragma unroll
@@ -1473,16 +1475,77 @@ __global__ void __launch_bounds__(kFirstThreads)
       float o[V];
 #pragma unroll
       for (int e = 0; e < V; ++e) {
-        const float v = piece_at<T>(xr[j], e);
-        const float dout = relu_gate(piece_at<T>(gr[j], e),
-                                     bn_out(v, pk[0][e], pk[1][e]));
-        o[e] = bn_dy(dout, bn_hat(v, pk[2][e], pk[3][e]), pk[4][e],
-                     pk[5][e], pk[6][e]);
+        float v[kIn];
+#pragma unroll
+        for (int i = 0; i < kIn; ++i) v[i] = piece_at<T>(raw[j][i], e);
+        o[e] = f(v, pk, e);
       }
-      store_piece<T, kVec>(dx + (r0 + j * step) * c + col, pack_piece<T>(o),
-                           valid);
+      store_piece<T, kVec>(t.out + (r0 + j * step) * c + col,
+                           pack_piece<T>(o), valid);
     }
   }
+}
+
+// Row 12: in y; pack a, b.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kFirstThreads)
+    fused_affine_kernel(const ChannelPass<T, 1, 2> t, long long rows, int c,
+                        int tx_lanes) {
+  channel_walk<T, kVec>(
+      t, rows, c, tx_lanes,
+      [](const float (&v)[1], const float (&pk)[2][kTopVec<T>], int e) {
+        return affine_relu(v[0], pk[0][e], pk[1][e]);
+      });
+}
+
+// Row 15: in x, g; pack a, b, mu, r, gr, m1, m2.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kFirstThreads)
+    fused_first_bwd_kernel(const ChannelPass<T, 2, 7> t, long long rows,
+                           int c, int tx_lanes) {
+  channel_walk<T, kVec>(
+      t, rows, c, tx_lanes,
+      [](const float (&v)[2], const float (&pk)[7][kTopVec<T>], int e) {
+        const float dout = relu_gate(v[1], bn_out(v[0], pk[0][e], pk[1][e]));
+        return bn_dy(dout, bn_hat(v[0], pk[2][e], pk[3][e]), pk[4][e],
+                     pk[5][e], pk[6][e]);
+      });
+}
+
+// Rows 12 and 15's launch: tx lanes span a row's channel vectors (at most
+// kFirstThreads, more in blockIdx.y tiles), kFirstThreads / tx rows a
+// block, as many row blocks as the rows need up to kFirstBlocks; the
+// kernel's kVec instance where c is a multiple of the vector and every
+// tensor starts on a 16-byte boundary.
+template <typename T, int kIn, int kPack>
+cudaError_t launch_channel_pass(
+    void (*vec_kernel)(ChannelPass<T, kIn, kPack>, long long, int, int),
+    void (*any_kernel)(ChannelPass<T, kIn, kPack>, long long, int, int),
+    const ChannelPass<T, kIn, kPack>& t, long long rows, int c,
+    cudaStream_t st) {
+  constexpr int V = kTopVec<T>;
+  const int vecs = (c + V - 1) / V;
+  const int tx = vecs < kFirstThreads ? vecs : kFirstThreads;
+  const long long per = static_cast<long long>(kFirstThreads / tx) *
+                        kFirstRows;
+  const long long want = (rows + per - 1) / per;
+  const dim3 grid(static_cast<unsigned>(want < kFirstBlocks ? want
+                                                            : kFirstBlocks),
+                  (vecs + tx - 1) / tx);
+  bool vec = c % V == 0 && aligned16(t.out);
+  for (int i = 0; i < kIn; ++i) vec = vec && aligned16(t.in[i]);
+  const auto kernel = vec ? vec_kernel : any_kernel;
+  kernel<<<grid, kFirstThreads, 0, st>>>(t, rows, c, tx);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_affine(const void* y, const float* a, const float* b,
+                          void* out, long long rows, int c, cudaStream_t st) {
+  const ChannelPass<T, 1, 2> t{
+      {static_cast<const T*>(y)}, {a, b}, static_cast<T*>(out)};
+  return launch_channel_pass(fused_affine_kernel<T, true>,
+                             fused_affine_kernel<T, false>, t, rows, c, st);
 }
 
 unsigned grid_for(long long total, int threads) {
@@ -1623,22 +1686,14 @@ extern "C" int pn2_fused_affine(const void* y, const void* a, const void* b,
                                 void* out, long long rows, int c, int itemsize,
                                 void* stream) {
   if (rows <= 0 || c <= 0) return cudaSuccess;
-  const long long total = rows * c;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* af = static_cast<const float*>(a);
   const float* bf = static_cast<const float*>(b);
-  if (itemsize == 4) {
-    fused_affine_kernel<float><<<grid_for(total, 256), 256, 0, st>>>(
-        static_cast<const float*>(y), af, bf, static_cast<float*>(out), total,
-        c);
-  } else if (itemsize == 2) {
-    fused_affine_kernel<__nv_bfloat16><<<grid_for(total, 256), 256, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(y), af, bf,
-        static_cast<__nv_bfloat16*>(out), total, c);
-  } else {
-    return cudaErrorInvalidValue;
+  if (itemsize == 4) return launch_affine<float>(y, af, bf, out, rows, c, st);
+  if (itemsize == 2) {
+    return launch_affine<__nv_bfloat16>(y, af, bf, out, rows, c, st);
   }
-  return cudaGetLastError();
+  return cudaErrorInvalidValue;
 }
 
 namespace {
@@ -1681,36 +1736,17 @@ cudaError_t launch_top_stats(const void* y, const void* g, const float* p,
   return sum_rows(part2, sums + c, blocks, c, st);
 }
 
-// Row 15's grid: tx lanes span a row's channel vectors (at most
-// kFirstThreads, more in blockIdx.y tiles), kFirstThreads / tx rows a
-// block, as many row blocks as the rows need up to kFirstBlocks.
 template <typename T>
 cudaError_t launch_first_bwd(const void* x, const void* g, const float* p,
                              void* dx, long long rows, int c,
                              cudaStream_t st) {
-  constexpr int V = kTopVec<T>;
-  const int vecs = (c + V - 1) / V;
-  const int tx = vecs < kFirstThreads ? vecs : kFirstThreads;
-  const long long per = static_cast<long long>(kFirstThreads / tx) *
-                        kFirstRows;
-  const long long want = (rows + per - 1) / per;
-  const dim3 grid(static_cast<unsigned>(want < kFirstBlocks ? want
-                                                            : kFirstBlocks),
-                  (vecs + tx - 1) / tx);
-  const bool vec = c % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(dx) % 16 == 0;
-  const T* xt = static_cast<const T*>(x);
-  const T* gt = static_cast<const T*>(g);
-  T* dxt = static_cast<T*>(dx);
-  if (vec) {
-    fused_first_bwd_kernel<T, true><<<grid, kFirstThreads, 0, st>>>(
-        xt, gt, p, dxt, rows, c, tx);
-  } else {
-    fused_first_bwd_kernel<T, false><<<grid, kFirstThreads, 0, st>>>(
-        xt, gt, p, dxt, rows, c, tx);
-  }
-  return cudaGetLastError();
+  const ChannelPass<T, 2, 7> t{
+      {static_cast<const T*>(x), static_cast<const T*>(g)},
+      {p, p + c, p + 2 * c, p + 3 * c, p + 4 * c, p + 5 * c, p + 6 * c},
+      static_cast<T*>(dx)};
+  return launch_channel_pass(fused_first_bwd_kernel<T, true>,
+                             fused_first_bwd_kernel<T, false>, t, rows, c,
+                             st);
 }
 
 struct DenseBwd {

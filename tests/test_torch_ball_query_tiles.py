@@ -1,5 +1,6 @@
-"""The walk of row 2's CUDA kernel (csrc/ball_query.cu ball_query_kernel),
-emulated in numpy on the CPU.
+"""The walk of rows 2 and 3's CUDA kernel (csrc/ball_query.cu
+ball_query_kernel, row 3 its kWithXyz instance), emulated in numpy on the
+CPU.
 
 A block serves kQueryWarps queries of one cloud, stages the cloud in tiles
 of kTile points, and each warp walks a tile kLanePts * 32 points an
@@ -9,7 +10,14 @@ hits, and the block leaves the tile loop once every warp has stopped. The
 emulation reads those constants from the source and must give the same
 indices and counts as ``ball_query_plain`` and JAX's ``ball_query_pallas``
 (interpret mode) bit for bit, at and around the tile edges, with nsample >
-N, an empty ball and a ball that holds every point.
+N, an empty ball and a ball that holds every point. With grouped xyz the
+lane that owns a hit copies its coordinates from the staged tile into its
+slot, and the pad slots take the first hit's, read from its tile when it
+is found (point 0's, from the first tile, for an empty ball): the
+emulated ``grouped`` must equal ``xyz1[b, idx]``
+and ``ball_query_group_xyz_plain`` bit for bit (-0.0 included) and JAX's
+``query_ball_and_group_xyz(impl="pallas")`` by value (its masked sum turns
+-0.0 into +0.0).
 """
 
 import re
@@ -37,12 +45,14 @@ WARPS, TILE, LANE_PTS = (_const("kQueryWarps"), _const("kTile"),
 
 def emulate(radius: float, nsample: int, xyz1: np.ndarray,
             xyz2: np.ndarray):
-    """(idx, cnt, tiles walked by each block) of the kernel's walk."""
+    """(idx, cnt, tiles walked by each block, grouped) of the kernel's
+    walk."""
     B, N, _ = xyz1.shape
     M = xyz2.shape[1]
     r2 = np.float32(grouping._r2(radius))
     idx = np.zeros((B, M, nsample), np.int32)
     cnt = np.zeros((B, M), np.int32)
+    grouped = np.full((B, M, nsample, 3), np.nan, np.float32)
     walked = []
     lanes = np.arange(32)
     for b in range(B):
@@ -50,6 +60,7 @@ def emulate(radius: float, nsample: int, xyz1: np.ndarray,
             qs = range(q0, min(q0 + WARPS, M))
             found = {q: 0 for q in qs}
             first = {q: 0 for q in qs}
+            pad = {q: xyz1[b, 0] for q in qs}  # from tile 0
             tiles = 0
             for t0 in range(0, N, TILE):
                 tiles += 1
@@ -72,10 +83,13 @@ def emulate(radius: float, nsample: int, xyz1: np.ndarray,
                             if found[q] == 0:
                                 first[q] = t0 + base + 32 * j + int(
                                     np.argmax(h))
+                                pad[q] = pts[first[q] - t0]  # from the tile
                             slot = found[q] + np.cumsum(h) - 1
                             put = h & (slot < nsample)
                             idx[b, q, slot[put]] = t0 + base + 32 * j \
                                 + lanes[put]
+                            # each hit's lane: its point from the tile
+                            grouped[b, q, slot[put]] = p[32 * j + lanes[put]]
                             found[q] += int(h.sum())
                         base += 32 * LANE_PTS
                 if not any(found[q] < nsample for q in qs):
@@ -84,8 +98,9 @@ def emulate(radius: float, nsample: int, xyz1: np.ndarray,
             for q in qs:
                 c = min(found[q], nsample)
                 idx[b, q, c:] = first[q]
+                grouped[b, q, c:] = pad[q]
                 cnt[b, q] = c
-    return idx, cnt, walked
+    return idx, cnt, walked, grouped
 
 
 def _cloud(rng, B, N, M, empty: bool):
@@ -108,7 +123,7 @@ def _cloud(rng, B, N, M, empty: bool):
 def test_emulated_walk_bit_identical(rng, B, N, M, radius, nsample):
     full = radius == 2.0
     xyz1, xyz2 = _cloud(rng, B, N, M, empty=not full)
-    idx, cnt, walked = emulate(radius, nsample, xyz1, xyz2)
+    idx, cnt, walked, _ = emulate(radius, nsample, xyz1, xyz2)
     widx, wcnt = grouping.ball_query_plain(radius, nsample,
                                            torch.from_numpy(xyz1),
                                            torch.from_numpy(xyz2))
@@ -126,3 +141,50 @@ def test_emulated_walk_bit_identical(rng, B, N, M, radius, nsample):
     assert max(walked) == tiles  # the empty ball's block walks every tile
     if radius >= 0.5 and N > TILE:  # the other blocks stop after one
         assert min(walked) == 1
+
+
+def _signed_zeros(xyz1: np.ndarray) -> np.ndarray:
+    """xyz1 with some coordinates set to -0.0 (and points at the origin)."""
+    out = xyz1.copy()
+    out[:, ::7, 0] = -0.0
+    out[:, 3::11, 2] = -0.0
+    out[:, 5::13] = -0.0
+    return out
+
+
+@pytest.mark.parametrize("signed_zero", [False, True])
+@pytest.mark.parametrize("B,N,M,radius,nsample", [
+    (2, TILE - 1, 12, 0.1, 64), (2, TILE, 12, 0.1, 64),
+    (2, TILE + 1, 12, 0.1, 64), (1, 2 * TILE + 1, 9, 0.15, 32),
+    (2, 20, 9, 0.5, 32),  # nsample > N
+    (2, 1, 5, 0.2, 4),  # N = 1
+    (1, 2 * TILE + 7, 10, 2.0, 32),  # every point a hit
+])
+def test_emulated_grouped_xyz(rng, B, N, M, radius, nsample, signed_zero):
+    """Row 3: idx and cnt bit for bit as row 2, grouped bit for bit
+    xyz1[b, idx] and the plain version, by value JAX's Pallas kernel; the
+    last query's ball is empty (unless every point is a hit)."""
+    full = radius == 2.0
+    xyz1, xyz2 = _cloud(rng, B, N, M, empty=not full)
+    if signed_zero:
+        xyz1 = _signed_zeros(xyz1)
+        assert np.signbit(xyz1).any()
+    idx, cnt, _, grouped = emulate(radius, nsample, xyz1, xyz2)
+    rows = np.arange(B)[:, None, None]
+    want = xyz1[rows, idx]
+    np.testing.assert_array_equal(grouped.view(np.int32), want.view(np.int32))
+    pidx, pcnt, pgrp = grouping.ball_query_group_xyz_plain(
+        radius, nsample, torch.from_numpy(xyz1), torch.from_numpy(xyz2))
+    np.testing.assert_array_equal(idx, pidx.numpy())
+    np.testing.assert_array_equal(cnt, pcnt.numpy())
+    np.testing.assert_array_equal(grouped.view(np.int32),
+                                  pgrp.numpy().view(np.int32))
+    jidx, jcnt, jgrp = jops.query_ball_and_group_xyz(
+        radius, nsample, jnp.asarray(xyz1), jnp.asarray(xyz2), impl="pallas")
+    np.testing.assert_array_equal(idx, np.asarray(jidx))
+    np.testing.assert_array_equal(cnt, np.asarray(jcnt))
+    np.testing.assert_array_equal(grouped, np.asarray(jgrp))  # by value
+    if not full:
+        assert (grouped[:, -1] == xyz1[:, :1]).all()  # point 0's, empty
+    if signed_zero and N > 1:
+        assert np.signbit(grouped).any()  # copied as -0.0

@@ -7,6 +7,9 @@ imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +22,18 @@ from pointnet2_tpu_torch import Predictor, config
 from pointnet2_tpu_torch import ops
 
 pytestmark = pytest.mark.cuda
+
+_CSRC = Path(__file__).resolve().parent.parent / "pointnet2_tpu_torch" / "csrc"
+
+
+def _const(src: str, name: str) -> int:
+    text = (_CSRC / src).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+TILE = _const("ball_query.cu", "kTile")
+FIRST = {n: _const("fused_mlp.cu", n)
+         for n in ("kFirstThreads", "kFirstRows", "kFirstBlocks")}
 
 
 @pytest.fixture
@@ -519,6 +534,50 @@ def test_ball_query_group_xyz_kernel_empty_ball_and_signed_zero(dev):
         grouped[0, 0, 2, 2])
 
 
+def _shifted(t, offset: int):
+    """t copied `offset` elements into fresh storage of its dtype."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("N", [TILE - 1, TILE, TILE + 1, 2 * TILE + 1])
+def test_ball_query_group_xyz_kernel_tiles(dev, rs, N, offset):
+    """Around and past the staged tile (kTile points): idx and cnt bit for
+    bit the plain ball query, grouped bit for bit xyz1[idx] and the plain
+    version. N % 4 != 0 or xyz1 one float into its storage takes the
+    4-byte cp.async route; -0.0 coordinates are copied as -0.0; the last
+    query's ball is empty; an all-hit radius and nsample > N."""
+    B, M = 2, 40
+    x = rs.rand(B, N, 3).astype(np.float32)
+    x[:, ::7, 0] = -0.0
+    x[:, 3::11, 2] = -0.0
+    xyz1 = _shifted(torch.from_numpy(x).to(dev), offset)
+    assert xyz1.storage_offset() == offset
+    pick = torch.from_numpy(rs.randint(0, N, M)).to(dev)
+    xyz2 = (xyz1[:, pick] + 0.01).contiguous()
+    xyz2[:, -1] = -3.0
+    rows = torch.arange(B, device=dev)[:, None, None]
+    for radius, nsample in ((0.15, 64), (0.5, 32), (2.0, N + 5)):
+        before = ops.ball_query_group_xyz_kernel.launches
+        idx, cnt, grouped = ops.query_ball_and_group_xyz(radius, nsample,
+                                                         xyz1, xyz2)
+        assert ops.ball_query_group_xyz_kernel.launches == before + 1
+        widx, wcnt, wgrp = _plain(ops.query_ball_and_group_xyz, radius,
+                                  nsample, xyz1, xyz2)
+        assert torch.equal(idx, widx) and torch.equal(cnt, wcnt)
+        assert torch.equal(_bits(grouped), _bits(wgrp))
+        assert torch.equal(_bits(grouped), _bits(xyz1[rows, idx.long()]))
+        assert not cnt[:, -1].any() and not idx[:, -1].any()
+        assert torch.signbit(grouped).any()
+
+
 def test_ball_query_group_xyz_grad_goes_through_the_scatter_kernel(dev, rs):
     xyz1, xyz2 = _cloud_and_queries(rs, dev, 2, 512, 128)
     ct = torch.from_numpy(rs.randn(2, 128, 32, 3).astype(np.float32)).to(dev)
@@ -681,6 +740,56 @@ def test_fused_pool_and_affine_kernels_bitwise(dev, rs, dtype, G, S, C):
         y.reshape(-1, C), a, b).view(view))
 
 
+def _one_stride(C: int, isz: int) -> int:
+    """Rows the launch of rows 12 and 15 takes in one pass of its grid."""
+    tx = min(-(-C * isz // 16), FIRST["kFirstThreads"])
+    return (FIRST["kFirstBlocks"] * (FIRST["kFirstThreads"] // tx)
+            * FIRST["kFirstRows"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("R,C", [(1000, 1), (1000, 3), (777, 40),
+                                 (1001, 131), (513, 256)])
+def test_fused_affine_kernel_bitwise(dev, rs, dtype, offset, R, C):
+    """Row 12 bit for bit affine_fwd_plain: C a multiple of the 16-byte
+    vector or not, y at storage offset 0 or 1 (element by element), with
+    +-inf, NaN, and zero scales (inf * 0 gives NaN) from C = 2 on."""
+    from pointnet2_tpu_torch.ops import fused_mlp
+
+    y = rs.randn(R, C).astype(np.float32)
+    y.flat[::97] = np.inf
+    y.flat[1::97] = -np.inf
+    y.flat[2::89] = np.nan
+    a = rs.randn(C).astype(np.float32)
+    a[1::5] = 0.0
+    y = _shifted(torch.from_numpy(y).to(dev, dtype), offset)
+    a = torch.from_numpy(a).to(dev)
+    b = torch.from_numpy(0.1 * rs.randn(C).astype(np.float32)).to(dev)
+    before = ops.fused_affine_kernel.launches
+    got = fused_mlp.affine_fwd(y, a, b)
+    assert ops.fused_affine_kernel.launches == before + 1
+    want = fused_mlp.affine_fwd_plain(y, a, b)
+    assert torch.isnan(want).any() and torch.isinf(want).any()
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 256])
+def test_fused_affine_kernel_past_one_grid_stride(dev, dtype, C):
+    """More rows than kFirstBlocks row blocks take in one pass: the grid
+    strides; bit for bit affine_fwd_plain."""
+    from pointnet2_tpu_torch.ops import fused_mlp
+
+    R = _one_stride(C, torch.empty((), dtype=dtype).element_size()) + 777
+    g = torch.Generator(device=dev).manual_seed(12)
+    y = torch.randn((R, C), generator=g, device=dev).to(dtype)
+    a = torch.randn(C, generator=g, device=dev)
+    b = 0.1 * torch.randn(C, generator=g, device=dev)
+    got = fused_mlp.affine_fwd(y, a, b)
+    assert torch.equal(_bits(got), _bits(fused_mlp.affine_fwd_plain(y, a, b)))
+
+
 def test_fused_kernels_refuse_what_they_do_not_take(dev, rs):
     x, a, b, w, bias = _dense_inputs(rs, dev, 64, 8, 4, torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
@@ -767,13 +876,7 @@ def test_fused_top_stats_kernel_matches_plain(dev, rs, dtype, pool, G, S, C):
     (w1, w2), (a1, a2) = chain_terms(torch, y, g, p, pool)
     assert sum_ok(t1, w1, a1) and sum_ok(t2, w2, a2)
 
-    def shifted(t):
-        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
-        out = buf[1:].view(t.shape)
-        out.copy_(t)
-        return out
-
-    yo, go = shifted(y), shifted(g)
+    yo, go = _shifted(y, 1), _shifted(g, 1)
     assert yo.storage_offset() == go.storage_offset() == 1
     o1, o2 = fused_mlp.top_stats(yo, go, p, pool)
     assert torch.equal(t1, o1) and torch.equal(t2, o2)
@@ -901,13 +1004,7 @@ def test_fused_first_bwd_kernel_unaligned(dev, rs, dtype, R, C):
     g = torch.from_numpy(rs.randn(R, C).astype(np.float32)).to(dev, dtype)
     p = _pack_on(rs, dev, C)
 
-    def shifted(t):
-        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
-        out = buf[1:].view(t.shape)
-        out.copy_(t)
-        return out
-
-    xo, go = shifted(x), shifted(g)
+    xo, go = _shifted(x, 1), _shifted(g, 1)
     assert xo.storage_offset() == go.storage_offset() == 1
     view = torch.int16 if dtype == torch.bfloat16 else torch.int32
     want = fused_mlp.first_bwd_plain(x, g, p).view(view)
