@@ -18,13 +18,18 @@ and multi-scale grouping, ``Predictor("pointnet2_cls_msg")``,
 ``Predictor("pointnet_cls_basic")``, with the MSG layers' unfused layout and
 the multi-radius ball query; the fused SA chain (``config.fused_mlp``)
 through ``Predictor`` for the five models with fused-eligible SA layers;
-and the fused chain in train mode through ``Trainer.fit`` of
-``pointnet2_cls_ssg`` and ``pointnet2_cls_msg``.
+the fused chain in train mode through ``Trainer.fit`` of
+``pointnet2_cls_ssg`` and ``pointnet2_cls_msg``; and segmentation training,
+``Trainer.fit`` of ``pointnet2_sem_seg`` on ``ScannetDataset`` crops of
+generated rooms (8192 points, the wdp input dropout, ``augment="scannet"``),
+``pointnet2_part_seg`` and ``pointnet2_part_seg_msg_one_hot`` on
+``SyntheticShapeNetPart`` (2048 points with normals, category labels).
 Phases:
 
 1. build the kernels from ``pointnet2_tpu_torch/csrc/`` with nvcc, one
    process per source, all at once; log ``ptxas -v`` of ``ball_query.cu``,
-   ``scatter.cu``, ``three_nn.cu`` and ``fused_mlp.cu``, and check in the
+   ``scatter.cu``, ``three_nn.cu`` and ``fused_mlp.cu`` (and check that no
+   kernel of ``ball_query.cu`` has a stack frame or spills), and check in the
    built library's SASS that the bf16 dense pass's product and the bf16
    dense backward's two run on the tensor cores (HMMA) and the f32 ones do
    not;
@@ -124,7 +129,7 @@ Phases:
     models at B=16 and 64 in bf16 and f32 (host ms, device time, peak
     memory); and a fused bf16 B=16 forward's device time by op;
 19. hold the chain's backward kernels against their plain versions along
-    every fused chain of cls_ssg and cls_msg at B=16 (the models' own BN
+    every fused chain of the five models at B=16 (the models' own BN
     scales and biases, random pre-BN activations and cotangents, batch
     statistics), bf16 and f32, each kernel on the previous one's outputs,
     and along a ragged chain (1000 rows, 196 -> 40, groups of 8): the top
@@ -153,7 +158,32 @@ Phases:
     against the unfused autograd backward of the same layer, the train
     steps of cls_ssg and cls_msg fused and unfused at B=16 in bf16 and f32
     (ms/step, examples/s, device time, peak memory), and a fused bf16
-    cls_ssg step's device time by op.
+    cls_ssg step's device time by op;
+22. one full-width train step of sem_seg (B=16, a ScanNet crop of 8192
+    points with its wdp-zeroed weights, the z rotation), part_seg and
+    part_seg_msg (B=16, 2048 points with normals, category labels) through
+    the kernels and through the plain versions on the card, f32 and bf16:
+    loss and running statistics equal, gradients within 1e-4 (f32) or 0.5
+    (bf16, the median tensor's within 2e-2) of their scales, every scatter
+    of the kernel path's step bit for bit its plain version on CPU copies
+    of its cotangent rows and indices; then sem_seg's step with
+    ``config.fused_mlp`` on, kernels against plain versions, f32 (loss
+    1e-5, statistics 1e-3, gradients 2e-2) and bf16 (loss 1e-2,
+    statistics 5e-2, gradients logged), the chain's kernels launched for
+    each of its four SA layers, and those four layers on the step's crop,
+    kernels against plain versions within phase 20's layer limits;
+23. train with ``Trainer.fit`` (batch 16, Adam lr 1e-3, 4 epochs of 3
+    steps): sem_seg on ScanNet crops of 48 generated rooms (eval: 16
+    others), part_seg and part_seg_msg on 48 synthetic part clouds (eval:
+    16 others), each in bf16 and f32, and sem_seg in bf16 with
+    ``config.fused_mlp`` on, each run with every launch counter set to 0
+    just before and read just after; the train loss must fall, the eval's
+    per-point accuracy be logged, and every forward launch its path's FPS,
+    ball query and three-NN kernels;
+24. time the segmentation train steps at B=16 in bf16 and f32 (and
+    sem_seg bf16 with the gate off and on): ms/step, examples/s, device
+    us/step, the card's idle share of the step, peak memory; and a bf16
+    sem_seg step's device time by op.
 
 Prints the GPU's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
@@ -840,12 +870,13 @@ def check_scatter(torch, dev, check: Checks, errs: dict) -> None:
 
 
 def make_trainer(torch, dtype: str, log_dir: str, epochs: int, seed=SEED,
-                 model: str = "pointnet2_cls_ssg"):
+                 model: str = "pointnet2_cls_ssg", num_point: int = N_POINT,
+                 augment: str = "cls"):
     from pointnet2_tpu_torch.train import TrainConfig, Trainer
 
-    cfg = TrainConfig(model=model, batch_size=16, num_point=N_POINT,
+    cfg = TrainConfig(model=model, batch_size=16, num_point=num_point,
                       max_epoch=epochs, learning_rate=1e-3, optimizer="adam",
-                      augment="cls", compute_dtype=dtype, log_dir=log_dir,
+                      augment=augment, compute_dtype=dtype, log_dir=log_dir,
                       seed=seed)
     return Trainer(cfg, device="cuda")
 
@@ -869,7 +900,7 @@ def one_step(torch, trainer, batch: dict, impl: str, gen_seed: int = 5,
     trainer.generator.manual_seed(gen_seed)
     with config.default_impl(impl), config.fused_mlp(fused):
         m = run_one_step(state, batch, trainer.loss_fn, trainer.bn_schedule,
-                         trainer.augment_fn, trainer.generator)
+                         trainer.augment_fn, trainer.generator, trainer.task)
     model = state.model
     return (float(m["loss"]),
             {k: p.grad.clone() for k, p in model.named_parameters()},
@@ -2257,8 +2288,9 @@ BWD = ("fused_top_stats", "fused_dense_bwd", "fused_first_bwd")
 RAGGED_BWD = (125, 8, 40, 196)
 # phase 20's fused layers, kernels vs plain (`fused_layer_errs`), on these
 # inputs: (B, N, kind). The limits stand 1.8x or more above the largest
-# readings on an H100 (PERF.md; a bf16 gradient reads up to 2.7e-2 since
-# the bf16 dense pass adds in the tensor cores' order, no longer cuBLAS's);
+# readings of cls_ssg's layers on an H100 (PERF.md; a bf16 gradient reads
+# up to 2.7e-2 since the bf16 dense pass adds in the tensor cores' order,
+# no longer cuBLAS's), and 1.79x above sem_seg's four (phase 22, 2.8e-2);
 # in f32 most output elements differ in their last bits, so that share is
 # not bounded. A zeroed or scaled gradient reads 1 or more.
 LAYER_INPUTS = ((16, N_POINT, "clouds"), (16, N_POINT, "uniform"),
@@ -2292,9 +2324,10 @@ def sum_ok(got, exact, abs_sum, nonzero: bool = True) -> bool:
     17 * 2^-23 of the running sum|terms|; then the slabs' sum), so a right
     sum strays at most 1200 * 2^-24 = 7.2e-5 of it; a sum of R
     random-sign terms is about sum|terms| / sqrt(R), 2e-3 of it at
-    R = 262144. With `nonzero`, some exact sum must lie outside the bound,
-    so that a zeroed sum fails (db is zero in exact arithmetic: train-mode
-    BN follows the dense, and its sum dy = -gr * m2 * sum yhat = 0)."""
+    R = 262144 and 1e-3 at 1048576 (part_seg_msg SA1's third scale). With
+    `nonzero`, some exact sum must lie outside the bound, so that a zeroed
+    sum fails (db is zero in exact arithmetic: train-mode BN follows the
+    dense, and its sum dy = -gr * m2 * sum yhat = 0)."""
     bound = SUM_RTOL * abs_sum
     return (bool(((got.double() - exact).abs() <= bound).all())
             and not (nonzero and bool((exact.abs() <= bound).all())))
@@ -2513,15 +2546,15 @@ def check_bwd_chain(torch, dev, g, tag, ys, stats, ws, ns, check, errs):
 def check_fused_bwd_kernels(torch, dev, chains: list, check: Checks,
                             errs: dict) -> None:
     """Phase 19: rows 13-15 against their plain versions along every fused
-    chain of cls_ssg and cls_msg at B=16 (the train path's shapes), bf16 and
+    chain of the five models at B=16 (the train path's shapes with the gate
+    on: cls_ssg's and cls_msg's, and sem_seg's four, which phase 23 trains
+    fused; part_seg's and part_seg_msg's, up to 1048576 rows), bf16 and
     f32, and along a ragged chain."""
     log("phase 19: the fused chain's backward kernels vs plain versions on "
-        "the card, every train-path chain of cls_ssg and cls_msg at B=16")
+        "the card, every fused chain of the five models at B=16")
     g = torch.Generator(device=dev).manual_seed(SEED + 19)
     with torch.no_grad():
         for tag, mlp, R, ns in chains:
-            if not tag.startswith(("cls_ssg", "cls_msg")):
-                continue
             for dt in (torch.bfloat16, torch.float32):
                 ys, stats, ws = saved_chain(torch, dev, g, mlp, R, dt)
                 check_bwd_chain(torch, dev, g, tag, ys, stats, ws, ns, check,
@@ -2610,54 +2643,60 @@ def fixed_step(torch, dev, batch: dict, dtype, impl: str, fused: bool,
             {k: ops.KERNELS[k].launches - before[k] for k in BWD})
 
 
-def fused_layers(torch, dev, dtype, impl: str, inputs: list,
-                 cots: list) -> tuple:
-    """cls_ssg's SA1 and SA2 from the seed's weights, in train mode with the
-    gate on, each on fixed inputs and with one backward of a fixed
-    cotangent of its output: (outputs, {grad}, {running statistic}), the
-    latter two in float64."""
+def fused_layers(torch, dev, dtype, impl: str, inputs: list, cots: list,
+                 name: str = CLS_SSG, layers=("sa1", "sa2")) -> tuple:
+    """A model's SA `layers` from the seed's weights (cls_ssg's SA1 and
+    SA2 by default), in train mode with the gate on, each on fixed inputs
+    and with one backward of a fixed cotangent of its output: (outputs,
+    {grad}, {running statistic}), the latter two in float64."""
     from pointnet2_tpu_torch import config, get_model
 
-    model = get_model(CLS_SSG, device="cpu", seed=SEED, dtype=dtype)
+    model = get_model(name, device="cpu", seed=SEED, dtype=dtype)
     model = model.to(dev).train()
     outs = []
     with config.default_impl(impl), config.fused_mlp(True):
-        for sa, (xyz, pts), cot in zip((model.sa1, model.sa2), inputs, cots):
-            out = sa(xyz, pts)[1]
+        for layer, (xyz, pts), cot in zip(layers, inputs, cots):
+            out = getattr(model, layer)(xyz, pts)[1]
             (out.float() * cot).sum().backward()
             outs.append(out.detach())
-    layers = ("sa1.", "sa2.")
+    prefixes = tuple(f"{layer}." for layer in layers)
     return (outs, {k: p.grad.double() for k, p in model.named_parameters()
-                   if k.startswith(layers)},
+                   if k.startswith(prefixes)},
             {k: b.double() for k, b in model.named_buffers()
-             if k.startswith(layers)})
+             if k.startswith(prefixes)})
 
 
-def fused_layer_errs(torch, dev, dtype, points) -> dict:
-    """cls_ssg's two fused layers through the kernels against the same
-    layers through the plain versions, on the same inputs (SA2's: SA1's
-    plain output) and cotangents: the share of output elements that
-    differ, the largest output difference over max|out|, the largest
-    gradient difference over its norm (dense biases in front of a
-    train-mode BN aside, `bn_fed_bias`), and the largest running-statistic
-    difference over its tensor's scale. The two routes see the same
-    indices and gathers; they part only where the kernels sum in another
-    order (the BN statistics, the products, T1/T2), which moves a rounding
-    of an activation or of dy now and then."""
+def fused_layer_errs(torch, dev, dtype, points, name: str = CLS_SSG,
+                     layers=("sa1", "sa2")) -> dict:
+    """A model's fused SA layers (cls_ssg's two by default) through the
+    kernels against the same layers through the plain versions, on the
+    same inputs (each layer's: the previous layer's plain output) and
+    cotangents: the share of output elements that differ, the largest
+    output difference over max|out|, the largest gradient difference over
+    its norm (dense biases in front of a train-mode BN aside,
+    `bn_fed_bias`), and the largest running-statistic difference over its
+    tensor's scale. The two routes see the same indices and gathers; they
+    part only where the kernels sum in another order (the BN statistics,
+    the products, T1/T2), which moves a rounding of an activation or of dy
+    now and then."""
     from pointnet2_tpu_torch import config, get_model
 
-    model = get_model(CLS_SSG, device="cpu", seed=SEED, dtype=dtype)
+    model = get_model(name, device="cpu", seed=SEED, dtype=dtype)
     model = model.to(dev).train()
+    inputs, outs = [], []
+    xyz, pts = points, None
     with torch.no_grad(), config.default_impl("torch"), config.fused_mlp(
             True):
-        l1_xyz, l1_points, _ = model.sa1(points, None)
-        l2_points = model.sa2(l1_xyz, l1_points)[1]
-    inputs = [(points, None), (l1_xyz, l1_points)]
+        for layer in layers:
+            inputs.append((xyz, pts))
+            xyz, pts, _ = getattr(model, layer)(xyz, pts)
+            outs.append(pts)
     g = torch.Generator(device=dev).manual_seed(SEED + 20)
-    cots = [torch.randn(o.shape, generator=g, device=dev)
-            for o in (l1_points, l2_points)]
-    ka, ga, ba = fused_layers(torch, dev, dtype, "auto", inputs, cots)
-    kb, gb, bb = fused_layers(torch, dev, dtype, "torch", inputs, cots)
+    cots = [torch.randn(o.shape, generator=g, device=dev) for o in outs]
+    ka, ga, ba = fused_layers(torch, dev, dtype, "auto", inputs, cots, name,
+                              layers)
+    kb, gb, bb = fused_layers(torch, dev, dtype, "torch", inputs, cots, name,
+                              layers)
     return {
         "outputs differ": max(float((a != b).float().mean())
                               for a, b in zip(ka, kb)),
@@ -3002,6 +3041,352 @@ def time_fused_train(torch, dev, gpu: str, log_dir: str) -> None:
                             "step", host_us=host[name, dtype, "fused"] * 1e3)
 
 
+# --- segmentation training --------------------------------------------------
+
+# each segmentation model's training: points a cloud, the on-device
+# augmentation (ScanNet: rotation about z; ShapeNet-part: none, as the
+# reference's part_seg/train.py), per-forward launches of its main path
+SEG_TRAIN = {SEM: {"n": SEM_N, "augment": "scannet",
+                   "per_fwd": SEG_PER_FWD[SEM]},
+             PART: {"n": PART_N, "augment": "none",
+                    "per_fwd": SEG_PER_FWD[PART]},
+             PART_MSG: {"n": PART_N, "augment": "none",
+                        "per_fwd": MSG_PER_FWD[PART_MSG]}}
+SEG_EPOCHS = 4  # per run of phase 23
+SEG_TRAIN_SCENES, SEG_EVAL_SCENES = 48, 16  # generated rooms: 3 + 1 batches
+
+
+def seg_trainer(torch, name: str, dtype: str, log_dir: str, epochs: int):
+    return make_trainer(torch, dtype, log_dir, epochs, model=name,
+                        num_point=SEG_TRAIN[name]["n"],
+                        augment=SEG_TRAIN[name]["augment"])
+
+
+def seg_datasets(name: str) -> tuple:
+    """(train, eval) data of a model: ScannetDataset crops of generated
+    rooms (8192 points, the wdp input dropout on the train split) for
+    sem_seg, SyntheticShapeNetPart (2048 points with normals, category
+    labels) for the part segmenters; batches of 16."""
+    from pointnet2_tpu_torch.data import (
+        ScannetDataset,
+        SyntheticShapeNetPart,
+        make_synthetic_scenes,
+    )
+
+    if name == SEM:
+        return tuple(ScannetDataset(
+            scenes=make_synthetic_scenes(k, 20000, seed=SEED + 20 + i),
+            npoints=SEM_N, split=split, batch_size=16, seed=SEED + i)
+            for i, (k, split) in enumerate(((SEG_TRAIN_SCENES, "train"),
+                                            (SEG_EVAL_SCENES, "test"))))
+    return tuple(SyntheticShapeNetPart(num_samples=k, npoints=PART_N,
+                                       batch_size=16, seed=SEED + i)
+                 for i, k in enumerate((SEG_TRAIN_SCENES, SEG_EVAL_SCENES)))
+
+
+# phase 22's bounds on a gradient's kernel-vs-plain difference (of its
+# scale, grad_differences): f32, the scatter's summation order; bf16, the
+# same order's last bf16 bits, which the deep train-mode BN backward chains
+# amplify (measured up to 0.28 on sem_seg's first dense, 2.5e-2 on
+# part_seg): a bound that a zeroed or sign-flipped gradient (1 or more)
+# fails, and the median tensor's within 2e-2 (measured 3-6.4e-3). The
+# scatter itself is held bit for bit on the step's own cotangents
+# (capture_scatters), so the loose bf16 bound covers only what the model
+# does with the scatter's last bits.
+SEG_STEP_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (0.5, 2e-2)}
+# sem_seg's step with the gate on, kernels against plain versions (the
+# fused forward sums in another order, so no two routes share bits): f32
+# as phase 20 holds each f32 route against float64 (loss 1e-5 relative,
+# running statistics 1e-3 of a tensor's scale, every gradient 2e-2 of its
+# scale); bf16 loss 1e-2 and statistics 5e-2 (measured 9.2e-4 and
+# 9.3e-3), the gradients logged, not bounded: as phase 20 found for
+# cls_ssg, two bf16 routes of a whole step at init lie ~0.3 apart (sem_seg:
+# median 0.29, largest 0.51), where the same layers are within LAYER_LIMITS
+# of each other, which `check_fused_seg_step` holds on sem_seg's four SA
+# layers at the step's shapes
+SEG_FUSED_TOL = {"float32": (1e-5, 1e-3, 2e-2), "bfloat16": (1e-2, 5e-2,
+                                                             None)}
+
+
+def exact_zero_biases(model) -> set:
+    """The biases whose gradient is zero in exact arithmetic, so that what
+    either path computes is the residue of cancelling sums: a dense bias in
+    front of a train-mode BN (BN subtracts the batch mean), and the top BN
+    bias of a max-pooled SA MLP whose channels' ReLUs pass at every pooled
+    maximum (every path from the pool to the loss shifts by the same
+    amount: the next layers' gathers, the interpolations with weights that
+    sum to 1, then a dense and a train-mode BN, which subtracts the
+    shift)."""
+    from pointnet2_tpu_torch.nn import SetAbstraction, SetAbstractionMSG
+
+    tops = set()
+    for mod in model.modules():
+        if isinstance(mod, SetAbstraction) and mod.pooling == "max":
+            tops.add(id(mod.mlp_mod.blocks[-1]))
+        elif isinstance(mod, SetAbstractionMSG):
+            tops.update(id(m.blocks[-1]) for m in mod.mlp_mods)
+    names = set()
+    for name, mod in model.named_modules():
+        if getattr(mod, "norm", None) is not None and hasattr(mod, "dense"):
+            names.add(f"{name}.dense.bias")
+        if id(mod) in tops:
+            names.add(f"{name}.norm.bias")
+    return names
+
+
+def grad_differences(torch, ga: dict, gb: dict, zero: set) -> list:
+    """(|ga - gb| over its scale, name) of every gradient, largest first.
+    A tensor's scale is its norm in `gb`; for a bias in `zero`
+    (`exact_zero_biases`) the larger of that and its layer's weight's,
+    since the residue both paths compute is of the size of the terms that
+    cancel, which the weight's gradient shows."""
+    out = []
+    for k in ga:
+        scale = gb[k].float().norm()
+        if k in zero:
+            w = gb[k[:-len("bias")] + "weight"]
+            scale = torch.maximum(scale, w.float().norm())
+        out.append((float((ga[k] - gb[k]).float().norm()
+                          / scale.clamp_min(1e-30)), k))
+    return sorted(out, reverse=True)
+
+
+class capture_scatters:
+    """Within the block, every scatter kernel launch also records copies
+    of its inputs and output (g, idx, out), in launch order."""
+
+    def __enter__(self):
+        from pointnet2_tpu_torch.ops import grouping
+
+        self.calls, self.launch = [], grouping.launch_scatter_rows
+
+        def record(g, idx, out, bufs):
+            self.launch(g, idx, out, bufs)
+            self.calls.append((g.clone(), idx.clone(), out.clone()))
+
+        grouping.launch_scatter_rows = record
+        return self.calls
+
+    def __exit__(self, *exc):
+        from pointnet2_tpu_torch.ops import grouping
+
+        grouping.launch_scatter_rows = self.launch
+
+
+def check_step_scatters(torch, tag: str, calls: list, check: Checks) -> None:
+    """Phase 22: each scatter a train step launched, bit for bit its plain
+    version on CPU copies of the same cotangent rows and indices."""
+    same = [scatter_same(torch, out, g, idx, out.shape[1])
+            for g, idx, out in calls]
+    shapes = sorted({(tuple(g.shape), out.shape[1]) for g, _, out in calls})
+    check(len(calls) > 0 and all(ok for ok, _ in same),
+          f"{tag}: the step's {len(calls)} scatters, bit for bit the plain "
+          f"version on CPU copies {sum(ok for ok, _ in same)}/{len(calls)} "
+          f"(max abs diff {max((e for _, e in same), default=0.0):.3e}); "
+          f"g -> n {shapes}")
+
+
+def check_seg_train_step(torch, dev, check: Checks, log_dir: str) -> dict:
+    """Phase 22: one full-width train step of each segmentation model
+    (B=16; sem_seg on a ScanNet crop of 8192 points with its wdp-zeroed
+    weights and the z rotation, the part segmenters on 2048 points with
+    normals, part_seg_msg with its category labels) through the kernels and
+    through the plain versions on the card, from the same weights, batch
+    and generator seed, f32 and bf16. The forward is the same bits
+    (identical indices, exact gathers), so the loss and the running
+    statistics must be equal; gradients differ only by the scatter's
+    summation order (atomic index_add_ in the plain path): SEG_STEP_TOL of
+    their scales (grad_differences), and every scatter of the kernel path's
+    step is bit for bit its plain version on CPU copies of its inputs.
+    Then sem_seg with the gate on (`check_fused_seg_step`). Returns the
+    host batches."""
+    log("phase 22: one segmentation train step per model, kernel path vs "
+        "plain path on the card")
+    batches = {}
+    for name in SEG_TRAIN:
+        batches[name] = next(seg_datasets(name)[0].epoch())
+        for dtype, (tol, median_tol) in SEG_STEP_TOL.items():
+            t0 = time.perf_counter()
+            with seg_trainer(torch, name, dtype, os.path.join(
+                    log_dir, "seg_step"), 1) as tr:
+                batch = tr._to_device(batches[name])
+                zero = exact_zero_biases(tr.init_state().model)
+                with capture_scatters() as calls:
+                    la, ga, ba, _ = one_step(torch, tr, batch, "auto")
+                lb, gb, bb, _ = one_step(torch, tr, batch, "torch")
+            stats_equal = all(torch.equal(ba[k], bb[k]) for k in ba)
+            diffs = grad_differences(torch, ga, gb, zero)
+            median = float(np.median([d for d, _ in diffs]))
+            finite = all(bool(torch.isfinite(g).all()) for g in ga.values())
+            check(la == lb and np.isfinite(la) and stats_equal and finite
+                  and diffs[0][0] <= tol and median <= median_tol,
+                  f"{name} {dtype}: loss {la:.6f} (plain {lb:.6f}), running "
+                  f"statistics equal: {stats_equal}, gradient differences "
+                  f"of {len(diffs)} tensors: largest {diffs[0][0]:.2e} "
+                  f"({diffs[0][1]}), next {diffs[1][0]:.2e} ({diffs[1][1]}),"
+                  f" median {median:.2e}; bounds {tol:g}, median "
+                  f"{median_tol:g}; {time.perf_counter() - t0:.1f} s")
+            check_step_scatters(torch, f"{name} {dtype}", calls, check)
+            del calls
+    check_fused_seg_step(torch, check, log_dir, batches[SEM])
+    torch.cuda.synchronize()
+    return batches
+
+
+def check_fused_seg_step(torch, check: Checks, log_dir: str,
+                         host_batch: dict) -> None:
+    """Phase 22b: sem_seg's train step with config.fused_mlp on, through
+    the kernels and through the plain versions on the card, f32 and bf16,
+    within SEG_FUSED_TOL; the kernel path launches the fused chain's
+    kernels for each of the four SA layers and the plain path none; then
+    sem_seg's four SA layers on the step's crop, kernels against plain
+    versions (`fused_layer_errs`), within LAYER_LIMITS."""
+    from pointnet2_tpu_torch import ops
+
+    want = bwd_per_step(4)
+    for dtype, (ltol, stol, tol) in SEG_FUSED_TOL.items():
+        with seg_trainer(torch, SEM, dtype, os.path.join(
+                log_dir, "seg_step"), 1) as tr:
+            batch = tr._to_device(host_batch)
+            zero = exact_zero_biases(tr.init_state().model)
+            launched = {}
+            for impl in ("auto", "torch"):
+                before = {k: ops.KERNELS[k].launches for k in want}
+                launched[impl] = (one_step(torch, tr, batch, impl,
+                                           fused=True),
+                                  {k: ops.KERNELS[k].launches - before[k]
+                                   for k in want})
+        (la, ga, ba, _), got = launched["auto"]
+        (lb, gb, bb, _), none = launched["torch"]
+        lrel = abs(la - lb) / abs(lb)
+        stats = max(float((ba[k] - bb[k]).abs().max()
+                          / bb[k].abs().max().clamp_min(1e-30)) for k in bb)
+        diffs = grad_differences(torch, ga, gb, zero)
+        median = float(np.median([d for d, _ in diffs]))
+        finite = all(bool(torch.isfinite(g).all()) for g in ga.values())
+        check(finite and lrel <= ltol and stats <= stol
+              and (tol is None or diffs[0][0] <= tol)
+              and got == want and not any(none.values()),
+              f"{SEM} {dtype} fused: loss {la:.6f} (plain {lb:.6f}, "
+              f"{lrel:.2e} <= {ltol:g}), running statistics {stats:.2e} <= "
+              f"{stol:g} of scale, gradient differences of {len(diffs)} "
+              f"tensors: largest {diffs[0][0]:.2e} ({diffs[0][1]})"
+              f"{' (logged)' if tol is None else f' <= {tol:g}'}, median "
+              f"{median:.2e}; launches {got}, plain {none}")
+    xyz = torch.from_numpy(np.ascontiguousarray(
+        host_batch["points"][..., :3])).to(batch["points"].device)
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        errs = fused_layer_errs(torch, xyz.device, dtype, xyz, SEM,
+                                ("sa1", "sa2", "sa3", "sa4"))
+        limits = LAYER_LIMITS[name]
+        check(all(errs[k] <= limits[k] for k in errs),
+              f"{name} sem_seg SA1-SA4 in train mode with the gate on, "
+              f"kernels vs plain on the step's crop (B=16, 8192 points): "
+              + ", ".join(f"{k} {errs[k]:.2e} <= {limits[k]:g}"
+                          for k in errs))
+
+
+def seg_train_fit(torch, check: Checks, log_dir: str) -> dict:
+    """Phase 23: the segmentation training main path, Trainer.fit of each
+    model in bf16 and f32 and of sem_seg in bf16 with config.fused_mlp on,
+    from the launch counters' zero: the train loss must fall, the eval's
+    per-point accuracy be logged, and each forward launch its path's FPS,
+    ball query and three-NN kernels. Returns the launches summed over the
+    runs."""
+    from pointnet2_tpu_torch import config, ops
+
+    log(f"phase 23: Trainer.fit of {', '.join(SEG_TRAIN)}, batch 16, Adam "
+        f"lr 1e-3, {SEG_EPOCHS} epochs each in bf16 and f32 (sem_seg bf16 "
+        "also with config.fused_mlp on)")
+    runs = [(name, dtype, False) for name in SEG_TRAIN
+            for dtype in ("bfloat16", "float32")] + [(SEM, "bfloat16", True)]
+    total = dict.fromkeys(ops.KERNELS, 0)
+    data = {name: seg_datasets(name) for name in SEG_TRAIN}
+    for name, dtype, fused in runs:
+        train, evals = data[name]
+        for w in ops.KERNELS.values():
+            w.launches = 0
+        tag = f"{name} {dtype}{' fused' if fused else ''}"
+        run_dir = os.path.join(log_dir, f"seg_fit_{name}_{dtype}_{fused}")
+        t0 = time.perf_counter()
+        with config.fused_mlp(fused), seg_trainer(torch, name, dtype, run_dir,
+                                                  SEG_EPOCHS) as tr:
+            state = tr.fit(train, eval_dataset=evals)
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in ops.KERNELS.items()}
+        steps = state.step
+        fwds = steps + SEG_EPOCHS * evals.num_batches()
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in rows if r["split"] == "train"]
+        accs = [r["accuracy"] for r in rows if r["split"] == "eval"]
+        check(len(losses) == SEG_EPOCHS and all(np.isfinite(losses))
+              and losses[-1] < losses[0] and len(accs) == SEG_EPOCHS
+              and all(0.0 <= a <= 1.0 for a in accs),
+              f"{tag}: train loss by epoch {[round(x, 4) for x in losses]} "
+              f"falls, eval per-point accuracy {[round(x, 4) for x in accs]};"
+              f" {steps} steps, {time.perf_counter() - t0:.1f} s")
+        per = SEG_TRAIN[name]["per_fwd"]
+        want = {k: per[k] * fwds for k in ("fps", "ball_query", "three_nn")}
+        got = {k: counts[k] for k in want}
+        log(f"  launches in the {tag} run ({steps} steps, {fwds} forwards): "
+            f"{counts}")
+        check(got == want and counts["scatter_rows"] >= steps
+              and counts["gather_rows"] > 0
+              and (not fused or all(counts[k] > 0 for k in (
+                  "fused_dense", "fused_pool", *BWD))),
+              f"{tag}: fps, ball_query and three_nn launched "
+              f"{ {k: per[k] for k in want} } times a forward, the scatter "
+              "at least once a step"
+              + (", every fused-chain kernel" if fused else ""))
+        total = {k: total[k] + counts[k] for k in total}
+    return total
+
+
+def time_seg_train(torch, dev, gpu: str, log_dir: str, batches: dict) -> None:
+    """Phase 24: the segmentation train steps at B=16 in bf16 and f32 (and
+    sem_seg bf16 with config.fused_mlp on and off): ms/step (host clock,
+    median of 10), examples/s, device us/step (torch.profiler busy time),
+    the card's idle share of the unprofiled step, peak device memory; then
+    where a bf16 sem_seg step's device time goes."""
+    from pointnet2_tpu_torch import config
+    from pointnet2_tpu_torch.train.steps import run_one_step
+
+    log(f"phase 24: segmentation train steps at B=16 (host clock; device "
+        f"time by torch.profiler) on {gpu}")
+    for name in SEG_TRAIN:
+        for dtype in ("bfloat16", "float32"):
+            routes = ((False, True) if name == SEM and dtype == "bfloat16"
+                      else (False,))
+            host = {}
+            with seg_trainer(torch, name, dtype, os.path.join(
+                    log_dir, "seg_time"), 1) as tr:
+                state = tr.init_state()
+                batch = tr._to_device(batches[name])
+
+                def step():
+                    run_one_step(state, batch, tr.loss_fn, tr.bn_schedule,
+                                 tr.augment_fn, tr.generator, tr.task)
+
+                for fused in routes:
+                    with config.fused_mlp(fused):
+                        ms = host[fused] = host_ms(torch, step, 10, warmup=2)
+                        kernels, _, _, _ = trace_device(torch, step, 2)
+                        torch.cuda.reset_peak_memory_stats()
+                        step()
+                        torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                    busy = sum(r[0] for r in kernels)
+                    log(f"  {name} {dtype}{' fused' if fused else ''}: "
+                        f"{ms:.3f} ms/step ({16 / ms * 1e3:.1f} examples/s), "
+                        f"{busy:.1f} us device/step, idle "
+                        f"{1 - busy / (ms * 1e3):.1%} of the step, peak "
+                        f"{peak:.2f} GiB")
+                if name == SEM and dtype == "bfloat16":
+                    profile_device(torch, step, 2, f"{name} bf16 train step",
+                                   "step", host_us=host[False] * 1e3)
+
+
 def check_tensor_cores(_build, check: Checks) -> None:
     """Phase 1: in the built fused_mlp library's SASS, the bf16 dense
     pass's product and the bf16 dense backward's two are tensor-core
@@ -3050,9 +3435,15 @@ def main() -> int:
         f" in {time.perf_counter() - t0:.2f} s into {_build.BUILD_DIR.name}/")
     for src in ("ball_query", "scatter", "three_nn", "fused_mlp"):
         log(f"  ptxas -v of csrc/{src}.cu (registers, shared memory, "
-            "spills):")
-        for line in _build.ptxas_report(src):
+            "stack frame, spills):")
+        report = _build.ptxas_report(src)
+        for line in report:
             log(f"   {line}")
+        if src == "ball_query":
+            clean = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill"
+            check(len(report) == 10 and all(clean in ln for ln in report),
+                  "csrc/ball_query.cu: rows 2-3's two instances and row 4's "
+                  "eight, no stack frame (local memory) and no spills")
     check_tensor_cores(_build, check)
 
     errs = {"fps": 0, "ball_query": 0, "ball_query_group_xyz": 0,
@@ -3232,14 +3623,18 @@ def main() -> int:
     fused_fit = fused_train_fit(torch, check, log_dir)
     time_fused_bwd_kernels(torch, dev, gpu, chains, rows)
     time_fused_train(torch, dev, gpu, log_dir)
+
+    seg_batches = check_seg_train_step(torch, dev, check, log_dir)
+    seg_fit = seg_train_fit(torch, check, log_dir)
+    time_seg_train(torch, dev, gpu, log_dir, seg_batches)
     # launches of each kernel over every main-path run (classifier serving,
     # training, sem_seg and part_seg serving, the MSG models' serving and
     # the MSG layers' other routes, the fused route's serving and
-    # training); the affine tail runs on no model path, so its phase-16
-    # launches count
+    # training, segmentation training); the affine tail runs on no model
+    # path, so its phase-16 launches count
     runs = [fit["counts"], seg["launches"][SEM], seg["launches"][PART],
             *msg["launches"].values(), *fused["launches"].values(),
-            fused_fit]
+            fused_fit, seg_fit]
     launches = {k: launches[k] + sum(r[k] for r in runs) for k in REPLACES}
     launches["fused_affine"] += affine_launches
     check(all(launches[k] > 0 for k in REPLACES),

@@ -15,7 +15,7 @@
 // its nsample-th hit) and the latency of the scan, not bytes; at the
 // classifiers' sizes a launch is a few microseconds of staging and of each
 // warp's chain of ballots. More queries a block, more points a lane, larger
-// tiles or fewer registers measured no faster.
+// tiles or fewer registers measured no faster (rows 2 and 3).
 // The TPU kernel ranks hits with an MXU cumsum over a whole (queries, N)
 // tile. Here one warp owns one query and walks the dataset in scan order:
 // __ballot_sync gives a 32-point chunk's hit mask, __popc of the lanes
@@ -39,13 +39,18 @@
 // first hit's coordinates (point 0's for an empty ball), which every lane
 // reads from the tile when that hit is found: no global load waits at the
 // end of the walk (measured faster than reading them from the cloud
-// there). Row 4 (ball_query_multi_kernel) keeps the warp that reads its
-// points from L1/L2 one chunk at a time.
+// there).
 //
-// The multi-radius kernel walks the dataset once for up to kMaxRadii radii:
-// one squared distance a point, one ballot per radius that is not full yet,
-// and the walk ends when every radius holds its nsample hits. Radii need
-// not be sorted or nested: each keeps its own found/first and slots.
+// ball_query_multi_kernel (row 4) walks the same staged tiles for up to
+// kMaxRadii radii at once, one instance a radius count: each lane's
+// squared distances once a point for every radius, then, per 32-point
+// chunk, one ballot for each radius that is not full yet, with its own
+// warp-uniform found/first in registers; the block leaves the tile loop
+// once every radius of every query holds its nsample hits. Radii need not
+// be sorted or nested. A first ballot a chunk against the largest r2 still
+// open, to skip the per-radius ones of a chunk without a hit, measured
+// 1.18x slower at cls_msg's radius sets: each chunk goes straight to its
+// per-radius ballots.
 
 #include "common.cuh"
 
@@ -53,10 +58,9 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;  // queries a block of row 4
-constexpr int kMaxRadii = 8;
+constexpr int kMaxRadii = 8;  // radii of one row-4 launch
 
-constexpr int kQueryWarps = 8;  // queries a block of ball_query_kernel
+constexpr int kQueryWarps = 8;  // queries a block of rows 2-4
 constexpr int kTile = 1024;     // points a staged tile
 constexpr int kLanePts = 4;     // points a lane an iteration
 static_assert(kTile % (32 * kLanePts) == 0,
@@ -209,60 +213,108 @@ __global__ void __launch_bounds__(kQueryWarps * 32)
 }
 
 struct MultiParams {
-  int count;
   float r2[kMaxRadii];
   int nsample[kMaxRadii];
   int* idx[kMaxRadii];
   int* cnt[kMaxRadii];
 };
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// Row 4: ball_query_kernel's grid, staging and walk for kCount radii.
+// found[i] and first[i] are warp-uniform (built from ballots only), and so
+// is `open`: some radius of this warp's query lacks its nsample hits. Up
+// to 128 registers a thread (two blocks an SM at least): under the 64 the
+// compiler chose by itself the eight-radius instance spilled its pairs,
+// and caps of 64, 80 or 48 measured slower at the MSG layers' shapes. One
+// instance a radius count: the eight-radius instance serving every count
+// (unused radii closed by nsample 0), under the same bounds and without
+// spills, measured 1.85x slower at cls_msg's radius sets and 2.09x at
+// part_seg_msg's.
+template <int kCount>
+__global__ void __launch_bounds__(kQueryWarps * 32, 2)
     ball_query_multi_kernel(const float* __restrict__ xyz1,
                             const float* __restrict__ xyz2,
-                            const MultiParams p, long long queries, int n,
-                            int m) {
-  const long long q =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (q >= queries) return;
+                            const MultiParams p, int n, int m, int qtiles,
+                            int wide) {
+  __shared__ __align__(16) float tile[2][kTile * 3];
   const int lane = threadIdx.x & 31;
-  const float* data = xyz1 + (q / m) * n * 3;
-  const float qx = xyz2[q * 3];
-  const float qy = xyz2[q * 3 + 1];
-  const float qz = xyz2[q * 3 + 2];
-  const unsigned below = (1u << lane) - 1u;
+  const long long b = blockIdx.x / qtiles;
+  const int qi = static_cast<int>(blockIdx.x - b * qtiles) * kQueryWarps +
+                 (threadIdx.x >> 5);
+  const bool live = qi < m;
+  const long long q = b * m + qi;
+  const float* data = xyz1 + b * n * 3;
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (live) {
+    qx = xyz2[q * 3];
+    qy = xyz2[q * 3 + 1];
+    qz = xyz2[q * 3 + 2];
+  }
+  const unsigned below = (1u << lane) - 1u;  // lanes ahead of this one
 
-  int found[kMaxRadii];  // warp-uniform, as in ball_query_kernel
-  int first[kMaxRadii];
+  int found[kCount];
+  int first[kCount];
 #pragma unroll
-  for (int i = 0; i < kMaxRadii; ++i) {
+  for (int i = 0; i < kCount; ++i) {
     found[i] = 0;
     first[i] = 0;
   }
-  bool open = true;  // some radius still lacks nsample hits
-  for (int base = 0; base < n && open; base += 32) {
-    const int k = base + lane;
-    float d2 = 0.f;
-    if (k < n) {
-      d2 = sq_dist(qx, qy, qz, data[3 * k], data[3 * k + 1], data[3 * k + 2]);
+  bool open = true;
+  const int tiles = (n + kTile - 1) / kTile;
+  stage_tile(tile[0], data, min(n, kTile), wide);
+  for (int t = 0; t < tiles; ++t) {
+    const int t0 = t * kTile;
+    if (t + 1 < tiles) {
+      stage_tile(tile[(t + 1) & 1], data + (t0 + kTile) * 3LL,
+                 min(n - t0 - kTile, kTile), wide);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     }
-    open = false;
+    __syncthreads();  // tile t is in place for every warp
+    const float* pts = tile[t & 1];
+    const int np = min(n - t0, kTile);
+    if (live) {
+      for (int base = 0; base < np && open; base += 32 * kLanePts) {
+        float d2[kLanePts];
 #pragma unroll
-    for (int i = 0; i < kMaxRadii; ++i) {
-      if (i >= p.count || found[i] >= p.nsample[i]) continue;
-      const bool hit = k < n && d2 < p.r2[i];
-      const unsigned mask = __ballot_sync(0xffffffffu, hit);
-      if (mask != 0u) {
-        if (found[i] == 0) first[i] = base + __ffs(mask) - 1;
-        const int slot = found[i] + __popc(mask & below);
-        if (hit && slot < p.nsample[i]) p.idx[i][q * p.nsample[i] + slot] = k;
-        found[i] += __popc(mask);
+        for (int j = 0; j < kLanePts; ++j) {
+          const int k = base + 32 * j + lane;
+          d2[j] = sq_dist(qx, qy, qz, pts[3 * k], pts[3 * k + 1],
+                          pts[3 * k + 2]);
+        }
+#pragma unroll
+        for (int j = 0; j < kLanePts; ++j) {
+          const int k = t0 + base + 32 * j + lane;
+#pragma unroll
+          for (int i = 0; i < kCount; ++i) {
+            const int ns = p.nsample[i];
+            if (found[i] >= ns) continue;
+            const bool hit = d2[j] < p.r2[i];  // a padded point: +inf
+            const unsigned mask = __ballot_sync(0xffffffffu, hit);
+            if (mask != 0u) {
+              if (found[i] == 0) first[i] = k - lane + __ffs(mask) - 1;
+              const int slot = found[i] + __popc(mask & below);
+              if (hit && slot < ns) p.idx[i][q * ns + slot] = k;
+              found[i] += __popc(mask);
+            }
+          }
+        }
+        open = false;
+#pragma unroll
+        for (int i = 0; i < kCount; ++i) {
+          open = open || found[i] < p.nsample[i];
+        }
       }
-      open = open || found[i] < p.nsample[i];
     }
+    // every warp is done with tile t (its buffer is refilled next) and the
+    // walk goes on only while some query lacks some radius's nsample hits
+    if (!__syncthreads_or(live && open)) break;
   }
+  // a walk that ended early leaves the next tile's copy in flight
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  if (!live) return;
 #pragma unroll
-  for (int i = 0; i < kMaxRadii; ++i) {
-    if (i >= p.count) continue;
+  for (int i = 0; i < kCount; ++i) {
     const int ns = p.nsample[i];
     const int c = min(found[i], ns);
     int* out = p.idx[i] + q * ns;
@@ -271,40 +323,47 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   }
 }
 
-// the grid of one launch over b*m queries, kWarpsPerBlock a block, or 0
-// blocks when there is nothing to do; *err is set for arguments the kernels
-// do not take
-long long query_blocks(int b, int n, int m, int* err) {
-  const long long queries = static_cast<long long>(b) * m;
-  *err = cudaSuccess;
-  if (queries <= 0) return 0;
-  const long long blocks = (queries + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (n <= 0 || blocks > 0x7fffffffLL) {
-    *err = cudaErrorInvalidValue;
-    return 0;
-  }
-  return blocks;
+// the grid of rows 2-4, a block a (cloud, tile of kQueryWarps queries):
+// false for arguments the kernels do not take
+bool query_grid(int b, int n, int m, long long* qtiles, long long* blocks) {
+  *qtiles = (m + kQueryWarps - 1) / kQueryWarps;
+  *blocks = static_cast<long long>(b) * *qtiles;
+  return n > 0 && *blocks <= 0x7fffffffLL;
 }
 
-// Rows 2 and 3's launch: a block a (cloud, tile of kQueryWarps queries),
-// 16-byte copies when every cloud and tile starts on a 16-byte boundary.
+// 16-byte staging copies when every cloud and tile starts on a 16-byte
+// boundary
+int wide_staging(const void* xyz1, int n) {
+  return reinterpret_cast<uintptr_t>(xyz1) % 16 == 0 && n % 4 == 0;
+}
+
+// Rows 2 and 3's launch.
 template <bool kWithXyz>
 int launch_ball_query(const void* xyz1, const void* xyz2, void* idx,
                       void* cnt, void* grouped, int b, int n, int m,
                       int nsample, float r2, void* stream) {
   if (nsample <= 0 || b <= 0 || m <= 0) return cudaSuccess;
-  const long long qtiles = (m + kQueryWarps - 1) / kQueryWarps;
-  const long long blocks = static_cast<long long>(b) * qtiles;
-  if (n <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const int wide = reinterpret_cast<uintptr_t>(xyz1) % 16 == 0 && n % 4 == 0;
+  long long qtiles, blocks;
+  if (!query_grid(b, n, m, &qtiles, &blocks)) return cudaErrorInvalidValue;
   ball_query_kernel<kWithXyz><<<static_cast<unsigned>(blocks),
                                 kQueryWarps * 32, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xyz1), static_cast<const float*>(xyz2),
       static_cast<int*>(idx), static_cast<int*>(cnt),
       static_cast<float*>(grouped), n, m, nsample, r2,
-      static_cast<int>(qtiles), wide);
+      static_cast<int>(qtiles), wide_staging(xyz1, n));
   return cudaGetLastError();
+}
+
+// Row 4's launch of its kCount instance.
+template <int kCount>
+void launch_multi(const void* xyz1, const void* xyz2, const MultiParams& p,
+                  int n, int m, long long qtiles, long long blocks,
+                  cudaStream_t stream) {
+  ball_query_multi_kernel<kCount>
+      <<<static_cast<unsigned>(blocks), kQueryWarps * 32, 0, stream>>>(
+          static_cast<const float*>(xyz1), static_cast<const float*>(xyz2),
+          p, n, m, static_cast<int>(qtiles), wide_staging(xyz1, n));
 }
 
 }  // namespace
@@ -334,7 +393,6 @@ extern "C" int pn2_ball_query_multi(const void* xyz1, const void* xyz2,
                                     void* stream) {
   if (count < 1 || count > kMaxRadii) return cudaErrorInvalidValue;
   MultiParams p{};
-  p.count = count;
   for (int i = 0; i < count; ++i) {
     if (nsamples[i] <= 0) return cudaErrorInvalidValue;
     p.r2[i] = r2s[i];
@@ -342,13 +400,19 @@ extern "C" int pn2_ball_query_multi(const void* xyz1, const void* xyz2,
     p.idx[i] = static_cast<int*>(idxs[i]);
     p.cnt[i] = static_cast<int*>(cnts[i]);
   }
-  int err;
-  const long long blocks = query_blocks(b, n, m, &err);
-  if (err != cudaSuccess || blocks == 0) return err;
-  ball_query_multi_kernel<<<static_cast<unsigned>(blocks),
-                            kWarpsPerBlock * 32, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xyz1), static_cast<const float*>(xyz2), p,
-      static_cast<long long>(b) * m, n, m);
+  if (b <= 0 || m <= 0) return cudaSuccess;
+  long long qtiles, blocks;
+  if (!query_grid(b, n, m, &qtiles, &blocks)) return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (count) {
+    case 1: launch_multi<1>(xyz1, xyz2, p, n, m, qtiles, blocks, s); break;
+    case 2: launch_multi<2>(xyz1, xyz2, p, n, m, qtiles, blocks, s); break;
+    case 3: launch_multi<3>(xyz1, xyz2, p, n, m, qtiles, blocks, s); break;
+    case 4: launch_multi<4>(xyz1, xyz2, p, n, m, qtiles, blocks, s); break;
+    case 5: launch_multi<5>(xyz1, xyz2, p, n, m, qtiles, blocks, s); break;
+    case 6: launch_multi<6>(xyz1, xyz2, p, n, m, qtiles, blocks, s); break;
+    case 7: launch_multi<7>(xyz1, xyz2, p, n, m, qtiles, blocks, s); break;
+    default: launch_multi<8>(xyz1, xyz2, p, n, m, qtiles, blocks, s); break;
+  }
   return cudaGetLastError();
 }

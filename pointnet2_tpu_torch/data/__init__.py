@@ -2,6 +2,19 @@
 on-device training augmentation (torch)."""
 
 from pointnet2_tpu_torch.data.modelnet import ModelNetH5Dataset, pc_normalize
-from pointnet2_tpu_torch.data.synthetic import SyntheticClassification
+from pointnet2_tpu_torch.data.scannet import (
+    ScannetDataset,
+    make_synthetic_scenes,
+)
+from pointnet2_tpu_torch.data.shapenet_part import (
+    PartNormalDataset,
+    SyntheticShapeNetPart,
+)
+from pointnet2_tpu_torch.data.synthetic import (
+    SyntheticClassification,
+    SyntheticSegmentation,
+)
 
-__all__ = ["ModelNetH5Dataset", "SyntheticClassification", "pc_normalize"]
+__all__ = ["ModelNetH5Dataset", "PartNormalDataset", "ScannetDataset",
+           "SyntheticClassification", "SyntheticSegmentation",
+           "SyntheticShapeNetPart", "make_synthetic_scenes", "pc_normalize"]

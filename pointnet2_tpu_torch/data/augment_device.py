@@ -1,9 +1,12 @@
-"""On-device point-cloud augmentation for classification training.
+"""On-device point-cloud augmentation for training.
 
-Counterpart of pointnet2_tpu/data/augment_jax.py:19-134: the ModelNet40
-training chain rotate_y -> rotate_perturbation -> random_scale -> shift ->
-jitter -> shuffle_points (modelnet_h5_dataset.py:72-79), run on the batch's
-device inside the train step.
+Counterpart of pointnet2_tpu/data/augment_jax.py:19-154, run on the batch's
+device inside the train step: the ModelNet40 chain rotate_y ->
+rotate_perturbation -> random_scale -> shift -> jitter -> shuffle_points
+(modelnet_h5_dataset.py:72-79, ``augment_cls``); the same chain with
+random input dropout last, for clouds with normals
+(``augment_cls_normals``); and the ScanNet rotation about z
+(``augment_scannet``, scannet/train.py:230).
 
 Each transform is split in two: ``draw_<name>(generator, batch)`` draws its
 parameters from a ``torch.Generator`` on the batch's device, and
@@ -27,6 +30,14 @@ def _rot_y(angles: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.stack([c, z, s], -1),
                         torch.stack([z, o, z], -1),
                         torch.stack([-s, z, c], -1)], dim=-2)
+
+
+def _rot_z(angles: torch.Tensor) -> torch.Tensor:
+    c, s = torch.cos(angles), torch.sin(angles)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack([torch.stack([c, s, z], -1),
+                        torch.stack([-s, c, z], -1),
+                        torch.stack([z, z, o], -1)], dim=-2)
 
 
 def _rot_xyz(angles: torch.Tensor) -> torch.Tensor:
@@ -69,6 +80,14 @@ def draw_rotate_y(generator, batch):
 def rotate_y(batch, angles):
     """Rotate each cloud about the up axis by its angle (B,)."""
     return _apply_rot(batch, _rot_y(angles))
+
+
+draw_rotate_z = draw_rotate_y  # one angle a cloud in [0, 2 pi)
+
+
+def rotate_z(batch, angles):
+    """Rotate each cloud about the z axis by its angle (B,)."""
+    return _apply_rot(batch, _rot_z(angles))
 
 
 def draw_rotate_perturbation(generator, batch, angle_sigma=0.06,
@@ -124,6 +143,20 @@ def shuffle_points(batch, perm):
     return batch[:, perm, :]
 
 
+def draw_random_point_dropout(generator, batch, max_dropout_ratio=0.875):
+    B, N = batch.shape[:2]
+    ratios = _uniform(generator, (B, 1), batch.device, 0.0, 1.0)
+    u = torch.rand((B, N), generator=generator, device=batch.device)
+    return u <= ratios * max_dropout_ratio
+
+
+def random_point_dropout(batch, drop):
+    """Replace the points where `drop` (B, N) is set by each cloud's point
+    0, every channel."""
+    return torch.where(drop[..., None], batch[:, 0:1, :].expand_as(batch),
+                       batch)
+
+
 CLS_CHAIN = (
     (draw_rotate_y, rotate_y),
     (draw_rotate_perturbation, rotate_perturbation),
@@ -134,9 +167,29 @@ CLS_CHAIN = (
 )
 
 
+def _run_chain(chain, generator: torch.Generator, batch: torch.Tensor):
+    for draw, apply in chain:
+        batch = apply(batch, draw(generator, batch))
+    return batch
+
+
 def augment_cls(generator: torch.Generator, batch: torch.Tensor):
     """rotate -> perturb -> scale -> shift -> jitter -> shuffle, each
     transform's parameters drawn from ``generator`` in that order."""
-    for draw, apply in CLS_CHAIN:
-        batch = apply(batch, draw(generator, batch))
-    return batch
+    return _run_chain(CLS_CHAIN, generator, batch)
+
+
+CLS_NORMALS_CHAIN = CLS_CHAIN + (
+    (draw_random_point_dropout, random_point_dropout),)
+
+
+def augment_cls_normals(generator: torch.Generator, batch: torch.Tensor):
+    """The cls chain, then random input dropout (the 5000-point xyz+normal
+    recipe: modelnet_dataset.py:60-72 and train.py:201-202), each
+    transform's parameters drawn from ``generator`` in that order."""
+    return _run_chain(CLS_NORMALS_CHAIN, generator, batch)
+
+
+def augment_scannet(generator: torch.Generator, batch: torch.Tensor):
+    """A rotation about z only (scannet/train.py:230)."""
+    return rotate_z(batch, draw_rotate_z(generator, batch))

@@ -115,9 +115,10 @@ def build_all(names=SOURCES) -> None:
 
 
 def ptxas_report(name: str) -> list[str]:
-    """Registers, shared memory and spills of each kernel of one source:
-    the source compiled once more with ``-Xptxas -v`` into a scratch file,
-    ptxas's lines back, one per kernel ("<kernel>: <usage>; <spills>")."""
+    """Registers, shared memory, stack frame and spills of each kernel of
+    one source: the source compiled once more with ``-Xptxas -v`` into a
+    scratch file, ptxas's lines back, one per kernel ("<kernel>: <usage>;
+    <N bytes stack frame, N bytes spill stores, N bytes spill loads>")."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"ptxas-{name}.{os.getpid()}.tmp"
     try:
@@ -136,7 +137,7 @@ def ptxas_report(name: str) -> list[str]:
                           line)
             kernel = m.group(1) if m else line.split("'")[1]
         elif "spill stores" in line:
-            spills = line.split(",", 1)[1].strip()
+            spills = line.strip()
         elif "Used" in line and kernel is not None:
             report.append(f"{kernel}: {line.split('Used', 1)[1].strip()}; "
                           f"{spills}")

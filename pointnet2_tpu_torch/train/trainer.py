@@ -1,11 +1,14 @@
 """The trainer: one host loop of train epochs and periodic eval.
 
-Port of pointnet2_tpu/train/trainer.py:44-331,371-441 for one device:
+Port of pointnet2_tpu/train/trainer.py:44-331,371-441 for one device and
+every task of the registry (``cls``, ``part_seg``, ``part_seg_one_hot``,
+``sem_seg``; the dataset yields the task's keys, see train/steps.py):
 ``TrainConfig`` keeps the JAX package's field names and defaults for what
 is ported (``pointnet2_cls_ssg`` defaults: batch 16, 1024 points, Adam at
 1e-3 on the clipped staircase LR, BN momentum 0.5 -> 0.99). A field that is
 not ported yet (``num_devices``, ``steps_per_call``, ``remat``,
-``watchdog_secs``) raises when given anything but its default.
+``watchdog_secs``) raises when given anything but its default; the eval
+protocols (``eval_protocol``) are not ported either.
 
 ``Trainer(config, device="cuda")`` runs on the card; without one it raises
 unless ``device="cpu"`` is passed, which runs the plain PyTorch versions of
@@ -23,6 +26,16 @@ Usage::
     with Trainer(TrainConfig(augment="cls", max_epoch=10)) as trainer:
         state = trainer.fit(ds, eval_dataset=ds)
     torch.save(state.model.state_dict(), "cls_ssg.pt")  # -> Predictor
+
+    # semantic segmentation on ScanNet crops with the wdp input dropout
+    from pointnet2_tpu_torch.data.scannet import (
+        ScannetDataset, make_synthetic_scenes)
+
+    rooms = ScannetDataset(scenes=make_synthetic_scenes(), batch_size=16)
+    cfg = TrainConfig(model="pointnet2_sem_seg", num_point=8192,
+                      augment="scannet", max_epoch=10)
+    with Trainer(cfg) as trainer:
+        state = trainer.fit(rooms)
 """
 
 from __future__ import annotations
@@ -67,7 +80,7 @@ class TrainConfig:
     bn_init_decay: float = 0.5
     bn_decay_rate: float = 0.5
     bn_decay_clip: float = 0.99
-    augment: str = "none"  # none | cls (on the device)
+    augment: str = "none"  # none | cls | cls_normals | scannet (device)
     host_augment: bool = False  # the dataset's numpy augmentation instead
     steps_per_call: int = 1  # not ported: one step per dispatch
     num_devices: int | None = None  # not ported: one device
@@ -108,8 +121,6 @@ class Trainer:
         _check_config(config)
         self.config = config
         spec = get_spec(config.model)
-        if spec.task != "cls":
-            raise NotImplementedError(f"task {spec.task!r} is not ported")
         self.task = spec.task
         self.model_cls = spec.cls
         self.loss_fn = spec.loss
@@ -178,15 +189,20 @@ class Trainer:
         return TrainState(step=0, model=model, optimizer=opt)
 
     def _to_device(self, batch: dict) -> dict:
-        """Upload a host batch; ``nvalid`` becomes a validity mask so the
+        """Upload a host batch, every key but ``nvalid`` (integer arrays
+        as int64: ``label``, ``seg``, ``cls_label``; the rest as f32:
+        ``points``, ``smpw``); ``nvalid`` becomes a validity mask so the
         padded rows of a final batch drop out of the loss and counts."""
         bsz = batch["points"].shape[0]
         mask = (np.arange(bsz) < batch["nvalid"]).astype(np.float32)
-        return {
-            "points": torch.from_numpy(batch["points"]).to(self.device),
-            "label": torch.from_numpy(batch["label"]).long().to(self.device),
-            "mask": torch.from_numpy(mask).to(self.device),
-        }
+        out = {"mask": torch.from_numpy(mask).to(self.device)}
+        for k, v in batch.items():
+            if k == "nvalid":
+                continue
+            t = torch.from_numpy(np.asarray(v))
+            t = t.long() if not t.is_floating_point() else t.float()
+            out[k] = t.to(self.device)
+        return out
 
     def train_epoch(self, state: TrainState, dataset, epoch: int):
         losses, accs, n = [], [], 0
@@ -195,7 +211,8 @@ class Trainer:
             n += batch["nvalid"]
             metrics = run_one_step(state, self._to_device(batch),
                                    self.loss_fn, self.bn_schedule,
-                                   self.augment_fn, self.generator)
+                                   self.augment_fn, self.generator,
+                                   self.task)
             losses.append(metrics["loss"])
             accs.append(metrics["accuracy"])
         # one device->host fetch per epoch, not one per step
@@ -212,8 +229,9 @@ class Trainer:
 
     def eval_epoch(self, state: TrainState, dataset, epoch: int) -> float:
         """Accuracy and avg-class accuracy (over the classes present) of
-        the eval-mode model, padded rows excluded."""
-        counts = [eval_counts(state.model, self._to_device(b))
+        the eval-mode model, padded rows excluded; per point for the
+        segmentation tasks."""
+        counts = [eval_counts(state.model, self._to_device(b), self.task)
                   for b in dataset.epoch()]
         state.model.train()
         if counts:

@@ -18,6 +18,13 @@ emulated ``grouped`` must equal ``xyz1[b, idx]``
 and ``ball_query_group_xyz_plain`` bit for bit (-0.0 included) and JAX's
 ``query_ball_and_group_xyz(impl="pallas")`` by value (its masked sum turns
 -0.0 into +0.0).
+
+Row 4 (ball_query_multi_kernel, one instance a radius count) walks the same
+tiles for several radii: every lane's distances once, then per chunk one
+ballot for each radius not full yet; the block stops once every radius of
+every query is full. Its emulation must give each radius's
+indices and counts bit for bit as ``ball_query_plain`` and JAX's
+``ball_query_multi_pallas``.
 """
 
 import re
@@ -41,6 +48,7 @@ def _const(name: str) -> int:
 
 WARPS, TILE, LANE_PTS = (_const("kQueryWarps"), _const("kTile"),
                          _const("kLanePts"))
+MAX_RADII = _const("kMaxRadii")
 
 
 def emulate(radius: float, nsample: int, xyz1: np.ndarray,
@@ -188,3 +196,95 @@ def test_emulated_grouped_xyz(rng, B, N, M, radius, nsample, signed_zero):
         assert (grouped[:, -1] == xyz1[:, :1]).all()  # point 0's, empty
     if signed_zero and N > 1:
         assert np.signbit(grouped).any()  # copied as -0.0
+
+
+def emulate_multi(radii, nsamples, xyz1: np.ndarray, xyz2: np.ndarray):
+    """(a list of (idx, cnt) per radius, tiles walked by each block) of
+    row 4's walk."""
+    B, N, _ = xyz1.shape
+    M = xyz2.shape[1]
+    R = len(radii)
+    r2 = [np.float32(grouping._r2(r)) for r in radii]
+    idx = [np.zeros((B, M, ns), np.int32) for ns in nsamples]
+    cnt = [np.zeros((B, M), np.int32) for _ in radii]
+    walked = []
+    lanes = np.arange(32)
+    for b in range(B):
+        for q0 in range(0, M, WARPS):
+            qs = range(q0, min(q0 + WARPS, M))
+            found = {q: [0] * R for q in qs}
+            first = {q: [0] * R for q in qs}
+
+            def is_open(q):
+                return any(found[q][i] < nsamples[i] for i in range(R))
+
+            tiles = 0
+            for t0 in range(0, N, TILE):
+                tiles += 1
+                pts = xyz1[b, t0:t0 + TILE]
+                np_ = len(pts)
+                for q in qs:
+                    qx, qy, qz = xyz2[b, q]
+                    base = 0
+                    while base < np_ and is_open(q):
+                        k = base + np.arange(32 * LANE_PTS)
+                        p = pts[np.minimum(k, np_ - 1)]
+                        dx, dy, dz = qx - p[:, 0], qy - p[:, 1], qz - p[:, 2]
+                        d2 = (dx * dx + dy * dy) + dz * dz  # f32, no FMA
+                        d2[k >= np_] = np.inf  # the +inf padding
+                        for j in range(LANE_PTS):
+                            dj = d2[32 * j:32 * j + 32]
+                            for i in range(R):
+                                if found[q][i] >= nsamples[i]:
+                                    continue
+                                h = dj < r2[i]
+                                if not h.any():
+                                    continue
+                                if found[q][i] == 0:
+                                    first[q][i] = t0 + base + 32 * j + int(
+                                        np.argmax(h))
+                                slot = found[q][i] + np.cumsum(h) - 1
+                                put = h & (slot < nsamples[i])
+                                idx[i][b, q, slot[put]] = (t0 + base + 32 * j
+                                                           + lanes[put])
+                                found[q][i] += int(h.sum())
+                        base += 32 * LANE_PTS
+                if not any(is_open(q) for q in qs):
+                    break  # __syncthreads_or: every radius of every query
+            walked.append(tiles)
+            for q in qs:
+                for i in range(R):
+                    c = min(found[q][i], nsamples[i])
+                    idx[i][b, q, c:] = first[q][i]
+                    cnt[i][b, q] = c
+    return list(zip(idx, cnt)), walked
+
+
+@pytest.mark.parametrize("B,N,M,radii,nsamples", [
+    (2, 20, 9, (0.5, 0.1, 0.3), (32, 4, 40)),  # unsorted, nsample > N
+    (1, TILE - 1, 10, (0.2, 0.2, 0.05), (16, 64, 8)),  # repeated
+    (1, TILE + 1, 12, (0.1, 0.2, 0.4), (16, 32, 128)),  # cls_msg SA1's
+    (1, 2 * TILE + 1, 9, (0.4, 0.2), (64, 32)),
+    (1, 2 * TILE + 7, 9, (0.05, 0.1, 0.15, 0.2, 0.25, 0.3, 0.35, 2.0),
+     (4, 8, 8, 16, 16, 32, 32, 64)),  # eight radii, one takes every point
+])
+def test_emulated_multi_walk_bit_identical(rng, B, N, M, radii, nsamples):
+    """Each radius bit for bit the plain ball query and JAX's multi-radius
+    Pallas kernel (interpret mode); the last query's ball is empty at every
+    radius but 2.0, so its block walks every tile."""
+    assert len(radii) <= MAX_RADII
+    xyz1, xyz2 = _cloud(rng, B, N, M, empty=True)
+    got, walked = emulate_multi(radii, nsamples, xyz1, xyz2)
+    jax_out = jops.query_ball_point_multi(radii, nsamples, jnp.asarray(xyz1),
+                                          jnp.asarray(xyz2), impl="pallas")
+    for (idx, cnt), (jidx, jcnt), r, ns in zip(got, jax_out, radii,
+                                               nsamples):
+        widx, wcnt = grouping.ball_query_plain(r, ns, torch.from_numpy(xyz1),
+                                               torch.from_numpy(xyz2))
+        np.testing.assert_array_equal(cnt, wcnt.numpy())
+        np.testing.assert_array_equal(idx, widx.numpy())
+        np.testing.assert_array_equal(cnt, np.asarray(jcnt))
+        np.testing.assert_array_equal(idx, np.asarray(jidx))
+        if r < 2.0:  # the empty ball
+            assert not cnt[:, -1].any() and not idx[:, -1].any()
+    assert max(walked) == -(-N // TILE)

@@ -321,6 +321,120 @@ def test_train_step_kernels_vs_plain(dev, rs, dtype, tmp_path):
         assert _rel(ga[k], gb[k]) <= tol, (k, _rel(ga[k], gb[k]))
 
 
+@pytest.mark.parametrize("name,n", [("pointnet2_sem_seg", 2048),
+                                    ("pointnet2_part_seg", 1024),
+                                    ("pointnet2_part_seg_msg_one_hot", 1024)])
+def test_seg_train_step_kernels_vs_plain(dev, name, n, tmp_path):
+    """One f32 train step of a segmentation model at B=4 through the
+    kernels and through the plain versions on the card, from the same
+    weights, batch (chip_smoke's data: a ScanNet crop with its wdp-zeroed
+    weights and the z rotation, or part clouds with normals and category
+    labels, cut to n points) and generator seed: loss and running
+    statistics equal (the forward is the same bits), each gradient within
+    1e-4 of its scale (chip_smoke.grad_differences, the biases whose
+    exact gradient is zero by chip_smoke.exact_zero_biases: the scatter's
+    summation order)."""
+    from chip_smoke import (
+        SEG_TRAIN,
+        exact_zero_biases,
+        grad_differences,
+        seg_datasets,
+    )
+    from pointnet2_tpu_torch.train import TrainConfig, Trainer
+    from pointnet2_tpu_torch.train.steps import run_one_step
+
+    host = next(seg_datasets(name)[0].epoch())
+    host = {k: v[:4, :n] if k in ("points", "seg", "smpw") else
+            (v[:4] if k == "cls_label" else min(v, 4))
+            for k, v in host.items()}
+    assert name != "pointnet2_sem_seg" or (host["smpw"] == 0).any()
+    out = {}
+    for impl in ("auto", "torch"):
+        cfg = TrainConfig(model=name, batch_size=4, num_point=n,
+                          augment=SEG_TRAIN[name]["augment"],
+                          log_dir=str(tmp_path / impl))
+        with Trainer(cfg, device=dev) as tr:
+            state = tr.init_state()
+            tr.generator.manual_seed(5)
+            before = ops.scatter_rows_kernel.launches
+            with config.default_impl(impl):
+                m = run_one_step(state, tr._to_device(host), tr.loss_fn,
+                                 tr.bn_schedule, tr.augment_fn, tr.generator,
+                                 tr.task)
+            launched = ops.scatter_rows_kernel.launches - before
+            assert (launched > 0) == (impl == "auto")
+            model = state.model
+            out[impl] = (float(m["loss"]),
+                         {k: p.grad.clone() for k, p in
+                          model.named_parameters()},
+                         {k: b.clone() for k, b in model.named_buffers()})
+    (la, ga, ba), (lb, gb, bb) = out["auto"], out["torch"]
+    assert la == lb and np.isfinite(la)
+    for k in ba:
+        torch.testing.assert_close(ba[k], bb[k], rtol=0, atol=0, msg=k)
+    diffs = grad_differences(torch, ga, gb, exact_zero_biases(model))
+    assert len(diffs) == len(ga) > 40
+    assert diffs[0][0] <= 1e-4, diffs[:3]
+
+
+
+@pytest.mark.parametrize("dtype,name", [(torch.float32, "f32"),
+                                        (torch.bfloat16, "bf16")])
+def test_fused_sem_seg_layers_kernels_vs_plain(dev, dtype, name):
+    """sem_seg's four SA layers in train mode with the gate on, on a
+    ScanNet crop (chip_smoke's data) cut to B=2 and 2048 points, through
+    the kernels and through the plain versions on the same inputs and
+    cotangents (`chip_smoke.fused_layer_errs`): the chain's backward
+    kernels launched for each layer; outputs, gradients and running
+    statistics within `chip_smoke.LAYER_LIMITS`."""
+    from chip_smoke import SEM, seg_datasets
+
+    config.disable_tf32()
+    host = next(seg_datasets(SEM)[0].epoch())["points"][:2, :2048, :3]
+    xyz = torch.from_numpy(np.ascontiguousarray(host)).to(dev)
+    before = {k: ops.KERNELS[k].launches for k in BWD}
+    errs = fused_layer_errs(torch, dev, dtype, xyz, SEM,
+                            ("sa1", "sa2", "sa3", "sa4"))
+    assert {k: ops.KERNELS[k].launches - before[k] for k in BWD} == {
+        "fused_top_stats": 4, "fused_dense_bwd": 8, "fused_first_bwd": 4}
+    assert all(errs[k] <= LAYER_LIMITS[name][k] for k in errs), errs
+
+def test_three_interpolate_backward_through_the_scatter_at_fp4(dev, rs):
+    """sem_seg FP4's shape (8192 unknown points from 1024 known, 128
+    channels) at B=2: the gradient into the known points is one scatter
+    launch, bit for bit the plain scatter on CPU copies of the same
+    cotangent rows and indices; the gradient into the weights equals the
+    plain path's on the card."""
+    B, n, m, C = 2, 8192, 1024, 128
+    unknown = torch.from_numpy(rs.rand(B, n, 3).astype(np.float32)).to(dev)
+    known = unknown[:, torch.from_numpy(rs.choice(n, m, replace=False)).to(
+        dev)].contiguous()
+    dist, idx = ops.three_nn(unknown, known)
+    w = 1.0 / (dist + 1e-8)
+    w = (w / w.sum(-1, keepdim=True)).requires_grad_()
+    pts = torch.from_numpy(rs.randn(B, m, C).astype(np.float32)).to(dev)
+    ct = torch.from_numpy(rs.randn(B, n, C).astype(np.float32)).to(dev)
+    x = pts.clone().requires_grad_()
+    before = (ops.scatter_rows_kernel.launches,
+              ops.gather_rows_kernel.launches)
+    ops.three_interpolate(x, idx, w).backward(ct)
+    assert (ops.scatter_rows_kernel.launches,
+            ops.gather_rows_kernel.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    # the cotangent of the gathered rows: ct * w[..., k] for slot k
+    rows_ct = (ct[:, :, None, :] * w.detach()[..., None]).reshape(B, 3 * n,
+                                                                  C)
+    same, err = scatter_same(torch, x.grad, rows_ct, idx.reshape(B, 3 * n), m)
+    assert same, err
+    y = pts.clone().requires_grad_()
+    v = w.detach().clone().requires_grad_()
+    with config.default_impl("torch"):
+        ops.three_interpolate(y, idx, v).backward(ct)
+    torch.testing.assert_close(x.grad, y.grad, rtol=1e-5,
+                               atol=1e-5 * float(y.grad.abs().max()))
+    torch.testing.assert_close(w.grad, v.grad, rtol=0, atol=0)
+
+
 def _bn_fed_bias(name: str) -> bool:
     """A dense bias that feeds a train-mode BN: BN subtracts the batch mean,
     so its gradient is zero in exact arithmetic and what either side
@@ -595,19 +709,30 @@ def test_ball_query_group_xyz_grad_goes_through_the_scatter_kernel(dev, rs):
                                atol=1e-5 * float(y.grad.abs().max()))
 
 
-@pytest.mark.parametrize("B,N,M,radii,nsamples", [
-    (2, 1024, 512, (0.1, 0.2, 0.4), (16, 32, 128)),
-    (2, 512, 128, (0.8, 0.2, 0.4), (128, 32, 64)),  # unsorted
-    (3, 100, 17, (0.3, 0.3), (8, 16)),  # repeated
-    (2, 20, 9, (0.5,), (32,)),  # a single radius, nsample > N
-    (1, 40, 8, (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8), (4,) * 8),
-    (2, 64, 300000, (0.2, 0.4), (4, 8)),  # past one grid row
+@pytest.mark.parametrize("B,N,M,radii,nsamples,offset", [
+    (2, 1024, 512, (0.1, 0.2, 0.4), (16, 32, 128), 0),
+    (2, 512, 128, (0.8, 0.2, 0.4), (128, 32, 64), 0),  # unsorted
+    (3, 100, 17, (0.3, 0.3), (8, 16), 0),  # repeated
+    (2, 20, 9, (0.5,), (32,), 0),  # a single radius, nsample > N
+    (1, 40, 8, (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8), (4,) * 8, 0),
+    (2, 64, 300000, (0.2, 0.4), (4, 8), 0),  # past one grid row
+    (2, TILE + 1, 37, (0.1, 0.2, 0.4), (16, 32, 128), 0),  # past one tile
+    (1, 2 * TILE + 1, 20, (0.4, 0.05), (64, 8), 0),  # three tiles
+    (2, 1023, 41, (0.2, 0.1, 0.8), (32, 16, 2000), 0),  # N % 4, ns > N
+    (2, 2048, 40, (0.1, 0.2, 0.4), (16, 32, 128), 1),  # one float in
+    (1, 2 * TILE - 1, 19, (0.3, 0.15, 0.6, 0.05), (8, 4, 64, 2), 1),
 ])
 def test_ball_query_multi_kernel_matches_per_radius(dev, rs, B, N, M, radii,
-                                                    nsamples):
+                                                    nsamples, offset):
     """Each radius bit-identical to the ball query kernel at that radius
-    and to the plain version; one launch for all."""
+    and to the plain version; one launch for all. The last query's ball
+    is empty at every radius below 2, so its block walks every tile; at
+    offset 1 the cloud starts one float into its storage (4-byte
+    staging)."""
     xyz1, xyz2 = _cloud_and_queries(rs, dev, B, N, M)
+    xyz1 = _shifted(xyz1, offset)
+    assert xyz1.storage_offset() == offset
+    xyz2[:, -1] = -3.0
     before = ops.ball_query_multi_kernel.launches
     got = ops.query_ball_point_multi(radii, nsamples, xyz1, xyz2)
     assert ops.ball_query_multi_kernel.launches == before + 1
@@ -616,6 +741,7 @@ def test_ball_query_multi_kernel_matches_per_radius(dev, rs, B, N, M, radii,
         sidx, scnt = ops.query_ball_point(r, ns, xyz1, xyz2)
         assert torch.equal(idx, sidx) and torch.equal(cnt, scnt)
         assert torch.equal(idx, widx) and torch.equal(cnt, wcnt)
+        assert not cnt[:, -1].any() and not idx[:, -1].any()
 
 
 def test_ball_query_multi_kernel_refuses_what_it_does_not_take(dev):

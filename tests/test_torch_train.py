@@ -524,7 +524,7 @@ def test_synthetic_dataset_equals_jax():
 
 def test_train_config_refuses_what_is_not_ported(tmp_path):
     for kw in ({"steps_per_call": 4}, {"num_devices": 2}, {"remat": "dots"},
-               {"watchdog_secs": 60.0}, {"augment": "cls_normals"}):
+               {"watchdog_secs": 60.0}, {"augment": "cls_and_jitter"}):
         with pytest.raises(NotImplementedError):
             Trainer(TrainConfig(log_dir=str(tmp_path), **kw), device="cpu")
 
