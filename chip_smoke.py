@@ -23,8 +23,10 @@ the fused chain in train mode through ``Trainer.fit`` of
 ``Trainer.fit`` of ``pointnet2_sem_seg`` on ``ScannetDataset`` crops of
 generated rooms (8192 points, the wdp input dropout, ``augment="scannet"``),
 ``pointnet2_part_seg`` and ``pointnet2_part_seg_msg_one_hot`` on
-``SyntheticShapeNetPart`` (2048 points with normals, category labels).
-Phases:
+``SyntheticShapeNetPart`` (2048 points with normals, category labels);
+checkpoints with exact resume and ``Predictor.from_checkpoint``; the vote,
+part-mIoU and ScanNet evaluation protocols; and the train and evaluate
+CLIs. Phases:
 
 1. build the kernels from ``pointnet2_tpu_torch/csrc/`` with nvcc, one
    process per source, all at once; log ``ptxas -v`` of ``ball_query.cu``,
@@ -184,6 +186,30 @@ Phases:
     sem_seg bf16 with the gate off and on): ms/step, examples/s, device
     us/step, the card's idle share of the step, peak memory; and a bf16
     sem_seg step's device time by op.
+25. checkpoints and exact resume: ``Trainer.fit`` of cls_ssg (B=16,
+    augment "cls", dropout on) for 2 epochs, stopped, and resumed to 4 by a
+    new ``Trainer`` on the same log_dir, in f32 and in bf16 with
+    ``config.fused_mlp`` on, against two uninterrupted 4-epoch runs:
+    parameters, BN statistics, optimizer moments, count, step and the
+    generator bit for bit (or, if the uninterrupted runs differ, within
+    their spread, the tensors named); a better best checkpoint kept through
+    the resumed evals; ``Predictor.from_checkpoint``'s logits equal to the
+    trainer's eval-mode model's; save and restore ms and the checkpoint's
+    MiB;
+26. the evaluation protocols through ``Trainer.eval_logits_fn`` on seeded
+    weights: ``evaluate_cls_voting`` (12 votes, 80 clouds),
+    ``evaluate_part_seg_voting`` (12 votes, 32 part clouds of 2048 points
+    with normals) and ``evaluate_scannet_chopped`` and ``..._whole_scene``
+    (8192 points, B=16, four generated rooms of 100000 points), each
+    through the kernels, with every counter from 0, and under
+    ``config.default_impl("torch")``: f32 metric dicts equal, bf16 logged;
+    wall time, inputs/s and the shares of forwards and metric code;
+27. the CLI journey in this process: ``cli.train`` and ``cli.evaluate
+    --out`` of cls_ssg (synthetic, 2 epochs, 12 votes) and sem_seg
+    (synthetic, 8192 points, 1 epoch, the whole-scene protocol, 2 loader
+    threads): checkpoints, sidecars, ``metrics.jsonl`` and the record as
+    the JAX package writes them, and FPS, the ball query, the gather, the
+    scatter and three_nn launched.
 
 Prints the GPU's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
@@ -3387,6 +3413,433 @@ def time_seg_train(torch, dev, gpu: str, log_dir: str, batches: dict) -> None:
                                    "step", host_us=host[False] * 1e3)
 
 
+# --- checkpoints, the evaluation protocols and the CLIs ----------------------
+
+RESUME_EPOCHS = (2, 4)  # phase 25: stop after the first, resume to the second
+# phase 25's runs: (compute dtype, config.fused_mlp)
+RESUME_RUNS = (("float32", False), ("bfloat16", True))
+PROTOCOL_VOTES = 12
+PROTOCOL_ROOMS = 4  # phase 26's generated rooms (at least two)
+
+
+def resume_data() -> tuple:
+    """Phase 25's (train, eval) data: 80 and 40 synthetic clouds of 1024
+    points, 5 and 3 batches of 16."""
+    from pointnet2_tpu_torch.data import SyntheticClassification
+
+    return tuple(SyntheticClassification(num_classes=NUM_CLASSES,
+                                         samples_per_class=k,
+                                         npoints=N_POINT, batch_size=16,
+                                         seed=s)
+                 for s, k in ((0, 2), (1, 1)))
+
+
+def train_snapshot(torch, tr, state) -> dict:
+    """Every tensor a resume must give back: parameters, BN running
+    statistics, optimizer moments, and the count, step and generator."""
+    opt = state.optimizer.state_dict()
+    out = {f"param {k}": v.detach().clone()
+           for k, v in state.model.named_parameters()}
+    out.update({f"buffer {k}": v.clone()
+                for k, v in state.model.named_buffers()})
+    for k in state.optimizer.MOMENTS:
+        out.update({f"{k} {i}": t.clone() for i, t in enumerate(opt[k])})
+    out["count, step"] = torch.tensor([opt["count"], state.step])
+    out["generator"] = tr.generator.get_state()
+    return out
+
+
+def snapshot_diff(torch, a: dict, b: dict) -> tuple:
+    """(max abs difference over every tensor, names of the tensors that
+    differ)."""
+    worst, names = 0.0, []
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            names.append(k)
+            worst = max(worst, float((a[k].double() - b[k].double())
+                                     .abs().max()))
+    return worst, names
+
+
+def resume_verdict(torch, got: dict, refs: list) -> tuple:
+    """(ok, what): a resumed run's snapshot against two uninterrupted runs'.
+    Equal bit for bit when the two runs are; else within their spread, in
+    no tensor they do not differ in."""
+    spread, spread_names = snapshot_diff(torch, refs[0], refs[1])
+    err, names = snapshot_diff(torch, got, refs[0])
+    if not spread_names:
+        return not names, (
+            f"equal bit for bit, as the two uninterrupted runs are ({len(got)}"
+            " tensors: parameters, BN statistics, optimizer moments, count, "
+            f"step, generator); differing: {names[:4]}")
+    return err <= spread and set(names) <= set(spread_names), (
+        f"the two uninterrupted runs differ (max {spread:.3e} in "
+        f"{len(spread_names)} tensors, first {spread_names[:3]}); the resume "
+        f"by {err:.3e} in {len(names)} tensors")
+
+
+def check_resume(torch, check: Checks, log_dir: str) -> dict:
+    """Phase 25: Trainer.fit of cls_ssg (B=16, N=1024, augment "cls",
+    dropout on) stopped after 2 epochs and resumed to 4 by a new Trainer on
+    the same log_dir, in f32 and in bf16 with config.fused_mlp on, against
+    two uninterrupted 4-epoch runs from the same seed (the data sets made
+    anew for each run and carried across the stop). The resume must equal
+    the uninterrupted run bit for bit, or, if the two uninterrupted runs
+    differ, stay within their spread and name the tensors. The best
+    checkpoint survives a worse first eval after the resume;
+    Predictor.from_checkpoint gives the trainer's eval logits; save and
+    restore times and the checkpoint's size are logged. Returns the launch
+    counts of the resumed runs."""
+    from pointnet2_tpu_torch import Predictor, config, ops
+    from pointnet2_tpu_torch.train import checkpoint as ckpt
+
+    first, last = RESUME_EPOCHS
+    log(f"phase 25: checkpoints and exact resume: Trainer.fit cls_ssg "
+        f"N={N_POINT}, batch 16, augment='cls', {first} epochs, stop, resume "
+        f"to {last}, against uninterrupted runs")
+    total = dict.fromkeys(ops.KERNELS, 0)
+    for dtype, fused in RESUME_RUNS:
+        tag = f"{dtype}{' fused' if fused else ''}"
+        with config.fused_mlp(fused):
+            refs = []
+            for r in range(2):
+                train, evals = resume_data()
+                with make_trainer(torch, dtype, os.path.join(
+                        log_dir, f"resume_ref{r}_{dtype}"), last) as tr:
+                    refs.append(train_snapshot(
+                        torch, tr, tr.fit(train, eval_dataset=evals)))
+            run_dir = os.path.join(log_dir, f"resume_{dtype}")
+            train, evals = resume_data()
+            for w in ops.KERNELS.values():
+                w.launches = 0
+            with make_trainer(torch, dtype, run_dir, last) as tr:
+                tr.fit(train, eval_dataset=evals, max_epoch=first)
+            # an unbeatable best from before the stop: the resumed run's
+            # evals must not overwrite it
+            best_meta = ckpt.load_meta(run_dir, "best")
+            best_meta["score"] = 2.0
+            with open(os.path.join(run_dir, "best.meta.json"), "w") as f:
+                json.dump(best_meta, f)
+            best_file = os.path.join(run_dir, "best", "state.pt")
+            best_bytes = open(best_file, "rb").read()
+            with make_trainer(torch, dtype, run_dir, last) as tr:
+                state = tr.fit(train, eval_dataset=evals)
+                got = train_snapshot(torch, tr, state)
+                batch = {"points": next(iter(evals.epoch()))["points"]}
+                eval_logits = tr.eval_logits_fn(state)(batch)
+                served = Predictor.from_checkpoint(
+                    CLS_SSG, run_dir, num_point=N_POINT,
+                    dtype=getattr(torch, dtype))(batch["points"])
+            torch.cuda.synchronize()
+            counts = {k: w.launches for k, w in ops.KERNELS.items()}
+        ok, what = resume_verdict(torch, got, refs)
+        check(ok, f"{tag}: {first} + {last - first} epochs with a resume "
+              f"against {last} uninterrupted: {what}")
+        meta = ckpt.load_meta(run_dir, "best")
+        check(meta["score"] == 2.0
+              and open(best_file, "rb").read() == best_bytes
+              and ckpt.load_meta(run_dir) == {"step": int(state.step),
+                                              "epoch": last},
+              f"{tag}: the best checkpoint (score 2.0 before the stop) "
+              f"survives the resumed evals; ckpt at step {state.step}, "
+              f"epoch {last}")
+        check(served.shape == (len(batch["points"]), NUM_CLASSES)
+              and np.array_equal(served, eval_logits),
+              f"{tag}: Predictor.from_checkpoint's logits equal the "
+              "trainer's eval-mode model's on one batch of 16 (max abs diff "
+              f"{float(np.abs(served - eval_logits).max()):.3e})")
+        # both halves, the eval-logits forward and the served one
+        per = FUSED_PER_FWD[CLS_SSG] if fused else {
+            "fps": 2, "ball_query": 2, "gather_rows": 4}
+        steps = last * train.num_batches()
+        fwds = steps + last * evals.num_batches() + 2
+        log(f"  launches in the {tag} run stopped and resumed ({steps} "
+            f"steps, {fwds} forwards): {counts}")
+        check(all(counts[k] == per[k] * fwds for k in ("fps", "ball_query"))
+              and counts["scatter_rows"] == 2 * steps
+              and (not fused or all(counts[k] > 0 for k in (
+                  "fused_dense", "fused_pool", *BWD))),
+              f"{tag}: the resumed run launched fps and ball_query twice a "
+              "forward, the scatter twice a step"
+              + (", every fused-chain kernel" if fused else ""))
+        total = {k: total[k] + counts[k] for k in total}
+        time_checkpoint(torch, tag, state, run_dir)
+    return total
+
+
+def time_checkpoint(torch, tag: str, state, run_dir: str) -> None:
+    """Save and restore times of a cls_ssg checkpoint (host clock, median of
+    5, the restore onto the card) and its size."""
+    from pointnet2_tpu_torch.train import checkpoint as ckpt
+
+    gen = torch.Generator(device=next(state.model.parameters()).device)
+    save = host_ms(torch, lambda: ckpt.save_checkpoint(
+        run_dir, state, name="timed", generator=gen), 5, warmup=1)
+    restore = host_ms(torch, lambda: ckpt.restore_checkpoint(
+        run_dir, state, name="timed", generator=gen), 5, warmup=1)
+    mib = os.path.getsize(os.path.join(run_dir, "timed", "state.pt")) / 2**20
+    log(f"  {tag}: checkpoint save {save:.3f} ms, restore {restore:.3f} ms, "
+        f"{mib:.3f} MiB (parameters, BN statistics, Adam's two moments)")
+
+
+def labelled_room(seed: int) -> tuple:
+    """A generated room of phase 11's size (100000 points) with spatially
+    coherent labels: the nearest of 20 anchors (1-20), about 10%
+    unannotated (0)."""
+    pts = make_room(100_000, seed)
+    rng = np.random.default_rng(seed + 1)
+    anchors = rng.uniform(pts.min(0), pts.max(0), (20, 3))
+    d = ((pts[:, None, :] - anchors[None]) ** 2).sum(-1)
+    labels = (d.argmin(1) + 1).astype(np.int32)
+    labels[rng.random(len(pts)) < 0.1] = 0
+    return pts, labels
+
+
+class ProtocolClock:
+    """Wall time of a protocol split into its forwards (inside the logits
+    function: upload, model, logits back), its metric code (the metric
+    class's ``update``) and the rest (views, batching, data)."""
+
+    def __init__(self, fn, metrics_cls=None):
+        self.fn, self.metrics_cls = fn, metrics_cls
+        self.forward_s = self.metric_s = 0.0
+        self.calls = 0
+
+    def logits(self, batch):
+        t0 = time.perf_counter()
+        out = self.fn(batch)
+        self.forward_s += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+    def run(self, protocol):
+        update = self.metrics_cls.update if self.metrics_cls else None
+
+        def timed(metrics, *a, **k):
+            t0 = time.perf_counter()
+            update(metrics, *a, **k)
+            self.metric_s += time.perf_counter() - t0
+
+        if update is not None:
+            self.metrics_cls.update = timed
+        t0 = time.perf_counter()
+        try:
+            result = protocol(self.logits)
+        finally:
+            if update is not None:
+                self.metrics_cls.update = update
+        self.wall_s = time.perf_counter() - t0
+        return result
+
+
+def protocol_trainer(torch, name: str, dtype: str, log_dir: str):
+    """A Trainer of `name` on the card whose state carries the seeded
+    random weights of `random_state_dict`."""
+    from pointnet2_tpu_torch.train import TrainConfig, Trainer
+
+    n = {CLS_SSG: N_POINT, SEM: SEM_N, PART: PART_N}[name]
+    tr = Trainer(TrainConfig(model=name, num_point=n, batch_size=16,
+                             compute_dtype=dtype, log_dir=log_dir),
+                 device="cuda")
+    state = tr.init_state()
+    state.model.load_state_dict(random_state_dict(torch, SEED, name))
+    return tr, state
+
+
+def equal_metrics(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(equal_metrics(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
+
+
+def check_protocols(torch, check: Checks, log_dir: str) -> dict:
+    """Phase 26: the four evaluation protocols on the card through
+    Trainer.eval_logits_fn on seeded weights: evaluate_cls_voting (cls_ssg,
+    12 votes, 80 clouds of 1024 points, B=16), evaluate_part_seg_voting
+    (part_seg, 12 votes, 32 synthetic part clouds of 2048 points with
+    normals, B=16), evaluate_scannet_chopped and ..._whole_scene (sem_seg,
+    8192 points, B=16, on generated rooms of 100000 points). Each runs
+    through the kernels (every launch counter from 0, each forward
+    launching its path's kernels) and under config.default_impl("torch") on
+    the card (no launch): the f32 metric dicts must be equal; bf16 through
+    the kernels is logged beside. Logs wall time, inputs/s and the shares
+    of forwards and metric code. Returns the launches of the kernel runs."""
+    from pointnet2_tpu_torch import config, evaluation, ops
+    from pointnet2_tpu_torch.data import (
+        ScannetDataset,
+        ScannetDatasetWholeScene,
+        SyntheticClassification,
+        SyntheticShapeNetPart,
+    )
+
+    quiet = dict(log_fn=lambda s: None)
+    t0 = time.perf_counter()
+    rooms = [labelled_room(SEED + 40 + i) for i in range(PROTOCOL_ROOMS)]
+    log(f"phase 26: the evaluation protocols on the card, kernels against "
+        f"plain versions ({PROTOCOL_ROOMS} generated rooms of 100000 points "
+        f"in {time.perf_counter() - t0:.2f} s)")
+
+    def cls_data():
+        return SyntheticClassification(num_classes=NUM_CLASSES,
+                                       samples_per_class=2, npoints=N_POINT,
+                                       batch_size=16, seed=SEED + 3)
+
+    def part_data():
+        return SyntheticShapeNetPart(num_samples=32, npoints=PART_N,
+                                     batch_size=16, seed=SEED + 3)
+
+    def sem_data(cls):
+        return cls(scenes=rooms, npoints=SEM_N, split="test", batch_size=16,
+                   seed=SEED + 3)
+
+    # (name, model, its launches a forward, metric class, inputs, protocol)
+    runs = [
+        ("evaluate_cls_voting", CLS_SSG,
+         {"fps": 2, "ball_query": 2, "gather_rows": 4}, None, "clouds",
+         lambda fn: evaluation.evaluate_cls_voting(
+             lambda p: fn({"points": p}), cls_data(),
+             num_votes=PROTOCOL_VOTES, rng=0, **quiet), 80),
+        ("evaluate_part_seg_voting", PART, SEG_PER_FWD[PART],
+         evaluation.PartSegMetrics, "shapes",
+         lambda fn: evaluation.evaluate_part_seg_voting(
+             fn, part_data(), num_votes=PROTOCOL_VOTES, rng=0, **quiet), 32),
+        ("evaluate_scannet_chopped", SEM, SEG_PER_FWD[SEM],
+         evaluation.ScanNetMetrics, "crops",
+         lambda fn: evaluation.evaluate_scannet_chopped(
+             fn, sem_data(ScannetDataset), rng=0, **quiet), PROTOCOL_ROOMS),
+        ("evaluate_scannet_whole_scene", SEM, SEG_PER_FWD[SEM],
+         evaluation.ScanNetMetrics, "blocks",
+         lambda fn: evaluation.evaluate_scannet_whole_scene(
+             fn, sem_data(ScannetDatasetWholeScene), batch_size=16, **quiet),
+         None),
+    ]
+    total = dict.fromkeys(ops.KERNELS, 0)
+    for label, name, per, metrics_cls, unit, protocol, n_inputs in runs:
+        results = {}
+        for route, dtype, impl in (("kernels", "float32", "auto"),
+                                   ("plain", "float32", "torch"),
+                                   ("kernels", "bfloat16", "auto")):
+            tr, state = protocol_trainer(torch, name, dtype, os.path.join(
+                log_dir, f"protocol_{name}"))
+            for w in ops.KERNELS.values():
+                w.launches = 0
+            clock = ProtocolClock(tr.eval_logits_fn(state), metrics_cls)
+            with tr, config.default_impl(impl):
+                res = clock.run(protocol)
+            torch.cuda.synchronize()
+            counts = {k: w.launches for k, w in ops.KERNELS.items()}
+            results[route, dtype] = res
+            inputs = n_inputs
+            if inputs is None:  # the whole-scene blocks
+                inputs = sum(1 for _ in sem_data(
+                    ScannetDatasetWholeScene).blocks())
+            wall = clock.wall_s
+            other = wall - clock.forward_s - clock.metric_s
+            log(f"  {label} {route} {dtype}: {wall * 1e3:.1f} ms, "
+                f"{inputs / wall:.2f} {unit}/s, {clock.calls} forwards "
+                f"{clock.forward_s / wall:.1%} of the time, metric code "
+                f"{clock.metric_s / wall:.1%}, the rest {other / wall:.1%}; "
+                f"{headline(res)}")
+            if impl == "torch":
+                check(all(v == 0 for v in counts.values()),
+                      f"{label}: the plain run launched no kernel")
+                continue
+            want = {k: per[k] * clock.calls for k in per
+                    if k in ("fps", "ball_query", "three_nn")}
+            check(clock.calls > 0 and all(counts[k] == want[k] for k in want)
+                  and counts["gather_rows"] > 0,
+                  f"{label} {dtype}: {clock.calls} forwards launched "
+                  f"{ {k: per[k] for k in want} } a forward and the gather")
+            total = {k: total[k] + counts[k] for k in total}
+        check(equal_metrics(results["kernels", "float32"],
+                            results["plain", "float32"]),
+              f"{label}: f32 metrics through the kernels equal the plain "
+              f"versions' on the card ({headline(results['plain', 'float32'])})")
+    return total
+
+
+def headline(res: dict) -> str:
+    """The protocol's headline numbers, for the log."""
+    if "instance_miou" in res:
+        return (f"accuracy {res['accuracy']:.6f}, instance mIoU "
+                f"{res['instance_miou']:.6f}")
+    if "calibrated_accuracy_vox" in res:
+        return (f"point accuracy {res['point_accuracy']:.6f}, calibrated "
+                f"voxel accuracy {res['calibrated_accuracy_vox']:.6f}")
+    return (f"accuracy {res['accuracy']:.6f}, avg class accuracy "
+            f"{res['avg_class_accuracy']:.6f}")
+
+
+def check_cli(torch, check: Checks, log_dir: str) -> dict:
+    """Phase 27: the user's journey through the CLIs on the card, in this
+    process: cli.train then cli.evaluate --out of cls_ssg (--synthetic,
+    1024 points, B=16, 2 epochs, 12 votes) and of sem_seg (--synthetic,
+    8192 points, B=16, 1 epoch, its whole-scene protocol, 2 loader
+    threads); the checkpoints, metrics and record must be JAX's, and the
+    forwards launch FPS, the ball query, the gather and three_nn. Returns the
+    launches."""
+    from pointnet2_tpu_torch import ops
+    from pointnet2_tpu_torch.cli import evaluate as cli_evaluate
+    from pointnet2_tpu_torch.cli import train as cli_train
+
+    log("phase 27: the CLI journey on the card: cli.train, cli.evaluate "
+        "--out, for cls_ssg and sem_seg")
+    for w in ops.KERNELS.values():
+        w.launches = 0
+    journeys = (
+        (CLS_SSG, ["--num_point", str(N_POINT), "--max_epoch", "2"],
+         ["--num_votes", str(PROTOCOL_VOTES)],
+         ["train", "eval", "train", "eval"], 40,
+         {"accuracy", "avg_class_accuracy", "class_accuracy",
+          "per_class_seen"}),
+        (SEM, ["--num_point", str(SEM_N), "--max_epoch", "1",
+               "--loader_workers", "2"], [],
+         ["train", "eval_chopped", "eval_whole_scene"], 1,
+         {"chopped", "whole_scene"}),
+    )
+    for name, train_flags, eval_flags, splits, steps, keys in journeys:
+        run_dir = os.path.join(log_dir, f"cli_{name}")
+        out = os.path.join(log_dir, f"cli_{name}.json")
+        common = ["--model", name, "--synthetic", "--batch_size", "16",
+                  "--log_dir", run_dir]
+        t0 = time.perf_counter()
+        cli_train.main(common + train_flags)
+        t1 = time.perf_counter()
+        cli_evaluate.main(common + train_flags[:2] + eval_flags
+                          + ["--out", out])
+        t2 = time.perf_counter()
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        with open(out) as f:
+            record = json.load(f)
+        meta = {k: json.load(open(os.path.join(run_dir, f"{k}.meta.json")))
+                for k in ("ckpt", "best")}
+        epochs = int(train_flags[3])
+        check([r["split"] for r in rows] == splits
+              and all(os.path.isfile(os.path.join(run_dir, k, "state.pt"))
+                      for k in ("ckpt", "best"))
+              and meta["ckpt"] == {"step": steps, "epoch": epochs}
+              and "score" in meta["best"]
+              and record.keys() == {"model", "ckpt", "step", "num_votes",
+                                    "metrics"}
+              and record["model"] == name and record["step"] == steps
+              and set(record["metrics"]) == keys,
+              f"{name}: cli.train ({t1 - t0:.1f} s) wrote ckpt and best with "
+              f"their sidecars {meta}, metrics.jsonl {splits}; cli.evaluate "
+              f"({t2 - t1:.1f} s) restored step {record['step']} and wrote "
+              f"its record, metrics {sorted(record['metrics'])}")
+    counts = {k: w.launches for k, w in ops.KERNELS.items()}
+    log(f"  launches in the CLI journeys: {counts}")
+    check(all(counts[k] > 0 for k in ("fps", "ball_query", "gather_rows",
+                                      "scatter_rows", "three_nn")),
+          "the journeys' forwards launched FPS, the ball query, the gather "
+          "and three_nn, their steps the scatter")
+    return counts
+
+
 def check_tensor_cores(_build, check: Checks) -> None:
     """Phase 1: in the built fused_mlp library's SASS, the bf16 dense
     pass's product and the bf16 dense backward's two are tensor-core
@@ -3627,14 +4080,19 @@ def main() -> int:
     seg_batches = check_seg_train_step(torch, dev, check, log_dir)
     seg_fit = seg_train_fit(torch, check, log_dir)
     time_seg_train(torch, dev, gpu, log_dir, seg_batches)
+
+    resume = check_resume(torch, check, log_dir)
+    protocols = check_protocols(torch, check, log_dir)
+    journeys = check_cli(torch, check, log_dir)
     # launches of each kernel over every main-path run (classifier serving,
     # training, sem_seg and part_seg serving, the MSG models' serving and
     # the MSG layers' other routes, the fused route's serving and
-    # training, segmentation training); the affine tail runs on no model
-    # path, so its phase-16 launches count
+    # training, segmentation training, the resumed runs, the protocols,
+    # the CLI journeys); the affine tail runs on no model path, so its
+    # phase-16 launches count
     runs = [fit["counts"], seg["launches"][SEM], seg["launches"][PART],
             *msg["launches"].values(), *fused["launches"].values(),
-            fused_fit, seg_fit]
+            fused_fit, seg_fit, resume, protocols, journeys]
     launches = {k: launches[k] + sum(r[k] for r in runs) for k in REPLACES}
     launches["fused_affine"] += affine_launches
     check(all(launches[k] > 0 for k in REPLACES),

@@ -15,7 +15,12 @@ Adam or momentum on the scheduled LR); the segmentation models
 ``Predictor.predict_scene``); the multi-scale-grouping models
 ``pointnet2_cls_msg`` and ``pointnet2_part_seg_msg_one_hot`` (served with
 a category label, ``Predictor(points, cls_label)``), the PointNet baseline
-``pointnet_cls_basic``, and every option of the set-abstraction layers.
+``pointnet_cls_basic``, and every option of the set-abstraction layers;
+training of every model, with checkpoints and exact resume
+(``train.checkpoint``), the evaluation protocols (``evaluation``: the
+vote, part mIoU, ScanNet's chopped and whole-scene passes),
+``Predictor.from_checkpoint``, and the command-line tools ``cli.train``
+and ``cli.evaluate``.
 """
 
 from pointnet2_tpu_torch.convert import flax_to_torch

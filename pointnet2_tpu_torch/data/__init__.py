@@ -4,6 +4,7 @@ on-device training augmentation (torch)."""
 from pointnet2_tpu_torch.data.modelnet import ModelNetH5Dataset, pc_normalize
 from pointnet2_tpu_torch.data.scannet import (
     ScannetDataset,
+    ScannetDatasetWholeScene,
     make_synthetic_scenes,
 )
 from pointnet2_tpu_torch.data.shapenet_part import (
@@ -16,5 +17,6 @@ from pointnet2_tpu_torch.data.synthetic import (
 )
 
 __all__ = ["ModelNetH5Dataset", "PartNormalDataset", "ScannetDataset",
+           "ScannetDatasetWholeScene",
            "SyntheticClassification", "SyntheticSegmentation",
            "SyntheticShapeNetPart", "make_synthetic_scenes", "pc_normalize"]

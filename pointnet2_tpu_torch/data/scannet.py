@@ -1,6 +1,6 @@
 """ScanNet semantic-segmentation data, numpy only.
 
-Port of pointnet2_tpu/data/scannet.py:1-312,337-365,487-503:
+Port of pointnet2_tpu/data/scannet.py:1-424,487-503:
 
 - :class:`ScannetDataset`, the training sampler of the reference
   (scannet/scannet_dataset.py:27-61): a random 1.5 x 1.5 m x full-height
@@ -10,7 +10,12 @@ Port of pointnet2_tpu/data/scannet.py:1-312,337-365,487-503:
   (1/log(1.2 + freq), :17-24) masked to the strict interior; batches hold
   ``points`` (B, N, 3) f32, ``seg`` (B, N) int32, ``smpw`` (B, N) f32 and
   ``nvalid``, with the reference's input dropout (``wdp``) on train
-  batches;
+  batches; with ``num_workers > 1`` the crops are sampled on a thread
+  pool (``utils.prefetch.parallel_map``) from per-item seeds drawn up
+  front, a stream of its own, as JAX's;
+- :class:`ScannetDatasetWholeScene`, the evaluation tiler of the reference
+  (scannet/scannet_dataset.py:64-120): 1.5 m columns, one ``npoints``
+  sample a non-empty block;
 - :func:`make_synthetic_scenes`, generated rooms for hermetic runs;
 - :func:`block_members`, the 1.5 m columns with 0.2 m overlap that
   ``Predictor.predict_scene`` cuts a room into.
@@ -20,10 +25,8 @@ pickled lists) or from an in-memory list of (points, labels). The random
 streams are ``np.random.default_rng``'s, drawn in the JAX package's order,
 so the same seed gives the same batches.
 
-Not ported yet: ``ScannetDatasetWholeScene`` (it comes with the ScanNet
-evaluation), ``ScannetDatasetVirtualScan``, and the thread pool
-(``num_workers > 1``) and multi-host sharding (``process_shard``), which
-raise.
+Not ported yet: ``ScannetDatasetVirtualScan``, and multi-host sharding
+(``process_shard``), which raises.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from collections.abc import Iterator
 import numpy as np
 
 from pointnet2_tpu_torch.data.modelnet import _pad_batch
+from pointnet2_tpu_torch.utils.prefetch import parallel_map
 
 NUM_CLASSES = 21
 
@@ -98,9 +102,6 @@ class _ScannetBase:
         if process_shard is not None:
             raise NotImplementedError("process_shard (multi-host sharding) "
                                       "is not ported yet")
-        if num_workers > 1:
-            raise NotImplementedError("num_workers > 1 (the thread pool of "
-                                      "utils/prefetch) is not ported yet")
         if scenes is not None:
             pts = [p for p, _ in scenes]
             lbl = [l for _, l in scenes]
@@ -122,6 +123,7 @@ class _ScannetBase:
         self.split = split
         self.batch_size = batch_size
         self._rng = np.random.default_rng(seed)
+        self.num_workers = num_workers
         self._meta_cache: dict[int, tuple] = {}
         if split == "train":
             self.labelweights = compute_label_weights(
@@ -276,9 +278,92 @@ class ScannetDataset(_ScannetBase):
         augmentation on the train split (scannet/train.py:181-197)."""
         order = self._rng.permutation(len(self))
         wdp = input_dropout and self.split == "train"
-        items = (self.get_item(i) for i in order)
+        if self.num_workers > 1:
+            # per-item generators drawn up front keep the stream the same
+            # for a seed whatever the threads' timing
+            seeds = self._rng.integers(0, 2 ** 63, size=len(order))
+            items = parallel_map(
+                lambda t: self.get_item(
+                    int(t[0]), rng=np.random.default_rng(int(t[1]))),
+                list(zip(order, seeds)), self.num_workers)
+        else:
+            items = (self.get_item(i) for i in order)
         yield from _batched_items(items, self.batch_size, self._rng,
                                   input_dropout=wdp)
+
+
+class ScannetDatasetWholeScene(_ScannetBase):
+    """Tile each scene into 1.5 m x/y columns; one ``npoints`` sample a
+    non-empty block. ``get_item`` returns (nblocks, npoints, ...) arrays.
+
+    Protocol (scannet/scannet_dataset.py:83-118): a block's members lie in
+    its x/y bounds grown by 0.2 m (full z range); ``npoints`` are
+    resampled with replacement a block; the block is kept when >= 1% of the
+    sample lies in the strict (0.001 m) interior, which also masks the
+    weights. Points are binned to their (at most 4) blocks by
+    :func:`block_members`, and the resample of all blocks is one batched
+    draw, as in JAX."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._tiling_cache: dict[int, tuple] = {}
+
+    def _scene_tiling(self, index: int):
+        """The scene's static binning (member ids sorted by block and the
+        block table), cached: every eval pass tiles the same scenes."""
+        cached = self._tiling_cache.get(index)
+        if cached is not None:
+            return cached
+        pts = self.scene_points_list[index]
+        coordmin, coordmax = pts.min(axis=0), pts.max(axis=0)
+        # `or 1`: a zero-extent axis still owns one block, as in
+        # Predictor.predict_scene's tiling of the same geometry
+        nx = int(np.ceil((coordmax[0] - coordmin[0]) / BLOCK)) or 1
+        ny = int(np.ceil((coordmax[1] - coordmin[1]) / BLOCK)) or 1
+        pairs = block_members(pts, coordmin, nx, ny)
+        block_ids, starts = np.unique(pairs[:, 0], return_index=True)
+        counts = np.append(starts[1:], len(pairs)) - starts
+        tiling = (pairs[:, 1].astype(np.int32), block_ids, starts, counts,
+                  ny, coordmin, coordmax)
+        if len(self._tiling_cache) >= 256:  # bound host memory
+            self._tiling_cache.pop(next(iter(self._tiling_cache)))
+        self._tiling_cache[index] = tiling
+        return tiling
+
+    def get_item(self, index: int):
+        """(points (nblocks, npoints, 3), seg (nblocks, npoints), weights
+        (nblocks, npoints)) of the kept blocks of scene `index`."""
+        pts = self.scene_points_list[index]
+        seg = self.semantic_labels_list[index]
+        member, block_ids, starts, counts, ny, coordmin, coordmax = \
+            self._scene_tiling(index)
+        nb = len(block_ids)
+        # one resample with replacement for all blocks: uniform offsets
+        # into each block's slice [start, start + count) of the members
+        u = self._rng.random((nb, self.npoints))
+        offs = (u * counts[:, None]).astype(np.int64)
+        sel = member[starts[:, None] + offs]  # (nb, npoints)
+        ps = pts[sel]
+        sg = seg[sel]
+        curmin = coordmin + np.stack(
+            [(block_ids // ny) * BLOCK, (block_ids % ny) * BLOCK,
+             np.zeros(nb)], 1)
+        curmax = np.stack(
+            [curmin[:, 0] + BLOCK, curmin[:, 1] + BLOCK,
+             np.full(nb, coordmax[2])], 1)
+        msk = ((ps >= curmin[:, None] - 0.001)
+               & (ps <= curmax[:, None] + 0.001)).all(-1)
+        keep = msk.mean(1) >= 0.01
+        w = (self.labelweights[sg] * msk).astype(np.float32)
+        return ps[keep], sg[keep], w[keep]
+
+    def blocks(self) -> Iterator[tuple]:
+        """Every block of every scene, flattened, for batched whole-scene
+        evaluation (blocks are independent in eval mode)."""
+        for i in range(len(self)):
+            ps, seg, w = self.get_item(i)
+            for b in range(ps.shape[0]):
+                yield ps[b], seg[b], w[b]
 
 
 def make_synthetic_scenes(num_scenes: int = 4, points_per_scene: int = 20000,

@@ -1,6 +1,6 @@
 """Bucketed inference endpoint on the card.
 
-Port of pointnet2_tpu/serving.py:42-293:
+Port of pointnet2_tpu/serving.py:42-337:
 
 - parameters and BN statistics live on the device;
 - requests of any batch size are padded up to a fixed set of bucket sizes
@@ -15,7 +15,9 @@ Port of pointnet2_tpu/serving.py:42-293:
 - segmentation models give per-point logits, and ``predict_scene`` labels
   every point of a whole scene through the same bucketed path;
 - the one-hot part segmenter takes each cloud's category label beside it,
-  padded and chunked with the points.
+  padded and chunked with the points;
+- ``from_checkpoint`` serves a ``Trainer`` checkpoint
+  (train/checkpoint.py).
 
 Usage::
 
@@ -29,6 +31,9 @@ Usage::
 
     parts = Predictor("pointnet2_part_seg_msg_one_hot", variables)
     logits = parts(clouds, cls_label)              # (B, 2048, 50) float32
+
+    trained = Predictor.from_checkpoint("pointnet2_cls_ssg", "log",
+                                        num_point=1024, name="best")
 """
 
 from __future__ import annotations
@@ -274,3 +279,23 @@ class Predictor:
                 np.add.at(votes, chunk[:valid], 1)
         return {"labels": logit_sum.argmax(-1).astype(np.int32),
                 "logits": logit_sum, "votes": votes}
+
+    # -- construction ------------------------------------------------------
+
+    @classmethod
+    def from_checkpoint(cls, model_name: str, ckpt_dir: str, *,
+                        num_point: int, in_channels: int = 3,
+                        name: str = "ckpt", optimizer: str = "adam",
+                        **kwargs) -> "Predictor":
+        """Serve checkpoint ``name`` of a ``Trainer`` run in ``ckpt_dir``:
+        its model ``state_dict`` loads into a Predictor built with
+        ``kwargs`` (``dtype``, ``buckets``, ``device``: CUDA unless
+        ``device="cpu"``, model kwargs). ``num_point``, ``in_channels``
+        and ``optimizer`` describe the training run as in the JAX
+        package's signature, which needs them for its restore template;
+        the torch format stores the state itself and needs none."""
+        from pointnet2_tpu_torch.train.checkpoint import read_checkpoint
+
+        del num_point, in_channels, optimizer  # no template to build
+        saved = read_checkpoint(ckpt_dir, name)
+        return cls(model_name, saved["model"], **kwargs)

@@ -39,6 +39,8 @@ def _c(v) -> float:
 
 
 class _Optimizer:
+    MOMENTS: tuple[str, ...] = ()  # per-parameter state lists
+
     def __init__(self, params, lr_schedule):
         self.params = [p for p in params if p.requires_grad]
         self.lr_schedule = lr_schedule
@@ -57,6 +59,29 @@ class _Optimizer:
         for p in self.params:
             p.grad = None
 
+    def state_dict(self) -> dict:
+        """The count and the moments (one tensor a parameter, in parameter
+        order), for a checkpoint."""
+        return {"count": self.count,
+                **{k: list(getattr(self, k)) for k in self.MOMENTS}}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore ``state_dict()``'s output onto this optimizer's
+        parameters (shapes and dtypes checked, moved to their device)."""
+        moments = {}
+        for k in self.MOMENTS:
+            ts = sd[k]
+            if len(ts) != len(self.params) or any(
+                    t.shape != p.shape or t.dtype != p.dtype
+                    for t, p in zip(ts, self.params)):
+                raise ValueError(f"optimizer moment {k!r} does not match "
+                                 "the parameters")
+            moments[k] = [t.to(p.device).clone()
+                          for t, p in zip(ts, self.params)]
+        for k, ts in moments.items():
+            setattr(self, k, ts)
+        self.count = int(sd["count"])
+
     @torch.no_grad()
     def step(self) -> None:
         lr = _c(self.lr_schedule(self.count))
@@ -67,6 +92,8 @@ class _Optimizer:
 
 class Adam(_Optimizer):
     """optax.adam(lr_schedule) with b1 0.9, b2 0.999, eps 1e-8."""
+
+    MOMENTS = ("mu", "nu")
 
     def __init__(self, params, lr_schedule, b1=0.9, b2=0.999, eps=1e-8):
         super().__init__(params, lr_schedule)
@@ -95,6 +122,8 @@ class Adam(_Optimizer):
 
 class Momentum(_Optimizer):
     """optax.sgd(lr_schedule, momentum=0.9): trace = g + 0.9*trace."""
+
+    MOMENTS = ("trace",)
 
     def __init__(self, params, lr_schedule, momentum=0.9):
         super().__init__(params, lr_schedule)

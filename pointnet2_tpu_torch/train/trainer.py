@@ -1,41 +1,57 @@
-"""The trainer: one host loop of train epochs and periodic eval.
+"""The trainer: one host loop of train epochs, evaluation and checkpoints.
 
-Port of pointnet2_tpu/train/trainer.py:44-331,371-441 for one device and
-every task of the registry (``cls``, ``part_seg``, ``part_seg_one_hot``,
-``sem_seg``; the dataset yields the task's keys, see train/steps.py):
-``TrainConfig`` keeps the JAX package's field names and defaults for what
-is ported (``pointnet2_cls_ssg`` defaults: batch 16, 1024 points, Adam at
-1e-3 on the clipped staircase LR, BN momentum 0.5 -> 0.99). A field that is
-not ported yet (``num_devices``, ``steps_per_call``, ``remat``,
-``watchdog_secs``) raises when given anything but its default; the eval
-protocols (``eval_protocol``) are not ported either.
+Port of pointnet2_tpu/train/trainer.py for one device and every task of
+the registry (``cls``, ``part_seg``, ``part_seg_one_hot``, ``sem_seg``;
+the dataset yields the task's keys, see train/steps.py): ``TrainConfig``
+keeps the JAX package's field names and defaults for what is ported
+(``pointnet2_cls_ssg`` defaults: batch 16, 1024 points, Adam at 1e-3 on
+the clipped staircase LR, BN momentum 0.5 -> 0.99). A field that is not
+ported yet (``num_devices``, ``steps_per_call``, ``remat``,
+``watchdog_secs``) raises when given anything but its default.
 
 ``Trainer(config, device="cuda")`` runs on the card; without one it raises
 unless ``device="cpu"`` is passed, which runs the plain PyTorch versions of
-the kernels. Each run writes ``config.json`` (never overwritten),
-``log_train.txt`` and ``metrics.jsonl`` into ``log_dir``. Checkpoints and
-resume are not ported yet: ``fit`` saves none.
+the kernels. Host batches are loaded ``config.prefetch`` ahead on a
+background thread. Each run writes ``config.json`` (never overwritten),
+``log_train.txt`` and ``metrics.jsonl`` into ``log_dir``, and checkpoints
+(train/checkpoint.py): ``best`` when the eval score improves, ``ckpt``
+every ``ckpt_every_epochs`` epochs and after the last. ``fit`` resumes
+from ``ckpt`` when ``log_dir`` holds one: model, optimizer, step and the
+trainer's generator, so an interrupted run ends where the uninterrupted
+one does, bit for bit. ``eval_protocol(trainer, state, epoch) -> score``
+replaces the eval accuracy as the best-checkpoint score (the ScanNet
+protocol, evaluation/scannet_eval.py).
 
 Usage::
 
     from pointnet2_tpu_torch.data import SyntheticClassification
+    from pointnet2_tpu_torch.serving import Predictor
     from pointnet2_tpu_torch.train import TrainConfig, Trainer
 
     ds = SyntheticClassification(num_classes=40, npoints=1024,
                                  batch_size=16)
     with Trainer(TrainConfig(augment="cls", max_epoch=10)) as trainer:
-        state = trainer.fit(ds, eval_dataset=ds)
-    torch.save(state.model.state_dict(), "cls_ssg.pt")  # -> Predictor
+        state = trainer.fit(ds, eval_dataset=ds)  # rerun: resumes
+    pred = Predictor.from_checkpoint("pointnet2_cls_ssg", "log",
+                                     num_point=1024, name="best")
 
-    # semantic segmentation on ScanNet crops with the wdp input dropout
+    # semantic segmentation on ScanNet crops with the wdp input dropout,
+    # best checkpoint by the whole-scene calibrated voxel accuracy
     from pointnet2_tpu_torch.data.scannet import (
-        ScannetDataset, make_synthetic_scenes)
+        ScannetDataset, ScannetDatasetWholeScene, make_synthetic_scenes)
+    from pointnet2_tpu_torch.evaluation import make_scannet_eval_protocol
 
     rooms = ScannetDataset(scenes=make_synthetic_scenes(), batch_size=16)
+    test = ScannetDataset(scenes=make_synthetic_scenes(2, seed=9),
+                          split="test", batch_size=16)
+    whole = ScannetDatasetWholeScene(scenes=make_synthetic_scenes(2, seed=9),
+                                     split="test")
     cfg = TrainConfig(model="pointnet2_sem_seg", num_point=8192,
                       augment="scannet", max_epoch=10)
     with Trainer(cfg) as trainer:
-        state = trainer.fit(rooms)
+        state = trainer.fit(rooms, eval_dataset=test,
+                            eval_protocol=make_scannet_eval_protocol(
+                                test, whole))
 """
 
 from __future__ import annotations
@@ -53,7 +69,10 @@ import numpy as np
 import torch
 
 from pointnet2_tpu_torch import config as port_config
+from pointnet2_tpu_torch.evaluation.lockstep import lockstep_batches
 from pointnet2_tpu_torch.models import get_spec
+from pointnet2_tpu_torch.parallel import multihost
+from pointnet2_tpu_torch.train import checkpoint as ckpt
 from pointnet2_tpu_torch.train.schedules import (
     bn_momentum_schedule,
     exponential_decay_clipped,
@@ -62,8 +81,10 @@ from pointnet2_tpu_torch.train.state import TrainState, make_optimizer
 from pointnet2_tpu_torch.train.steps import (
     AUGMENTATIONS,
     eval_counts,
+    model_inputs,
     run_one_step,
 )
+from pointnet2_tpu_torch.utils.prefetch import Prefetcher
 
 
 @dataclass
@@ -85,7 +106,9 @@ class TrainConfig:
     steps_per_call: int = 1  # not ported: one step per dispatch
     num_devices: int | None = None  # not ported: one device
     log_dir: str = "log"
+    ckpt_every_epochs: int = 10
     eval_every: int = 1  # epochs between evals
+    prefetch: int = 2  # host batches loaded ahead of the step
     seed: int = 0
     compute_dtype: str = "float32"  # float32 | bfloat16 (params stay f32)
     model_kwargs: dict = field(default_factory=dict)
@@ -206,15 +229,21 @@ class Trainer:
 
     def train_epoch(self, state: TrainState, dataset, epoch: int):
         losses, accs, n = [], [], 0
+        num_steps = multihost.sync_num_batches(dataset.num_batches(), "min")
+        loader = Prefetcher(dataset.epoch(augment=self.config.host_augment),
+                            depth=self.config.prefetch)
         t0 = time.time()
-        for batch in dataset.epoch(augment=self.config.host_augment):
-            n += batch["nvalid"]
-            metrics = run_one_step(state, self._to_device(batch),
-                                   self.loss_fn, self.bn_schedule,
-                                   self.augment_fn, self.generator,
-                                   self.task)
-            losses.append(metrics["loss"])
-            accs.append(metrics["accuracy"])
+        try:
+            for _, batch in zip(range(num_steps), loader):
+                n += batch["nvalid"]
+                metrics = run_one_step(state, self._to_device(batch),
+                                       self.loss_fn, self.bn_schedule,
+                                       self.augment_fn, self.generator,
+                                       self.task)
+                losses.append(metrics["loss"])
+                accs.append(metrics["accuracy"])
+        finally:
+            loader.close()
         # one device->host fetch per epoch, not one per step
         loss = float(torch.stack(losses).mean()) if losses else float("nan")
         acc = float(torch.stack(accs).mean()) if accs else float("nan")
@@ -231,9 +260,14 @@ class Trainer:
         """Accuracy and avg-class accuracy (over the classes present) of
         the eval-mode model, padded rows excluded; per point for the
         segmentation tasks."""
-        counts = [eval_counts(state.model, self._to_device(b), self.task)
-                  for b in dataset.epoch()]
-        state.model.train()
+        loader = Prefetcher(lockstep_batches(dataset, multihost),
+                            depth=self.config.prefetch)
+        try:
+            counts = [eval_counts(state.model, self._to_device(b), self.task)
+                      for b in loader]
+        finally:
+            loader.close()
+            state.model.train()
         if counts:
             correct, total, cls_c, cls_t = (torch.stack(c).sum(0).cpu()
                                              for c in zip(*counts))
@@ -252,24 +286,92 @@ class Trainer:
                          avg_class_accuracy=avg_cls)
         return acc
 
+    def eval_logits_fn(self, state: TrainState):
+        """Host batch -> numpy float32 logits of the eval-mode model, for
+        the protocols that need raw logits (votes, ScanNet). The batch
+        gives ``points`` (and ``cls_label`` for ``part_seg_one_hot``);
+        the model is back in train mode after each call."""
+        model = state.model
+
+        def fn(batch: dict) -> np.ndarray:
+            db = {"points": torch.from_numpy(
+                np.asarray(batch["points"], np.float32)).to(self.device)}
+            if self.task == "part_seg_one_hot":
+                db["cls_label"] = torch.from_numpy(
+                    np.asarray(batch["cls_label"])).long().to(self.device)
+            model.eval()
+            try:
+                with torch.inference_mode():
+                    return model(*model_inputs(db, self.task)).float(
+                        ).cpu().numpy()
+            finally:
+                model.train()
+
+        return fn
+
+    def maybe_restore(self, state: TrainState):
+        """(state, meta): ``state`` restored from ``log_dir``'s ``ckpt``
+        with the trainer's generator, and the checkpoint's sidecar record;
+        meta is None (and state untouched) when there is none."""
+        meta = ckpt.load_meta(self.config.log_dir)
+        if meta is not None:
+            state = ckpt.restore_checkpoint(self.config.log_dir, state,
+                                            generator=self.generator)
+            self.log(f"restored checkpoint at step {state.step} "
+                     f"(epoch {meta.get('epoch')})")
+        return state, meta
+
+    def _save(self, state: TrainState, **kw) -> str:
+        return ckpt.save_checkpoint(self.config.log_dir, state,
+                                    generator=self.generator, **kw)
+
     # ------------------------------------------------------------------
     def fit(self, train_dataset, eval_dataset=None,
-            max_epoch: int | None = None) -> TrainState:
-        """Train from a fresh state for ``max_epoch`` epochs (the config's
-        by default), evaluating every ``eval_every`` epochs and after the
-        last, and tracking the best eval accuracy in ``best_score``. Saves
-        no checkpoint: checkpoint and resume are not ported yet. Returns
-        the final state; its ``model.state_dict()`` loads into
-        ``Predictor``."""
+            max_epoch: int | None = None, eval_protocol=None) -> TrainState:
+        """Train to ``max_epoch`` epochs (the config's by default) from a
+        fresh state, or from ``log_dir``'s checkpoint at its epoch.
+
+        Evaluates every ``eval_every`` epochs and after the last, by
+        ``eval_protocol(trainer, state, epoch) -> score`` when given, else
+        by the eval accuracy on ``eval_dataset``; a better score than the
+        best so far (kept in ``best_score``; on a resume, seeded from the
+        best checkpoint's sidecar) writes the ``best`` checkpoint with it.
+        Writes ``ckpt`` every ``ckpt_every_epochs`` epochs and after the
+        last. Returns the final state; its ``model.state_dict()`` loads
+        into ``Predictor``."""
         max_epoch = max_epoch or self.config.max_epoch
-        state = self.init_state()
+        state, meta = self.maybe_restore(self.init_state())
+        if meta is None:
+            start_epoch = 0
+        elif meta.get("epoch") is not None:
+            start_epoch = int(meta["epoch"])
+        else:  # a checkpoint without its sidecar: derive the epoch
+            start_epoch = state.step // max(train_dataset.num_batches(), 1)
+        # only a resumed run inherits the best score: a fresh run in a
+        # reused log_dir may overwrite a stale best checkpoint
+        self.best_score = -float("inf")
+        if meta is not None:
+            best_meta = ckpt.load_meta(self.config.log_dir, name="best")
+            if best_meta is not None and best_meta.get("score") is not None:
+                self.best_score = float(best_meta["score"])
         every = max(1, self.config.eval_every)
-        for epoch in range(max_epoch):
+        want_eval = eval_dataset is not None or eval_protocol is not None
+        for epoch in range(start_epoch, max_epoch):
             state = self.train_epoch(state, train_dataset, epoch)
-            if eval_dataset is not None and (epoch % every == 0
-                                             or epoch == max_epoch - 1):
-                score = self.eval_epoch(state, eval_dataset, epoch)
+            if want_eval and (epoch % every == 0 or epoch == max_epoch - 1):
+                if eval_protocol is not None:
+                    score = eval_protocol(self, state, epoch)
+                else:
+                    score = self.eval_epoch(state, eval_dataset, epoch)
                 if score > self.best_score:
                     self.best_score = score
+                    self._save(state, name="best", epoch=epoch + 1,
+                               score=score)
                     self.log(f"epoch {epoch}: new best score {score:.4f}")
+            if (epoch + 1) % self.config.ckpt_every_epochs == 0:
+                path = self._save(state, epoch=epoch + 1)
+                self.log(f"saved checkpoint to {path}")
+        if start_epoch < max_epoch:
+            path = self._save(state, epoch=max_epoch)
+            self.log(f"saved final checkpoint to {path}")
         return state

@@ -1256,3 +1256,109 @@ def test_trainer_on_card_with_the_gate_on(dev, tmp_path, name, chains):
         "fused_first_bwd": chains * 4}
     assert all(bool(torch.isfinite(p).all())
                for p in state.model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# checkpoints and the evaluation protocols
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,fused", [("float32", False),
+                                         ("bfloat16", True)])
+def test_resume_on_card_equals_uninterrupted(dev, tmp_path, dtype, fused):
+    """Trainer.fit stopped after 2 epochs and resumed to 4 on the card ends
+    where two uninterrupted runs end: bit for bit when they agree
+    (`chip_smoke.resume_verdict`)."""
+    from chip_smoke import resume_verdict, train_snapshot
+    from pointnet2_tpu_torch.data import SyntheticClassification
+    from pointnet2_tpu_torch.train import TrainConfig, Trainer
+
+    def data():
+        return tuple(SyntheticClassification(
+            num_classes=4, samples_per_class=k, npoints=256, batch_size=4,
+            seed=s) for s, k in ((0, 2), (1, 1)))
+
+    def trainer(name):
+        return Trainer(TrainConfig(batch_size=4, augment="cls", max_epoch=4,
+                                   compute_dtype=dtype,
+                                   log_dir=str(tmp_path / name)))
+
+    refs = []
+    with config.fused_mlp(fused):
+        for r in range(2):
+            train, evals = data()
+            with trainer(f"ref{r}") as tr:
+                refs.append(train_snapshot(
+                    torch, tr, tr.fit(train, eval_dataset=evals)))
+        train, evals = data()
+        with trainer("resumed") as tr:
+            tr.fit(train, eval_dataset=evals, max_epoch=2)
+        with trainer("resumed") as tr:
+            state = tr.fit(train, eval_dataset=evals)
+            got = train_snapshot(torch, tr, state)
+    assert state.step == 8 and got["generator"].device.type == "cpu"
+    ok, what = resume_verdict(torch, got, refs)
+    assert ok, what
+
+
+def _protocol_fn(name, n, impl, log_dir):
+    from chip_smoke import random_state_dict
+    from pointnet2_tpu_torch.train import TrainConfig, Trainer
+
+    tr = Trainer(TrainConfig(model=name, num_point=n, batch_size=4,
+                             log_dir=log_dir))
+    state = tr.init_state()
+    state.model.load_state_dict(random_state_dict(torch, 0, name))
+    fn = tr.eval_logits_fn(state)
+
+    def run(batch):
+        with config.default_impl(impl):
+            return fn(batch)
+    return tr, run
+
+
+@pytest.mark.parametrize("which", ["cls", "part", "chopped", "whole"])
+def test_protocol_kernels_equal_plain_on_card(dev, tmp_path, which):
+    """Each evaluation protocol through the kernels and through the plain
+    versions on the card, f32, same weights and seed: equal metric dicts
+    (`chip_smoke.equal_metrics`)."""
+    from chip_smoke import equal_metrics, labelled_room
+    from pointnet2_tpu_torch import evaluation
+    from pointnet2_tpu_torch.data import (
+        ScannetDataset,
+        ScannetDatasetWholeScene,
+        SyntheticClassification,
+        SyntheticShapeNetPart,
+    )
+
+    quiet = dict(log_fn=lambda s: None)
+    rooms = [labelled_room(s) for s in (1, 2)]
+    name, n, protocol = {
+        "cls": ("pointnet2_cls_ssg", 256, lambda fn: (
+            evaluation.evaluate_cls_voting(
+                lambda p: fn({"points": p}), SyntheticClassification(
+                    num_classes=40, samples_per_class=1, npoints=256,
+                    batch_size=4, seed=2), num_votes=3, rng=0, **quiet))),
+        "part": ("pointnet2_part_seg", 256, lambda fn: (
+            evaluation.evaluate_part_seg_voting(
+                fn, SyntheticShapeNetPart(num_samples=8, npoints=256,
+                                          batch_size=4, seed=2),
+                num_votes=3, rng=0, **quiet))),
+        "chopped": ("pointnet2_sem_seg", 1024, lambda fn: (
+            evaluation.evaluate_scannet_chopped(
+                fn, ScannetDataset(scenes=rooms, npoints=1024, split="test",
+                                   batch_size=4), rng=0, **quiet))),
+        "whole": ("pointnet2_sem_seg", 1024, lambda fn: (
+            evaluation.evaluate_scannet_whole_scene(
+                fn, ScannetDatasetWholeScene(scenes=rooms, npoints=1024,
+                                             split="test"),
+                batch_size=4, **quiet))),
+    }[which]
+    results = []
+    for impl in ("auto", "torch"):
+        before = ops.fps_kernel.launches
+        tr, fn = _protocol_fn(name, n, impl, str(tmp_path))
+        with tr:
+            results.append(protocol(fn))
+        assert (ops.fps_kernel.launches > before) == (impl == "auto")
+    assert equal_metrics(*results), results
