@@ -25,8 +25,10 @@ generated rooms (8192 points, the wdp input dropout, ``augment="scannet"``),
 ``pointnet2_part_seg`` and ``pointnet2_part_seg_msg_one_hot`` on
 ``SyntheticShapeNetPart`` (2048 points with normals, category labels);
 checkpoints with exact resume and ``Predictor.from_checkpoint``; the vote,
-part-mIoU and ScanNet evaluation protocols; and the train and evaluate
-CLIs. Phases:
+part-mIoU and ScanNet evaluation protocols; the train and evaluate CLIs;
+and the trainer's switches: ``steps_per_call`` as one CUDA graph of K train
+steps, ``remat``, the stall watchdog under ``cli.supervise``, and
+``--normal`` on the ModelNet txt data with the host augmentation. Phases:
 
 1. build the kernels from ``pointnet2_tpu_torch/csrc/`` with nvcc, one
    process per source, all at once; log ``ptxas -v`` of ``ball_query.cu``,
@@ -209,7 +211,29 @@ CLIs. Phases:
     (synthetic, 8192 points, 1 epoch, the whole-scene protocol, 2 loader
     threads): checkpoints, sidecars, ``metrics.jsonl`` and the record as
     the JAX package writes them, and FPS, the ball query, the gather, the
-    scatter and three_nn launched.
+    scatter and three_nn launched;
+28. ``steps_per_call=4``: an epoch of ``Trainer.train_epoch`` whose
+    K-step calls are one CUDA graph replay each (the remainder single
+    steps) against the same epoch of single steps, bf16: cls_ssg at B=16
+    and 32 with the fused chain off and on, sem_seg at B=16 on 8192-point
+    crops; parameters, BN statistics, moments, count, step and generator
+    bit for bit, a replay's launches 4 single steps', the epoch's its
+    steps' and the warm-up's; ms/step, examples/s, device time a step,
+    the idle share and peak memory of a single step (on a batch on the
+    card, and uploading it) and of the graph (and its pool), the capture's
+    time; and 2 + 2 epochs of cls_ssg (bf16, fused) with
+    ``steps_per_call=4`` and a resume against 4 epochs of single steps,
+    bit for bit;
+29. ``remat``: two bf16 train steps at B=16 under each policy (none,
+    full, dots, dots_nobatch) of cls_ssg with the fused chain off and on
+    and of sem_seg: gradients, parameters, statistics, moments and the
+    generator bit for bit those of ``none``; peak memory, ms/step and
+    launches of each;
+30. ``cli.supervise`` around a ``cli.train`` subprocess wedged at a step
+    by a device sleep past its ``--watchdog_secs``: the watchdog exits it
+    with 75, the supervisor restarts it, the restart resumes from its
+    checkpoint and ends; and ``cli.train --normal`` on a generated ModelNet
+    txt tree, and ``Trainer.fit`` on it with ``host_augment``.
 
 Prints the GPU's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
@@ -897,13 +921,14 @@ def check_scatter(torch, dev, check: Checks, errs: dict) -> None:
 
 def make_trainer(torch, dtype: str, log_dir: str, epochs: int, seed=SEED,
                  model: str = "pointnet2_cls_ssg", num_point: int = N_POINT,
-                 augment: str = "cls"):
+                 augment: str = "cls", batch_size: int = 16, **config):
     from pointnet2_tpu_torch.train import TrainConfig, Trainer
 
-    cfg = TrainConfig(model=model, batch_size=16, num_point=num_point,
-                      max_epoch=epochs, learning_rate=1e-3, optimizer="adam",
-                      augment=augment, compute_dtype=dtype, log_dir=log_dir,
-                      seed=seed)
+    cfg = TrainConfig(model=model, batch_size=batch_size,
+                      num_point=num_point, max_epoch=epochs,
+                      learning_rate=1e-3, optimizer="adam", augment=augment,
+                      compute_dtype=dtype, log_dir=log_dir, seed=seed,
+                      **config)
     return Trainer(cfg, device="cuda")
 
 
@@ -3840,6 +3865,392 @@ def check_cli(torch, check: Checks, log_dir: str) -> dict:
     return counts
 
 
+# --- the trainer's switches: K steps a CUDA graph, remat, the watchdog ------
+
+GRAPH_K = 4  # phase 28's steps_per_call
+# phase 28's runs, all bf16: (model, batch, config.fused_mlp)
+GRAPH_RUNS = ((CLS_SSG, 16, False), (CLS_SSG, 16, True),
+              (CLS_SSG, 32, False), (CLS_SSG, 32, True), (SEM, 16, False))
+GRAPH_SCENES = 80  # sem_seg's generated rooms: 5 batches of 16
+# phase 29's runs, bf16 B=16: (model, config.fused_mlp)
+REMAT_RUNS = ((CLS_SSG, False), (CLS_SSG, True), (SEM, False))
+# phase 30: the wedged run's --watchdog_secs, the step it wedges and the
+# device sleep that wedges it (~25 s at the H100's 1.98 GHz)
+WEDGE_SECS, WEDGE_STEP, WEDGE_CYCLES = 8.0, 3, 50_000_000_000
+TXT_CLASSES, TXT_SHAPES = 4, 8  # phase 30's generated ModelNet txt tree
+
+
+def graph_data(name: str, B: int, scenes=None):
+    """Phase 28's train data: 6 batches of B synthetic clouds (1024 points,
+    24 classes) for cls_ssg, 5 batches of 16 ScanNet crops of ``scenes``
+    for sem_seg: K-step calls and an eager remainder."""
+    from pointnet2_tpu_torch.data import ScannetDataset, SyntheticClassification
+
+    if name == SEM:
+        return ScannetDataset(scenes=scenes, npoints=SEM_N, split="train",
+                              batch_size=B, seed=SEED)
+    return SyntheticClassification(num_classes=24, samples_per_class=B // 4,
+                                   npoints=N_POINT, batch_size=B,
+                                   seed=SEED + 30)
+
+
+def graph_trainer(torch, name: str, B: int, K: int, log_dir: str, **kw):
+    return make_trainer(torch, "bfloat16", os.path.join(log_dir, f"graph{K}"),
+                        1, model=name, batch_size=B,
+                        num_point=SEM_N if name == SEM else N_POINT,
+                        augment="scannet" if name == SEM else "cls",
+                        steps_per_call=K, **kw)
+
+
+def check_graphed_steps(torch, check: Checks, log_dir: str, gpu: str) -> dict:
+    """Phase 28: an epoch of Trainer.train_epoch with steps_per_call=4 (the
+    K-step calls one CUDA graph replay each, the remainder single steps)
+    against the same epoch of single steps, bf16: cls_ssg at B=16 and 32,
+    the fused chain off and on, and sem_seg at B=16 on 8192-point crops.
+    Parameters, BN statistics, moments, count, step and generator bit for
+    bit; the graph's launches per replay K times an eager step's, the
+    epoch's the steps' and the warm-up's; then the times (time_graphed).
+    Returns the launches of the graphed epochs."""
+    from pointnet2_tpu_torch import config, ops
+    from pointnet2_tpu_torch.data import make_synthetic_scenes
+
+    log(f"phase 28: steps_per_call={GRAPH_K} as one CUDA graph of "
+        f"{GRAPH_K} train steps, against single steps, bf16, on {gpu}")
+    total = dict.fromkeys(ops.KERNELS, 0)
+    scenes = make_synthetic_scenes(GRAPH_SCENES, 20000, seed=SEED + 31)
+    for name, B, fused in GRAPH_RUNS:
+        tag = f"{name} B={B}{' fused' if fused else ''}"
+        snaps, counts = {}, {}
+        with config.fused_mlp(fused):
+            for K in (1, GRAPH_K):
+                train = graph_data(name, B, scenes)
+                for w in ops.KERNELS.values():
+                    w.launches = 0
+                with graph_trainer(torch, name, B, K, log_dir) as tr:
+                    state = tr.train_epoch(tr.init_state(), train, 0)
+                    torch.cuda.synchronize()
+                    counts[K] = {k: w.launches for k, w in ops.KERNELS.items()}
+                    snaps[K] = train_snapshot(torch, tr, state)
+                    if K > 1:
+                        (key, graphed), = tr._multi.graphs.items()
+                        capture = tr._multi.capture_s[key]
+                        time_graphed(torch, tr, state, train, graphed, tag, B,
+                                     capture)
+        steps = train.num_batches()
+        err, names = snapshot_diff(torch, snaps[1], snaps[GRAPH_K])
+        check(not names, f"{tag}: {steps} steps as {steps // GRAPH_K} "
+              f"replay(s) of {GRAPH_K} and {steps % GRAPH_K} single steps "
+              f"equal {steps} single steps bit for bit ({len(snaps[1])} "
+              "tensors: parameters, BN statistics, moments, count, step, "
+              f"generator); differing: {names[:4]} (max {err:.3e})")
+        per = {k: n // steps for k, n in counts[1].items()}
+        check(all(n == per[k] * steps for k, n in counts[1].items())
+              and graphed.launches == {k: GRAPH_K * n for k, n in per.items()}
+              and counts[GRAPH_K] == {k: (steps + 1) * n
+                                      for k, n in per.items()},
+              f"{tag}: a replay counts {GRAPH_K} single steps' launches "
+              f"({ {k: n for k, n in graphed.launches.items() if n} }); the "
+              f"graphed epoch {steps} steps' and the warm-up step's")
+        total = {k: total[k] + counts[GRAPH_K][k] for k in total}
+    return total
+
+
+def time_graphed(torch, tr, state, train, graphed, tag: str, B: int,
+                 capture_s: float) -> None:
+    """Phase 28's times on the graphed epoch's trainer: ms/step and
+    examples/s (host clock, median of 5) of a single step on a batch
+    already on the card (as phases 21 and 24 time it), of a single step
+    uploading its batch (as the trainer runs it) and of a K-step call on K
+    host batches; device time a step (torch.profiler's busy time for the
+    single step, CUDA events around a replay for the graph) and the idle
+    share; peak memory of each (a replay allocates nothing: its
+    activations live in the graph's private pool, whose reserved bytes are
+    logged beside it); the capture's time."""
+    from pointnet2_tpu_torch.train.steps import run_one_step
+
+    K = GRAPH_K
+    raw = [b for _, b in zip(range(K), train.epoch())]
+    host = [tr._host_view(b) for b in raw]
+    resident = tr._to_device(raw[0])
+    args = (tr.loss_fn, tr.bn_schedule, tr.augment_fn, tr.generator, tr.task)
+
+    def eager():
+        run_one_step(state, resident, *args)
+
+    def uploaded():
+        run_one_step(state, tr._to_device(raw[0]), *args)
+
+    calls = {"single step": eager, "single step + upload": uploaded,
+             f"{K}-step graph": lambda: tr._multi(host)}
+    rows = []
+    for label, fn in calls.items():
+        per = K if label.endswith("graph") else 1
+        ms = host_ms(torch, fn, 5, warmup=2) / per
+        if per == 1:
+            kernels, _, _, _ = trace_device(torch, fn, 2)
+            dev_ms = sum(r[0] for r in kernels) / 1e3
+        else:
+            dev_ms = event_ms(torch, graphed.graph.replay, 5,
+                              prefill=True) / K
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rows.append(f"{label} {ms:.3f} ms/step ({B / ms * 1e3:.1f} "
+                    f"examples/s), device {dev_ms:.3f} ms/step (idle "
+                    f"{1 - dev_ms / ms:.1%}), peak {peak:.3f} GiB")
+    pool = tuple(graphed.graph.pool())
+    pool_gib = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool) / 2 ** 30
+    log(f"  {tag} bf16 times: " + "; ".join(rows)
+        + f"; the graph's pool {pool_gib:.3f} GiB; capture "
+        f"{capture_s * 1e3:.1f} ms (warm-up step included)")
+
+
+def check_graph_resume(torch, check: Checks, log_dir: str) -> dict:
+    """Phase 28b: cls_ssg bf16 with the fused chain, B=16 (phase 25's data:
+    5 batches an epoch, so a replay of 4 and a single step), 2 epochs with
+    steps_per_call=4, stopped and resumed to 4 by a new Trainer, against 4
+    uninterrupted epochs of single steps, bit for bit. Returns the
+    launches of the graphed runs."""
+    from pointnet2_tpu_torch import config, ops
+
+    first, last = RESUME_EPOCHS
+    with config.fused_mlp(True):
+        train, evals = resume_data()
+        with make_trainer(torch, "bfloat16", os.path.join(
+                log_dir, "graph_resume_ref"), last) as tr:
+            want = train_snapshot(torch, tr, tr.fit(train, eval_dataset=evals))
+        train, evals = resume_data()
+        run_dir = os.path.join(log_dir, "graph_resume")
+        for w in ops.KERNELS.values():
+            w.launches = 0
+        with make_trainer(torch, "bfloat16", run_dir, last,
+                          steps_per_call=GRAPH_K) as tr:
+            tr.fit(train, eval_dataset=evals, max_epoch=first)
+        with make_trainer(torch, "bfloat16", run_dir, last,
+                          steps_per_call=GRAPH_K) as tr:
+            got = train_snapshot(torch, tr, tr.fit(train, eval_dataset=evals))
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in ops.KERNELS.items()}
+    err, names = snapshot_diff(torch, want, got)
+    check(not names, f"cls_ssg bf16 fused: {first} + {last - first} epochs "
+          f"with steps_per_call={GRAPH_K} and a resume equal {last} "
+          f"uninterrupted epochs of single steps bit for bit ({len(got)} "
+          f"tensors); differing: {names[:4]} (max {err:.3e})")
+    return counts
+
+
+def check_remat(torch, dev, check: Checks, log_dir: str, gpu: str,
+                seg_batches: dict) -> dict:
+    """Phase 29: two train steps under each remat policy (none, full, dots,
+    dots_nobatch) from the same weights, batch and generator seed, bf16
+    B=16: cls_ssg with the fused chain off and on, sem_seg on phase 22's
+    crop. Gradients, parameters, BN statistics, moments and the generator
+    bit for bit those of "none"; a third step's peak memory (absolute and
+    above the state's resident memory), ms/step (host clock, median of 5)
+    and launches. Returns the launches of the steps."""
+    from pointnet2_tpu_torch import config, ops
+    from pointnet2_tpu_torch.train.steps import REMAT_POLICIES, run_one_step
+
+    log(f"phase 29: remat policies, two bf16 train steps at B=16 against "
+        f"remat='none', on {gpu}")
+    total = dict.fromkeys(ops.KERNELS, 0)
+    for name, fused in REMAT_RUNS:
+        tag = f"{name}{' fused' if fused else ''}"
+        n = SEM_N if name == SEM else N_POINT
+        got = {}
+        for remat in REMAT_POLICIES:
+            with config.fused_mlp(fused), make_trainer(
+                    torch, "bfloat16", os.path.join(log_dir, "remat"), 1,
+                    model=name, num_point=n,
+                    augment="scannet" if name == SEM else "cls",
+                    remat=remat) as tr:
+                batch = (tr._to_device(seg_batches[SEM]) if name == SEM
+                         else train_batch(torch, dev))
+                state = tr.init_state()
+                tr.generator.manual_seed(5)
+
+                def step():
+                    run_one_step(state, batch, tr.loss_fn, tr.bn_schedule,
+                                 tr.augment_fn, tr.generator, tr.task,
+                                 remat=remat)
+
+                for w in ops.KERNELS.values():
+                    w.launches = 0
+                step()
+                step()
+                torch.cuda.synchronize()
+                counts = {k: w.launches for k, w in ops.KERNELS.items()}
+                snap = train_snapshot(torch, tr, state)
+                snap.update({f"grad {k}": p.grad.clone()
+                             for k, p in state.model.named_parameters()})
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                step()
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                ms = host_ms(torch, step, 5, warmup=1)
+            total = {k: total[k] + counts[k] for k in total}
+            got[remat] = snap
+            log(f"  {tag} remat={remat}: {ms:.3f} ms/step, peak "
+                f"{peak / 2 ** 30:.3f} GiB ({(peak - resident) / 2 ** 30:.3f}"
+                f" GiB above the resident state), launches of two steps "
+                f"{ {k: v for k, v in counts.items() if v} }")
+        for remat in REMAT_POLICIES:
+            if remat == "none":
+                continue
+            err, names = snapshot_diff(torch, got["none"], got[remat])
+            check(not names, f"{tag}: remat={remat} equals remat='none' bit "
+                  f"for bit over two steps ({len(got[remat])} tensors: "
+                  "gradients, parameters, BN statistics, moments, count, "
+                  f"step, generator); differing: {names[:4]} (max "
+                  f"{err:.3e})")
+    return total
+
+
+WEDGE_SCRIPT = """\
+import os
+import sys
+
+sys.path.insert(0, {root!r})
+import torch  # noqa: E402
+
+from pointnet2_tpu_torch.cli import train as cli_train  # noqa: E402
+from pointnet2_tpu_torch.train import trainer as trainer_mod  # noqa: E402
+
+marker, wedge_step, cycles = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+real_init, real_step = trainer_mod.Trainer.__init__, trainer_mod.run_one_step
+
+
+def init(self, config, device="cuda"):
+    config.ckpt_every_epochs = 1  # a checkpoint every epoch to resume from
+    real_init(self, config, device)
+
+
+def step(state, *args, **kw):
+    if state.step == wedge_step and not os.path.exists(marker):
+        open(marker, "w").close()
+        torch.cuda._sleep(cycles)  # the card busy, no step completes
+        torch.cuda.synchronize()
+    return real_step(state, *args, **kw)
+
+
+trainer_mod.Trainer.__init__ = init
+trainer_mod.run_one_step = step
+cli_train.main(sys.argv[4:])
+"""
+
+
+def check_watchdog(torch, check: Checks, log_dir: str) -> None:
+    """Phase 30a: cli.supervise's loop around a cli.train subprocess
+    (cls_ssg, synthetic, 3 epochs of 3 steps, a checkpoint an epoch,
+    --watchdog_secs 8) whose step 3, the first of epoch 2, is wedged by a
+    device sleep of about 25 s: the watchdog exits it with 75, the
+    supervisor restarts it, and the restarted run resumes from the epoch-1
+    checkpoint and ends at step 9."""
+    from pointnet2_tpu_torch.cli import supervise as sup
+    from pointnet2_tpu_torch.train import checkpoint as ckpt
+
+    log(f"phase 30: the stall watchdog and cli.supervise: a cli.train "
+        f"subprocess wedged at step {WEDGE_STEP} past --watchdog_secs "
+        f"{WEDGE_SECS:g}")
+    run_dir = os.path.join(log_dir, "wedged")
+    script = os.path.join(log_dir, "wedged_train.py")
+    marker = os.path.join(log_dir, "wedged.marker")
+    with open(script, "w") as f:
+        f.write(WEDGE_SCRIPT.format(
+            root=os.path.dirname(os.path.abspath(__file__))))
+    cmd = [sys.executable, script, marker, str(WEDGE_STEP), str(WEDGE_CYCLES),
+           "--model", CLS_SSG, "--synthetic", "--synthetic_size", "1",
+           "--batch_size", "16", "--max_epoch", "3", "--log_dir", run_dir,
+           "--watchdog_secs", str(WEDGE_SECS)]
+    said = []
+    t0 = time.perf_counter()
+    rc = sup.supervise(cmd, max_restarts=2, backoff_secs=0.0,
+                       log_fn=said.append)
+    dt = time.perf_counter() - t0
+    with open(os.path.join(run_dir, "log_train.txt")) as f:
+        text = f.read()
+    check(rc == 0 and os.path.exists(marker)
+          and any("stall #1" in m for m in said)
+          and "WATCHDOG" in text
+          and f"restored checkpoint at step {WEDGE_STEP} (epoch 1)" in text
+          and ckpt.load_meta(run_dir) == {"step": 9, "epoch": 3},
+          f"the wedged run exited 75 on its watchdog, cli.supervise "
+          f"restarted it, the restart resumed at step {WEDGE_STEP} (epoch 1) "
+          f"and ended at step 9, rc {rc} ({dt:.1f} s; supervise: {said})")
+
+
+def write_modelnet_txt(root: str) -> None:
+    """A resampled-txt ModelNet tree (modelnet40_normal_resampled's layout)
+    of TXT_CLASSES classes, TXT_SHAPES shapes each (3 in 4 in the train
+    split), 2048 surface points with normals a shape."""
+    names = [f"shape{c}" for c in range(TXT_CLASSES)]
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "modelnet40_shape_names.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    clouds = make_clouds(TXT_CLASSES * TXT_SHAPES, PART_N, SEED + 40,
+                         normals=True)
+    splits = {"train": [], "test": []}
+    for i, pts in enumerate(clouds):
+        cls = names[i % TXT_CLASSES]
+        sid = f"{cls}_{i:04d}"
+        os.makedirs(os.path.join(root, cls), exist_ok=True)
+        np.savetxt(os.path.join(root, cls, sid + ".txt"), pts, delimiter=",",
+                   fmt="%.6f")
+        splits["test" if i % 4 == 3 else "train"].append(sid)
+    for split, ids in splits.items():
+        with open(os.path.join(root, f"modelnet40_{split}.txt"), "w") as f:
+            f.write("\n".join(ids) + "\n")
+
+
+def check_normal_txt(torch, check: Checks, log_dir: str) -> dict:
+    """Phase 30b: cli.train --normal on a generated ModelNet txt tree
+    (1024 of each shape's 2048 points with normals, B=16, 2 epochs,
+    steps_per_call 2, on-device cls_normals), then Trainer.fit of the same
+    data with the host chain augment_cls_batch_with_normals
+    (host_augment=True). Returns the launches."""
+    from pointnet2_tpu_torch import ops
+    from pointnet2_tpu_torch.cli import train as cli_train
+    from pointnet2_tpu_torch.data import ModelNetDataset
+
+    root = os.path.join(log_dir, "modelnet40_normal_resampled")
+    write_modelnet_txt(root)
+    run_dir = os.path.join(log_dir, "cli_normal")
+    for w in ops.KERNELS.values():
+        w.launches = 0
+    cli_train.main(["--model", CLS_SSG, "--normal", "--data", root,
+                    "--batch_size", "16", "--max_epoch", "2",
+                    "--steps_per_call", "2", "--log_dir", run_dir])
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    with open(os.path.join(run_dir, "config.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(run_dir, "ckpt.meta.json")) as f:
+        meta = json.load(f)
+    check([r["split"] for r in rows] == ["train", "eval"] * 2
+          and cfg["augment"] == "cls_normals"
+          and cfg["model_kwargs"] == {"in_channels": 6}
+          and meta == {"step": 4, "epoch": 2}
+          and all(np.isfinite(r["loss"]) for r in rows if "loss" in r),
+          f"cli.train --normal on the txt tree: {len(rows)} records, "
+          f"augment {cfg['augment']}, ckpt {meta}")
+    with make_trainer(torch, "bfloat16", os.path.join(log_dir, "host_aug"), 2,
+                      augment="none", host_augment=True,
+                      model_kwargs={"in_channels": 6}) as tr:
+        train = ModelNetDataset(root, batch_size=16, npoints=N_POINT)
+        state = tr.fit(train)
+    with open(os.path.join(log_dir, "host_aug", "metrics.jsonl")) as f:
+        losses = [json.loads(line)["loss"] for line in f]
+    check(state.step == 4 and len(losses) == 2
+          and all(np.isfinite(losses)),
+          f"Trainer.fit with host_augment on the txt data (the host chain "
+          f"augment_cls_batch_with_normals): 4 steps, train losses {losses}")
+    return {k: w.launches for k, w in ops.KERNELS.items()}
+
+
 def check_tensor_cores(_build, check: Checks) -> None:
     """Phase 1: in the built fused_mlp library's SASS, the bf16 dense
     pass's product and the bf16 dense backward's two are tensor-core
@@ -4084,15 +4495,22 @@ def main() -> int:
     resume = check_resume(torch, check, log_dir)
     protocols = check_protocols(torch, check, log_dir)
     journeys = check_cli(torch, check, log_dir)
+    graphed = check_graphed_steps(torch, check, log_dir, gpu)
+    graph_resume = check_graph_resume(torch, check, log_dir)
+    remat = check_remat(torch, dev, check, log_dir, gpu, seg_batches)
+    check_watchdog(torch, check, log_dir)
+    normals = check_normal_txt(torch, check, log_dir)
     # launches of each kernel over every main-path run (classifier serving,
     # training, sem_seg and part_seg serving, the MSG models' serving and
     # the MSG layers' other routes, the fused route's serving and
     # training, segmentation training, the resumed runs, the protocols,
-    # the CLI journeys); the affine tail runs on no model path, so its
-    # phase-16 launches count
+    # the CLI journeys, the graphed epochs (a replay counts the launches
+    # recorded at its capture), the remat steps, the txt data's runs); the
+    # affine tail runs on no model path, so its phase-16 launches count
     runs = [fit["counts"], seg["launches"][SEM], seg["launches"][PART],
             *msg["launches"].values(), *fused["launches"].values(),
-            fused_fit, seg_fit, resume, protocols, journeys]
+            fused_fit, seg_fit, resume, protocols, journeys, graphed,
+            graph_resume, remat, normals]
     launches = {k: launches[k] + sum(r[k] for r in runs) for k in REPLACES}
     launches["fused_affine"] += affine_launches
     check(all(launches[k] > 0 for k in REPLACES),

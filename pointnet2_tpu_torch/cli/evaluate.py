@@ -7,8 +7,9 @@ Port of pointnet2_tpu/cli/evaluate.py: the vote for ``cls``
 for ``sem_seg`` (scannet/train.py's eval passes). ``--out`` writes the
 JAX package's JSON record: ``model``, ``ckpt``, ``step``, ``num_votes``,
 ``metrics``. ``--device`` is ``cuda`` by default; ``cpu`` runs the plain
-PyTorch versions. ``--num_devices``, ``--multihost`` and ``--normal`` for
-a classifier raise, as in ``cli.train``.
+PyTorch versions. ``--normal`` evaluates a classifier on the ModelNet
+txt data with normals (or 6-channel synthetic clouds), as in ``cli.train``;
+``--num_devices`` and ``--multihost`` raise, as there.
 
 Usage:
   python -m pointnet2_tpu_torch.cli.evaluate --model pointnet2_cls_ssg \\

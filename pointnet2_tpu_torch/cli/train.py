@@ -4,18 +4,24 @@ Port of pointnet2_tpu/cli/train.py: one entry point for every model of
 the registry, the task from the model; the same flags and defaults, plus
 ``--device`` (``cuda`` by default; ``cpu`` runs the plain PyTorch
 versions). A rerun with the same ``--log_dir`` resumes from its
-checkpoint. Flags whose code is not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md item instead of running
-another configuration: ``--num_devices`` and ``--multihost`` (item 6),
-``--steps_per_call``, ``--remat``, ``--watchdog_secs`` and ``--normal``
-for a classifier (item 5), ``--virtual_scan`` (item 7).
+checkpoint. ``--steps_per_call K`` trains K batches a CUDA graph replay,
+``--remat`` checkpoints the forward, ``--watchdog_secs`` exits 75 on a
+stall (run under ``cli.supervise`` to resume), and ``--normal`` trains a
+classifier on xyz+normal clouds (the ModelNet txt data with the
+``cls_normals`` augmentation, or 6-channel synthetic clouds). Flags whose
+code is not ported yet raise ``NotImplementedError`` naming their
+ROADMAP.md item instead of running another configuration:
+``--num_devices`` and ``--multihost`` (item 6), ``--virtual_scan``
+(item 7).
 
 Usage:
   python -m pointnet2_tpu_torch.cli.train --model pointnet2_cls_ssg \\
       --data data/modelnet40_ply_hdf5_2048 --num_point 1024 --batch_size 16
   python -m pointnet2_tpu_torch.cli.train --model pointnet2_cls_ssg --synthetic
   python -m pointnet2_tpu_torch.cli.train --model pointnet2_sem_seg \\
-      --synthetic --num_point 8192 --max_epoch 10
+      --synthetic --num_point 8192 --max_epoch 10 --steps_per_call 4
+  python -m pointnet2_tpu_torch.cli.train --model pointnet2_cls_ssg \\
+      --normal --data data/modelnet40_normal_resampled
 """
 
 from __future__ import annotations
@@ -31,9 +37,6 @@ from pointnet2_tpu_torch.models import MODEL_REGISTRY
 _NOT_PORTED = {
     "num_devices": (None, "Queue 1 item 6 (scale-out)"),
     "multihost": (False, "Queue 1 item 6 (scale-out)"),
-    "steps_per_call": (1, "Queue 1 item 5 (the trainer's switches)"),
-    "remat": ("none", "Queue 1 item 5 (the trainer's switches)"),
-    "watchdog_secs": (None, "Queue 1 item 5 (the trainer's switches)"),
     "virtual_scan": (False, "Queue 1 item 7 (ScannetDatasetVirtualScan)"),
 }
 
@@ -45,11 +48,6 @@ def check_ported(args) -> None:
         if value != ported:
             raise NotImplementedError(
                 f"--{flag} {value!r} is not ported yet: ROADMAP.md {item}")
-    if getattr(args, "normal", False) and \
-            MODEL_REGISTRY[args.model].task == "cls":
-        raise NotImplementedError(
-            "--normal for a classifier (the ModelNet txt data with "
-            "normals) is not ported yet: ROADMAP.md Queue 1 item 5")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,8 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--decay_step", type=int, default=200000)
     p.add_argument("--decay_rate", type=float, default=0.7)
     p.add_argument("--normal", action="store_true",
-                   help="use XYZ+normal input (txt dataset for cls; not "
-                        "ported for cls)")
+                   help="use XYZ+normal input (txt dataset for cls)")
     p.add_argument("--num_devices", type=int, default=None,
                    help="not ported: one device")
     p.add_argument("--num_classes", type=int, default=None,
@@ -97,12 +94,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--virtual_scan", action="store_true",
                    help="sem_seg: 8-view virtual-scan samples (not ported)")
     p.add_argument("--steps_per_call", type=int, default=1,
-                   help="not ported: one step a dispatch")
+                   help="train K prefetched batches a call: one CUDA graph "
+                        "replay of K steps on the card")
     p.add_argument("--remat", default="none",
                    choices=["none", "full", "dots", "dots_nobatch"],
-                   help="not ported: no rematerialization")
+                   help="checkpoint the model forward: save nothing (full) "
+                        "or only the matrix products (dots, dots_nobatch), "
+                        "recompute the rest in the backward")
     p.add_argument("--watchdog_secs", type=float, default=None,
-                   help="not ported: no stall watchdog")
+                   help="exit 75 (retryable) if no step or eval batch "
+                        "completes for this long; cli.supervise restarts "
+                        "the run, which resumes (train/watchdog.py)")
     p.add_argument("--multihost", action="store_true",
                    help="not ported: one process")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -123,9 +125,19 @@ def make_datasets(args, test_only: bool = False):
             def mk(seed):
                 return SyntheticClassification(
                     num_classes=40, samples_per_class=args.synthetic_size,
-                    npoints=args.num_point, batch_size=args.batch_size,
-                    seed=seed)
-            return mk(0), mk(1), "cls"
+                    npoints=args.num_point,
+                    channels=6 if args.normal else 3,
+                    batch_size=args.batch_size, seed=seed)
+            return mk(0), mk(1), "cls_normals" if args.normal else "cls"
+        if args.normal:
+            from pointnet2_tpu_torch.data import ModelNetDataset
+
+            train = None if test_only else ModelNetDataset(
+                args.data, batch_size=args.batch_size,
+                npoints=args.num_point, split="train")
+            test = ModelNetDataset(args.data, batch_size=args.batch_size,
+                                   npoints=args.num_point, split="test")
+            return train, test, "cls_normals"
         from pointnet2_tpu_torch.data import ModelNetH5Dataset
 
         train = None if test_only else ModelNetH5Dataset(
@@ -193,7 +205,9 @@ def whole_scene_dataset(args):
 def parse_model_kwargs(args, task) -> dict:
     """--model_kwargs JSON (and --num_classes) -> model constructor kwargs,
     lists turned into tuples recursively, as the JAX package's (so the same
-    flags give the same kwargs in train and evaluate)."""
+    flags give the same kwargs in train and evaluate). With --normal a
+    classifier also gets ``in_channels=6``: the port builds its model before
+    it sees a batch, where Flax infers the width from one."""
     model_kwargs = {}
     if getattr(args, "model_kwargs", None):
         def _tuplify(v):
@@ -205,6 +219,8 @@ def parse_model_kwargs(args, task) -> dict:
     if getattr(args, "num_classes", None) is not None:
         key = "num_classes" if task in ("cls", "sem_seg") else "num_parts"
         model_kwargs[key] = args.num_classes
+    if getattr(args, "normal", False) and task == "cls":
+        model_kwargs.setdefault("in_channels", 6)
     return model_kwargs
 
 
@@ -236,6 +252,8 @@ def main(argv=None) -> None:
         optimizer=args.optimizer, decay_step=args.decay_step,
         decay_rate=args.decay_rate, augment=augment, log_dir=args.log_dir,
         eval_every=eval_every, compute_dtype=args.dtype,
+        watchdog_secs=args.watchdog_secs, remat=args.remat,
+        steps_per_call=args.steps_per_call,
         model_kwargs=parse_model_kwargs(args, task))
     with Trainer(config, device=args.device) as trainer:
         trainer.log(f"config: {vars(args)}")

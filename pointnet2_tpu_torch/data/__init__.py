@@ -1,7 +1,11 @@
 """Data of the port: host-side loaders and augmentations (numpy) and the
 on-device training augmentation (torch)."""
 
-from pointnet2_tpu_torch.data.modelnet import ModelNetH5Dataset, pc_normalize
+from pointnet2_tpu_torch.data.modelnet import (
+    ModelNetDataset,
+    ModelNetH5Dataset,
+    pc_normalize,
+)
 from pointnet2_tpu_torch.data.scannet import (
     ScannetDataset,
     ScannetDatasetWholeScene,
@@ -16,7 +20,7 @@ from pointnet2_tpu_torch.data.synthetic import (
     SyntheticSegmentation,
 )
 
-__all__ = ["ModelNetH5Dataset", "PartNormalDataset", "ScannetDataset",
+__all__ = ["ModelNetDataset", "ModelNetH5Dataset", "PartNormalDataset", "ScannetDataset",
            "ScannetDatasetWholeScene",
            "SyntheticClassification", "SyntheticSegmentation",
            "SyntheticShapeNetPart", "make_synthetic_scenes", "pc_normalize"]

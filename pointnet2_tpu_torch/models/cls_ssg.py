@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from pointnet2_tpu_torch import config
-from pointnet2_tpu_torch.nn.layers import DenseBN, init_dense
+from pointnet2_tpu_torch.nn.layers import DenseBN, init_dense, taped_mask
 from pointnet2_tpu_torch.nn.pointnet import SetAbstraction
 
 
@@ -42,7 +42,8 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        keep = self.keep_mask(x.shape, x.device, generator)
+        keep = taped_mask(lambda: self.keep_mask(x.shape, x.device,
+                                                 generator))
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 

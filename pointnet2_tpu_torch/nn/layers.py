@@ -16,12 +16,21 @@ Port of pointnet2_tpu/nn/layers.py:48-134,137-329. Parity notes:
   bn_decay schedule, train/schedules.py). Not ``torch.nn.BatchNorm*``: its momentum
   convention is the opposite and its running variance unbiased.
 - ``bn_momentum`` is a call-time argument of every block, as in the JAX
-  package, and is read only in train mode.
+  package, and is read only in train mode: a number, or a 0-d float32
+  tensor holding the same float32 value (what a CUDA graph of the train
+  step passes, so that each replay reads its step's momentum).
+- Rematerialisation (``RematTape``): a checkpointed forward runs twice, once
+  in the forward and again inside the backward. The second run must not
+  fold its batch statistics into the running ones again, nor draw other
+  dropout masks from the step's generator, so BatchNorm skips its running
+  update and dropout replays the masks of the first run while a tape
+  replays.
 """
 
 from __future__ import annotations
 
-from collections.abc import Sequence
+import contextlib
+from collections.abc import Callable, Sequence
 
 import numpy as np
 import torch
@@ -94,6 +103,47 @@ def _f32(v) -> float:
     return float(np.float32(v))
 
 
+class RematTape:
+    """What the first run of a checkpointed forward leaves for its second:
+    the dropout masks it drew, in order. ``replaying`` is set for the
+    second run (the recompute inside the backward)."""
+
+    def __init__(self):
+        self.masks: list[torch.Tensor] = []
+        self.replaying = False
+        self._next = 0
+
+    def mask(self, draw: Callable[[], torch.Tensor]) -> torch.Tensor:
+        if not self.replaying:
+            self.masks.append(draw())
+            return self.masks[-1]
+        self._next += 1
+        return self.masks[self._next - 1]
+
+
+_TAPE: RematTape | None = None
+
+
+@contextlib.contextmanager
+def remat_tape(tape: RematTape, replaying: bool):
+    """Run a checkpointed forward under ``tape``: recording its masks, or
+    (``replaying``) giving them back and skipping BN's running update."""
+    global _TAPE
+    prev = _TAPE
+    tape.replaying, tape._next = replaying, 0
+    _TAPE = tape
+    try:
+        yield
+    finally:
+        _TAPE = prev
+
+
+def taped_mask(draw: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """A dropout mask from ``draw()``, or, in a checkpointed forward, the
+    one its tape recorded for this call."""
+    return draw() if _TAPE is None else _TAPE.mask(draw)
+
+
 class BatchNorm(nn.Module):
     """Batch normalization over the last axis with call-time momentum."""
 
@@ -121,9 +171,17 @@ class BatchNorm(nn.Module):
         """Fold batch statistics into the running ones, in place and outside
         autograd: ``running*m + batch*(1-m)``
         (pointnet2_tpu/nn/layers.py:95-112); the fused SA chain computes its
-        statistics in its kernels and writes them back through here."""
-        m = _f32(momentum)
-        one_minus = _f32(np.float32(1.0) - np.float32(m))
+        statistics in its kernels and writes them back through here.
+        ``momentum`` is a number or a 0-d float32 tensor (1 - m is then
+        rounded to float32 on its device, as on the host). Nothing is
+        folded while a remat tape replays: the forward already did."""
+        if _TAPE is not None and _TAPE.replaying:
+            return
+        if isinstance(momentum, torch.Tensor):
+            m, one_minus = momentum, 1.0 - momentum
+        else:
+            m = _f32(momentum)
+            one_minus = _f32(np.float32(1.0) - np.float32(m))
         with torch.no_grad():
             self.running_mean.copy_(self.running_mean * m
                                     + mean.detach() * one_minus)

@@ -20,7 +20,13 @@ the bias correction differently):
 
 They run on every parameter tensor at once through ``torch._foreach_*``
 (the multi-tensor kernels ``torch.optim`` itself uses), updating the
-parameters and moments in place.
+parameters and moments in place, so their addresses never change: a CUDA
+graph of the step (train/steps.py) reads them where it found them. The
+per-step scalars (-lr, and Adam's two bias corrections) are float32 values
+computed on the host from the count, as optax computes them
+(``host_scalars``), and the update reads them from a small tensor on the
+parameters' device, so a graph takes each replay's values from that tensor
+instead of the values it saw at capture.
 """
 
 from __future__ import annotations
@@ -36,6 +42,15 @@ _F32 = np.float32
 def _c(v) -> float:
     """A python scalar as optax sees it: rounded to float32 first."""
     return float(_F32(v))
+
+
+def upload_scalars(values: np.ndarray, device) -> torch.Tensor:
+    """A float32 host vector on ``device``: through pinned memory and
+    without waiting on the card when the device is CUDA."""
+    t = torch.from_numpy(np.ascontiguousarray(values, np.float32))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 class _Optimizer:
@@ -67,8 +82,8 @@ class _Optimizer:
 
     def load_state_dict(self, sd: dict) -> None:
         """Restore ``state_dict()``'s output onto this optimizer's
-        parameters (shapes and dtypes checked, moved to their device)."""
-        moments = {}
+        parameters (shapes and dtypes checked), copied into the moments in
+        place."""
         for k in self.MOMENTS:
             ts = sd[k]
             if len(ts) != len(self.params) or any(
@@ -76,16 +91,26 @@ class _Optimizer:
                     for t, p in zip(ts, self.params)):
                 raise ValueError(f"optimizer moment {k!r} does not match "
                                  "the parameters")
-            moments[k] = [t.to(p.device).clone()
-                          for t, p in zip(ts, self.params)]
-        for k, ts in moments.items():
-            setattr(self, k, ts)
+        with torch.no_grad():
+            for k in self.MOMENTS:
+                for m, t in zip(getattr(self, k), sd[k]):
+                    m.copy_(t)
         self.count = int(sd["count"])
 
+    def host_scalars(self, count: int) -> np.ndarray:
+        """The float32 scalars of the update numbered ``count``: [-lr]."""
+        return np.array([-_F32(self.lr_schedule(count))], _F32)
+
     @torch.no_grad()
-    def step(self) -> None:
-        lr = _c(self.lr_schedule(self.count))
-        updates = torch._foreach_mul(self._updates(self._grads()), -lr)
+    def step(self, scalars: torch.Tensor | None = None) -> None:
+        """One update. ``scalars`` is ``host_scalars(count)`` already on the
+        parameters' device (a view into a graph's buffer); None uploads
+        it."""
+        if scalars is None:
+            scalars = upload_scalars(self.host_scalars(self.count),
+                                     self.params[0].device)
+        updates = torch._foreach_mul(self._updates(self._grads(), scalars),
+                                     scalars[0])
         torch._foreach_add_(self.params, updates)
         self.count += 1
 
@@ -101,23 +126,29 @@ class Adam(_Optimizer):
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
 
-    def _updates(self, grads):
+    def host_scalars(self, count: int) -> np.ndarray:
+        """[-lr, 1 - b1^t, 1 - b2^t] with t = count + 1, in float32."""
+        t = _F32(count + 1)
+        return np.array([-_F32(self.lr_schedule(count)),
+                         _F32(1) - np.power(_F32(self.b1), t),
+                         _F32(1) - np.power(_F32(self.b2), t)], _F32)
+
+    def _updates(self, grads, scalars):
         b1, b2 = self.b1, self.b2
-        # mu = (1-b1)*g + b1*mu; nu = (1-b2)*g**2 + b2*nu
-        new_mu = torch._foreach_mul(grads, _c(1 - b1))
-        torch._foreach_add_(new_mu, torch._foreach_mul(self.mu, _c(b1)))
+        # mu = b1*mu + (1-b1)*g; nu = b2*nu + (1-b2)*g**2: each product
+        # rounded, then the sum, in place
+        torch._foreach_mul_(self.mu, _c(b1))
+        torch._foreach_add_(self.mu, torch._foreach_mul(grads, _c(1 - b1)))
         sq = torch._foreach_mul(grads, grads)
-        new_nu = torch._foreach_mul(sq, _c(1 - b2))
-        torch._foreach_add_(new_nu, torch._foreach_mul(self.nu, _c(b2)))
-        self.mu, self.nu = new_mu, new_nu
-        t = _F32(self.count + 1)
-        bc1 = float(_F32(1) - np.power(_F32(b1), t))
-        bc2 = float(_F32(1) - np.power(_F32(b2), t))
-        mu_hat = torch._foreach_div(new_mu, bc1)
-        nu_hat = torch._foreach_div(new_nu, bc2)
-        den = torch._foreach_sqrt(nu_hat)
+        torch._foreach_mul_(sq, _c(1 - b2))
+        torch._foreach_mul_(self.nu, _c(b2))
+        torch._foreach_add_(self.nu, sq)
+        mu_hat = torch._foreach_div(self.mu, scalars[1])
+        den = torch._foreach_div(self.nu, scalars[2])
+        torch._foreach_sqrt_(den)
         torch._foreach_add_(den, _c(self.eps))
-        return torch._foreach_div(mu_hat, den)
+        torch._foreach_div_(mu_hat, den)
+        return mu_hat
 
 
 class Momentum(_Optimizer):
@@ -130,8 +161,8 @@ class Momentum(_Optimizer):
         self.momentum = momentum
         self.trace = [torch.zeros_like(p) for p in self.params]
 
-    def _updates(self, grads):
-        self.trace = torch._foreach_mul(self.trace, _c(self.momentum))
+    def _updates(self, grads, scalars):
+        torch._foreach_mul_(self.trace, _c(self.momentum))
         torch._foreach_add_(self.trace, grads)
         return self.trace
 

@@ -5,9 +5,17 @@ the registry (``cls``, ``part_seg``, ``part_seg_one_hot``, ``sem_seg``;
 the dataset yields the task's keys, see train/steps.py): ``TrainConfig``
 keeps the JAX package's field names and defaults for what is ported
 (``pointnet2_cls_ssg`` defaults: batch 16, 1024 points, Adam at 1e-3 on
-the clipped staircase LR, BN momentum 0.5 -> 0.99). A field that is not
-ported yet (``num_devices``, ``steps_per_call``, ``remat``,
-``watchdog_secs``) raises when given anything but its default.
+the clipped staircase LR, BN momentum 0.5 -> 0.99). ``num_devices``, which
+is not ported yet, raises when given anything but its default.
+
+``steps_per_call=K`` trains K batches a call of ``TrainMultiStep`` (on the
+card one CUDA graph replay of K steps, captured at the first call; the
+epoch's remainder as single steps), bit for bit what K single steps give.
+``remat`` checkpoints the model forward (``steps.REMAT_POLICIES``).
+``watchdog_secs`` arms a stall watchdog (train/watchdog.py) for ``fit``:
+it is beaten after every call of the step and every eval batch, and exits
+the process with 75 when no beat lands in time (``cli.supervise`` restarts
+the run, which resumes from its checkpoint).
 
 ``Trainer(config, device="cuda")`` runs on the card; without one it raises
 unless ``device="cpu"`` is passed, which runs the plain PyTorch versions of
@@ -30,7 +38,8 @@ Usage::
 
     ds = SyntheticClassification(num_classes=40, npoints=1024,
                                  batch_size=16)
-    with Trainer(TrainConfig(augment="cls", max_epoch=10)) as trainer:
+    with Trainer(TrainConfig(augment="cls", max_epoch=10,
+                             steps_per_call=4)) as trainer:
         state = trainer.fit(ds, eval_dataset=ds)  # rerun: resumes
     pred = Predictor.from_checkpoint("pointnet2_cls_ssg", "log",
                                      num_point=1024, name="best")
@@ -80,10 +89,13 @@ from pointnet2_tpu_torch.train.schedules import (
 from pointnet2_tpu_torch.train.state import TrainState, make_optimizer
 from pointnet2_tpu_torch.train.steps import (
     AUGMENTATIONS,
+    TrainMultiStep,
+    check_remat,
     eval_counts,
     model_inputs,
     run_one_step,
 )
+from pointnet2_tpu_torch.train.watchdog import Watchdog
 from pointnet2_tpu_torch.utils.prefetch import Prefetcher
 
 
@@ -103,7 +115,7 @@ class TrainConfig:
     bn_decay_clip: float = 0.99
     augment: str = "none"  # none | cls | cls_normals | scannet (device)
     host_augment: bool = False  # the dataset's numpy augmentation instead
-    steps_per_call: int = 1  # not ported: one step per dispatch
+    steps_per_call: int = 1  # K batches a call of the step (a CUDA graph)
     num_devices: int | None = None  # not ported: one device
     log_dir: str = "log"
     ckpt_every_epochs: int = 10
@@ -112,13 +124,14 @@ class TrainConfig:
     seed: int = 0
     compute_dtype: str = "float32"  # float32 | bfloat16 (params stay f32)
     model_kwargs: dict = field(default_factory=dict)
-    watchdog_secs: float | None = None  # not ported
-    remat: str = "none"  # not ported
+    # stall watchdog (train/watchdog.py): exit 75 when no step or eval
+    # batch completes for this many seconds (None: off)
+    watchdog_secs: float | None = None
+    remat: str = "none"  # none | full | dots | dots_nobatch (steps.py)
 
 
 # fields whose other values need code that is not ported yet
-_NOT_PORTED = {"steps_per_call": 1, "num_devices": None,
-               "watchdog_secs": None, "remat": "none"}
+_NOT_PORTED = {"num_devices": None}
 
 
 def _check_config(cfg: TrainConfig) -> None:
@@ -134,6 +147,10 @@ def _check_config(cfg: TrainConfig) -> None:
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
                          f"{cfg.compute_dtype!r}")
+    check_remat(cfg.remat)
+    if cfg.steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be at least 1, got "
+                         f"{cfg.steps_per_call}")
 
 
 class Trainer:
@@ -167,6 +184,8 @@ class Trainer:
         self._metrics_file = open(
             os.path.join(config.log_dir, "metrics.jsonl"), "a")
         self.best_score = -float("inf")
+        self._multi: TrainMultiStep | None = None  # K steps on one state
+        self._watchdog: Watchdog | None = None  # armed by fit()
 
     def _snapshot_sources(self) -> None:
         """The model's source file and the run's config.json (written once,
@@ -197,6 +216,10 @@ class Trainer:
         self._log_file.write(msg + "\n")
         self._log_file.flush()
 
+    def _beat(self) -> None:
+        if self._watchdog is not None:
+            self._watchdog.beat()
+
     def log_metrics(self, **kv: Any) -> None:
         self._metrics_file.write(json.dumps(kv) + "\n")
         self._metrics_file.flush()
@@ -211,24 +234,63 @@ class Trainer:
                              self.lr_schedule, self.config.momentum)
         return TrainState(step=0, model=model, optimizer=opt)
 
-    def _to_device(self, batch: dict) -> dict:
-        """Upload a host batch, every key but ``nvalid`` (integer arrays
-        as int64: ``label``, ``seg``, ``cls_label``; the rest as f32:
-        ``points``, ``smpw``); ``nvalid`` becomes a validity mask so the
-        padded rows of a final batch drop out of the loss and counts."""
+    @staticmethod
+    def _host_view(batch: dict) -> dict:
+        """A host batch in the step's layout: every key but ``nvalid``
+        (integer arrays as int64: ``label``, ``seg``, ``cls_label``; the
+        rest as f32: ``points``, ``smpw``), and ``nvalid`` as a validity
+        ``mask`` so the padded rows of a final batch drop out of the loss
+        and counts."""
         bsz = batch["points"].shape[0]
-        mask = (np.arange(bsz) < batch["nvalid"]).astype(np.float32)
-        out = {"mask": torch.from_numpy(mask).to(self.device)}
+        out = {"mask": (np.arange(bsz) < batch["nvalid"]).astype(np.float32)}
         for k, v in batch.items():
             if k == "nvalid":
                 continue
-            t = torch.from_numpy(np.asarray(v))
-            t = t.long() if not t.is_floating_point() else t.float()
-            out[k] = t.to(self.device)
+            v = np.asarray(v)
+            out[k] = np.ascontiguousarray(
+                v, np.float32 if np.issubdtype(v.dtype, np.floating)
+                else np.int64)
         return out
 
+    def _to_device(self, batch: dict) -> dict:
+        """Upload a host batch in the step's layout (:meth:`_host_view`)."""
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in self._host_view(batch).items()}
+
+    def multi_step(self, state: TrainState) -> TrainMultiStep:
+        """The K-steps-a-call step on ``state``, made once per state (a CUDA
+        graph holds the state's tensors)."""
+        if self._multi is None or self._multi.state is not state:
+            self._multi = TrainMultiStep(
+                state, self.loss_fn, self.bn_schedule, self.augment_fn,
+                self.generator, self.task, self.config.remat)
+        return self._multi
+
     def train_epoch(self, state: TrainState, dataset, epoch: int):
+        """One epoch: K = ``steps_per_call`` batches a call of the K-step
+        step, the remainder (fewer than K) as single steps, as JAX's
+        buffer-and-flush loop (trainer.py:208-246)."""
         losses, accs, n = [], [], 0
+        K = self.config.steps_per_call
+        buf: list[dict] = []
+
+        def flush():
+            if len(buf) == K and K > 1:
+                metrics = self.multi_step(state)(
+                    [self._host_view(b) for b in buf])
+                losses.append(metrics["loss"])
+                accs.append(metrics["accuracy"])
+            else:
+                for b in buf:
+                    metrics = run_one_step(
+                        state, self._to_device(b), self.loss_fn,
+                        self.bn_schedule, self.augment_fn, self.generator,
+                        self.task, remat=self.config.remat)
+                    losses.append(metrics["loss"].reshape(1))
+                    accs.append(metrics["accuracy"].reshape(1))
+            buf.clear()
+            self._beat()
+
         num_steps = multihost.sync_num_batches(dataset.num_batches(), "min")
         loader = Prefetcher(dataset.epoch(augment=self.config.host_augment),
                             depth=self.config.prefetch)
@@ -236,17 +298,15 @@ class Trainer:
         try:
             for _, batch in zip(range(num_steps), loader):
                 n += batch["nvalid"]
-                metrics = run_one_step(state, self._to_device(batch),
-                                       self.loss_fn, self.bn_schedule,
-                                       self.augment_fn, self.generator,
-                                       self.task)
-                losses.append(metrics["loss"])
-                accs.append(metrics["accuracy"])
+                buf.append(batch)
+                if len(buf) == K:
+                    flush()
+            flush()
         finally:
             loader.close()
         # one device->host fetch per epoch, not one per step
-        loss = float(torch.stack(losses).mean()) if losses else float("nan")
-        acc = float(torch.stack(accs).mean()) if accs else float("nan")
+        loss = float(torch.cat(losses).mean()) if losses else float("nan")
+        acc = float(torch.cat(accs).mean()) if accs else float("nan")
         dt = time.time() - t0
         self.log(f"epoch {epoch}: train loss {loss:.4f} acc {acc:.4f} "
                  f"({n / max(dt, 1e-9):.1f} ex/s)")
@@ -262,9 +322,12 @@ class Trainer:
         segmentation tasks."""
         loader = Prefetcher(lockstep_batches(dataset, multihost),
                             depth=self.config.prefetch)
+        counts = []
         try:
-            counts = [eval_counts(state.model, self._to_device(b), self.task)
-                      for b in loader]
+            for b in loader:
+                counts.append(eval_counts(state.model, self._to_device(b),
+                                          self.task))
+                self._beat()
         finally:
             loader.close()
             state.model.train()
@@ -302,10 +365,12 @@ class Trainer:
             model.eval()
             try:
                 with torch.inference_mode():
-                    return model(*model_inputs(db, self.task)).float(
+                    out = model(*model_inputs(db, self.task)).float(
                         ).cpu().numpy()
             finally:
                 model.train()
+            self._beat()  # a protocol can outlast the watchdog
+            return out
 
         return fn
 
@@ -338,8 +403,26 @@ class Trainer:
         best checkpoint's sidecar) writes the ``best`` checkpoint with it.
         Writes ``ckpt`` every ``ckpt_every_epochs`` epochs and after the
         last. Returns the final state; its ``model.state_dict()`` loads
-        into ``Predictor``."""
+        into ``Predictor``. With ``watchdog_secs`` set, a stall watchdog
+        runs for the call and is closed however it ends."""
         max_epoch = max_epoch or self.config.max_epoch
+        if self.config.watchdog_secs:
+            self._watchdog = Watchdog(self.config.watchdog_secs,
+                                      log_fn=self.log)
+        try:
+            return self._fit(train_dataset, eval_dataset, max_epoch,
+                             eval_protocol)
+        finally:
+            # an exception must not leave an armed watchdog behind to exit
+            # a caller that caught the error and moved on
+            if self._watchdog is not None:
+                self._watchdog.close()
+                self._watchdog = None
+
+    def _fit(self, train_dataset, eval_dataset, max_epoch: int,
+             eval_protocol) -> TrainState:
+        # restore before the K-step step is made: its CUDA graph holds the
+        # state's tensors
         state, meta = self.maybe_restore(self.init_state())
         if meta is None:
             start_epoch = 0

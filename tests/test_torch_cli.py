@@ -6,9 +6,15 @@ The user journey of tests/test_cli_journey.py:20 without ``cli.visualize``
 and ``Predictor.from_checkpoint`` serves it; the same for sem_seg with its
 whole-scene protocol and two loader threads. The parsers take the JAX
 package's flags with its defaults, ``parse_model_kwargs`` gives JAX's
-kwargs, and each flag whose code is not ported raises.
+kwargs, and each flag whose code is not ported raises. The trainer's
+switches run: ``--steps_per_call`` and ``--remat`` write the checkpoint of
+the run without them bit for bit, ``--watchdog_secs`` arms the watchdog,
+``--normal`` trains and evaluates a classifier on 6-channel synthetic
+clouds and on a generated ModelNet txt tree; every run's config.json,
+metrics.jsonl and sidecar laid out as JAX's CLI writes them.
 """
 
+import dataclasses
 import json
 import os
 
@@ -25,7 +31,11 @@ from pointnet2_tpu.data.synthetic import (
 )
 from pointnet2_tpu_torch import Predictor
 from pointnet2_tpu_torch.cli import evaluate as cli_evaluate
+from pointnet2_tpu.train.trainer import TrainConfig as JaxTrainConfig
 from pointnet2_tpu_torch.cli import train as cli_train
+from pointnet2_tpu_torch.train import checkpoint as ckpt
+from pointnet2_tpu_torch.train import trainer as trainer_mod
+from tests.test_torch_multi_step import one_thread  # noqa: F401
 
 
 def _rows(log_dir):
@@ -124,10 +134,6 @@ def test_parse_model_kwargs_equals_jax(argv):
 @pytest.mark.parametrize("flags, item", [
     (["--num_devices", "2"], "item 6"),
     (["--multihost"], "item 6"),
-    (["--steps_per_call", "25"], "item 5"),
-    (["--remat", "full"], "item 5"),
-    (["--watchdog_secs", "600"], "item 5"),
-    (["--normal"], "item 5"),
     (["--model", "pointnet2_sem_seg", "--virtual_scan"], "item 7"),
 ])
 def test_unported_flags_raise(tmp_path, flags, item):
@@ -135,10 +141,138 @@ def test_unported_flags_raise(tmp_path, flags, item):
             str(tmp_path / "log")]
     with pytest.raises(NotImplementedError, match=item):
         cli_train.main(base + flags)
-    if flags[0] in ("--num_devices", "--multihost", "--normal"):
+    if flags[0] in ("--num_devices", "--multihost"):
         with pytest.raises(NotImplementedError, match=item):
             cli_evaluate.main(base + flags)
     assert not os.path.exists(tmp_path / "log")  # nothing ran
+
+
+# --- the trainer's switches and --normal ------------------------------------
+
+# pointnet_cls_basic: BN and dropout as the other classifiers, a fraction
+# of their work a cloud
+_SMALL = ["--model", "pointnet_cls_basic", "--synthetic", "--synthetic_size",
+          "1", "--num_point", "32", "--batch_size", "16", "--max_epoch", "1",
+          "--device", "cpu"]
+
+
+def _train(log_dir, *flags) -> dict:
+    """cli.train of cls_basic (40 synthetic clouds of 32 points, 3 steps
+    of 16, one epoch); returns the final checkpoint's model and the run's records,
+    after checking they are laid out as JAX's CLI writes them."""
+    cli_train.main(_SMALL + ["--log_dir", str(log_dir), *flags])
+    cfg = json.load(open(os.path.join(log_dir, "config.json")))
+    assert cfg.keys() == {f.name for f in dataclasses.fields(
+        JaxTrainConfig)}
+    rows = _rows(log_dir)
+    assert [r["split"] for r in rows] == ["train", "eval"]
+    assert rows[0].keys() == {"epoch", "split", "loss", "accuracy",
+                              "examples_per_sec", "step", "learning_rate",
+                              "bn_momentum"}
+    assert json.load(open(os.path.join(log_dir, "ckpt.meta.json"))) == {
+        "step": 3, "epoch": 1}
+    saved = ckpt.read_checkpoint(str(log_dir))
+    return {"config": cfg, "model": saved["model"],
+            "optimizer": saved["optimizer"]}
+
+
+def _same_run(a: dict, b: dict) -> bool:
+    return (a["model"].keys() == b["model"].keys()
+            and all(torch.equal(a["model"][k], b["model"][k])
+                    for k in a["model"])
+            and all(torch.equal(x, y) for k in ("mu", "nu")
+                    for x, y in zip(a["optimizer"][k], b["optimizer"][k])))
+
+
+@pytest.fixture(scope="module")
+def plain_run(tmp_path_factory):
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return _train(tmp_path_factory.mktemp("plain"))
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("flags", [["--steps_per_call", "2"],
+                                   ["--remat", "full"]])
+def test_cli_switches_train_the_same_run(tmp_path, plain_run, flags):
+    """--steps_per_call 2 (3 steps: a call of 2, then a single step) and
+    --remat write the checkpoint of the run without them, bit for bit;
+    config.json records the flag under JAX's field name."""
+    got = _train(tmp_path, *flags)
+    field, value = flags[0][2:], flags[1]
+    assert str(got["config"][field]) == value
+    assert plain_run["config"][field] in (1, "none")
+    assert _same_run(got, plain_run)
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_cli_watchdog_secs_arms_and_closes_the_watchdog(tmp_path,
+                                                         monkeypatch):
+    made = []
+
+    class Recorder:
+        def __init__(self, timeout_s, log_fn=print):
+            self.timeout_s, self.beats, self.closed = timeout_s, 0, False
+            made.append(self)
+
+        def beat(self):
+            self.beats += 1
+
+        def close(self):
+            self.closed = True
+
+    monkeypatch.setattr(trainer_mod, "Watchdog", Recorder)
+    got = _train(tmp_path, "--watchdog_secs", "600")
+    assert got["config"]["watchdog_secs"] == 600.0
+    (wd,) = made
+    assert wd.timeout_s == 600.0 and wd.closed and wd.beats >= 3
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_cli_normal_synthetic_trains_and_evaluates(tmp_path):
+    """--normal on synthetic data: 6-channel clouds, the cls_normals
+    augmentation, a 6-channel model; cli.evaluate --normal restores it."""
+    got = _train(tmp_path, "--normal")
+    assert got["config"]["augment"] == "cls_normals"
+    assert got["config"]["model_kwargs"] == {"in_channels": 6}
+    assert got["model"]["point_mlp.conv0.dense.weight"].shape[1] == 6
+    out = str(tmp_path / "metrics.json")
+    cli_evaluate.main(_SMALL[:-4] + ["--device", "cpu", "--normal",
+                                     "--log_dir", str(tmp_path),
+                                     "--num_votes", "2", "--out", out])
+    record = json.load(open(out))
+    assert record["step"] == 3 and record["num_votes"] == 2
+    assert sum(record["metrics"]["per_class_seen"]) == 40
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_cli_normal_reads_the_modelnet_txt_data(tmp_path):
+    """--normal --data: the resampled-txt tree (two classes) with normals
+    and the host data's shapes, trained and evaluated (cls_ssg)."""
+    from tests.test_torch_host_data import _write_tree
+
+    data = tmp_path / "modelnet40_normal_resampled"
+    data.mkdir()
+    _write_tree(data, n_points=64)
+    log_dir = str(tmp_path / "log")
+    flags = ["--model", "pointnet2_cls_ssg", "--normal", "--data", str(data),
+             "--num_point", "64", "--batch_size", "4", "--device", "cpu",
+             "--log_dir", log_dir, "--num_classes", "2"]
+    cli_train.main(flags + ["--max_epoch", "1", "--steps_per_call", "2"])
+    assert [r["split"] for r in _rows(log_dir)] == ["train", "eval"]
+    assert json.load(open(os.path.join(log_dir, "ckpt.meta.json"))) == {
+        "step": 2, "epoch": 1}
+    cfg = json.load(open(os.path.join(log_dir, "config.json")))
+    assert cfg["augment"] == "cls_normals"
+    assert cfg["model_kwargs"] == {"num_classes": 2, "in_channels": 6}
+    out = str(tmp_path / "metrics.json")
+    cli_evaluate.main(flags + ["--num_votes", "1", "--out", out])
+    record = json.load(open(out))
+    assert record["step"] == 2
+    assert sum(record["metrics"]["per_class_seen"]) == 3  # the test split
 
 
 def test_clis_run_on_the_card_by_default(tmp_path):

@@ -1362,3 +1362,59 @@ def test_protocol_kernels_equal_plain_on_card(dev, tmp_path, which):
             results.append(protocol(fn))
         assert (ops.fps_kernel.launches > before) == (impl == "auto")
     assert equal_metrics(*results), results
+
+
+def _small_epoch(tmp_path, name, K, fused, **kw):
+    """One epoch of 5 batches of 4 synthetic clouds (256 points, dropout and
+    augment "cls") with steps_per_call=K on the card; the snapshot, the
+    launches and the K-step object."""
+    from chip_smoke import train_snapshot
+    from pointnet2_tpu_torch.data import SyntheticClassification
+    from pointnet2_tpu_torch.train import TrainConfig, Trainer
+
+    data = SyntheticClassification(num_classes=4, samples_per_class=5,
+                                   npoints=256, batch_size=4, seed=0)
+    cfg = TrainConfig(batch_size=4, num_point=256, augment="cls",
+                      steps_per_call=K, compute_dtype="bfloat16",
+                      log_dir=str(tmp_path / f"{name}{K}"), **kw)
+    with config.fused_mlp(fused), Trainer(cfg) as tr:
+        for w in ops.KERNELS.values():
+            w.launches = 0
+        state = tr.train_epoch(tr.init_state(), data, 0)
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in ops.KERNELS.items()}
+        return train_snapshot(torch, tr, state), counts, tr._multi
+
+
+@pytest.mark.parametrize("fused,remat", [(False, "none"), (True, "none"),
+                                         (True, "full")])
+def test_graphed_steps_equal_single_steps_on_card(dev, tmp_path, fused,
+                                                  remat):
+    """steps_per_call=3 over 5 batches (a replay of 3, two single steps)
+    ends bit for bit where 5 single steps end, a checkpointed forward
+    captured too; a replay counts 3 steps' launches, the epoch the 5
+    steps' and the warm-up step's."""
+    from chip_smoke import snapshot_diff
+
+    want, per5, _ = _small_epoch(tmp_path, "single", 1, fused, remat=remat)
+    got, counts, multi = _small_epoch(tmp_path, "graphed", 3, fused,
+                                      remat=remat)
+    _, names = snapshot_diff(torch, want, got)
+    assert not names, names
+    (graphed,) = multi.graphs.values()
+    assert graphed.launches == {k: 3 * n // 5 for k, n in per5.items()}
+    assert counts == {k: 6 * n // 5 for k, n in per5.items()}
+
+
+@pytest.mark.parametrize("remat", ["full", "dots", "dots_nobatch"])
+def test_remat_equals_none_on_card(dev, tmp_path, remat):
+    """An epoch under each remat policy, the fused chain on, ends bit for
+    bit where remat='none' ends; the forwards run twice."""
+    from chip_smoke import snapshot_diff
+
+    want, per, _ = _small_epoch(tmp_path, "none", 1, True)
+    got, counts, _ = _small_epoch(tmp_path, remat, 1, True, remat=remat)
+    _, names = snapshot_diff(torch, want, got)
+    assert not names, names
+    assert counts["fps"] == 2 * per["fps"]
+    assert counts["scatter_rows"] == per["scatter_rows"]

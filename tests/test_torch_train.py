@@ -480,8 +480,9 @@ def test_dropout_masks_reach_the_loss(jax_train_step):
 
 def test_modelnet_h5_batches_equal_jax(tmp_path):
     """A tiny two-file H5 set written here: the port's loader yields the
-    JAX loader's batches (same seed, shuffled and not), padded tail and
-    nvalid included."""
+    JAX loader's batches (same seed, shuffled and not, with the host
+    augmentation ``augment_cls_batch`` off and on), padded tail and nvalid
+    included."""
     import h5py
 
     r = np.random.RandomState(0)
@@ -499,15 +500,16 @@ def test_modelnet_h5_batches_equal_jax(tmp_path):
         ours, theirs = ModelNetH5Dataset(str(lst), **kw), JaxH5Dataset(
             str(lst), **kw)
         assert len(ours) == 12 and ours.num_batches() == 3
-        for _ in range(2):  # two epochs: the shuffle state advances alike
-            got, want = list(ours.epoch()), list(theirs.epoch())
+        # two epochs each way: the shuffle and augmentation state advances
+        # alike
+        for augment in (False, False, True, True):
+            got = list(ours.epoch(augment=augment))
+            want = list(theirs.epoch(augment=augment))
             assert len(got) == len(want) == 3 and got[-1]["nvalid"] == 2
             for a, b in zip(got, want):
                 assert a["nvalid"] == b["nvalid"]
                 np.testing.assert_array_equal(a["points"], b["points"])
                 np.testing.assert_array_equal(a["label"], b["label"])
-    with pytest.raises(NotImplementedError, match="augment"):
-        next(ours.epoch(augment=True))
 
 
 def test_synthetic_dataset_equals_jax():
@@ -523,8 +525,7 @@ def test_synthetic_dataset_equals_jax():
 
 
 def test_train_config_refuses_what_is_not_ported(tmp_path):
-    for kw in ({"steps_per_call": 4}, {"num_devices": 2}, {"remat": "dots"},
-               {"watchdog_secs": 60.0}, {"augment": "cls_and_jitter"}):
+    for kw in ({"num_devices": 2}, {"augment": "cls_and_jitter"}):
         with pytest.raises(NotImplementedError):
             Trainer(TrainConfig(log_dir=str(tmp_path), **kw), device="cpu")
 
