@@ -234,6 +234,21 @@ steps, ``remat``, the stall watchdog under ``cli.supervise``, and
     with 75, the supervisor restarts it, the restart resumes from its
     checkpoint and ends; and ``cli.train --normal`` on a generated ModelNet
     txt tree, and ``Trainer.fit`` on it with ``host_augment``.
+31. scale-out (``parallel.launch``, ``torch.distributed``): (a) two gloo
+    ranks sharing cuda:0, one train step each of cls_ssg at global B=32
+    (N=1024; f32 and bf16, the fused chain off and on, and float64 on the
+    plain versions) and of sem_seg at B=32 (N=8192, bf16), against one
+    process's step on the same global batch: the ranks bit-identical to
+    each other, loss, running statistics and gradients within
+    ``SCALE_TOL``, the eval counts summed over the ranks equal; (b) one NCCL rank: ``Trainer(num_devices=1)`` with
+    ``steps_per_call=4`` (the graph capturing the step's collectives),
+    fused bf16 cls_ssg, an epoch of 6 batches, bit for bit the trainer
+    without a group, and ``Predictor(num_devices=1)`` bit for bit today's;
+    (c) where the machine has N >= 2 cards: (a)'s steps on N NCCL ranks at
+    global B=16N, ``cli.train --num_devices N`` and ``cli.evaluate`` on its
+    checkpoint, ``Predictor(num_devices=N)`` against one card, and weak
+    scaling at 1, 2 and N ranks (examples/s, efficiency, the gradient
+    all-reduce's time, the collectives' share of a step's device time).
 
 Prints the GPU's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
@@ -246,6 +261,8 @@ labels are drawn from the seed); ScanNet blocks are 1.5 m columns of a
 generated room (floor, ceiling, walls, box furniture).
 
 Usage (from the repository root, one GPU):  python3 chip_smoke.py
+Phase 31 alone, after phase 1's build (on every card of the machine):
+python3 chip_smoke.py --phase 31
 """
 
 from __future__ import annotations
@@ -921,7 +938,8 @@ def check_scatter(torch, dev, check: Checks, errs: dict) -> None:
 
 def make_trainer(torch, dtype: str, log_dir: str, epochs: int, seed=SEED,
                  model: str = "pointnet2_cls_ssg", num_point: int = N_POINT,
-                 augment: str = "cls", batch_size: int = 16, **config):
+                 augment: str = "cls", batch_size: int = 16, device="cuda",
+                 **config):
     from pointnet2_tpu_torch.train import TrainConfig, Trainer
 
     cfg = TrainConfig(model=model, batch_size=batch_size,
@@ -929,7 +947,7 @@ def make_trainer(torch, dtype: str, log_dir: str, epochs: int, seed=SEED,
                       learning_rate=1e-3, optimizer="adam", augment=augment,
                       compute_dtype=dtype, log_dir=log_dir, seed=seed,
                       **config)
-    return Trainer(cfg, device="cuda")
+    return Trainer(cfg, device=device)
 
 
 def train_batch(torch, dev, B: int = 16) -> dict:
@@ -4124,9 +4142,9 @@ marker, wedge_step, cycles = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 real_init, real_step = trainer_mod.Trainer.__init__, trainer_mod.run_one_step
 
 
-def init(self, config, device="cuda"):
+def init(self, config, *args, **kw):
     config.ckpt_every_epochs = 1  # a checkpoint every epoch to resume from
-    real_init(self, config, device)
+    real_init(self, config, *args, **kw)
 
 
 def step(state, *args, **kw):
@@ -4251,6 +4269,464 @@ def check_normal_txt(torch, check: Checks, log_dir: str) -> dict:
     return {k: w.launches for k, w in ops.KERNELS.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 31: scale-out (data parallelism over ranks)
+# ---------------------------------------------------------------------------
+
+# (tag, model, compute dtype, fused chain) of phase 31's train steps; the
+# float64 one runs the plain versions (the kernels take f32 and bf16),
+# where the collectives' summation order is all that differs
+SCALE_CASES = (("cls_ssg f64 plain", CLS_SSG, "float64", False),
+               ("cls_ssg f32", CLS_SSG, "float32", False),
+               ("cls_ssg f32 fused", CLS_SSG, "float32", True),
+               ("cls_ssg bf16", CLS_SSG, "bfloat16", False),
+               ("cls_ssg bf16 fused", CLS_SSG, "bfloat16", True),
+               ("sem_seg bf16", SEM, "bfloat16", False))
+SCALE_ROWS = 16  # rows a rank of phase 31's steps
+# a step on N ranks against one process's on the global batch: loss and
+# running statistics (relative to each tensor's scale), the largest
+# gradient difference and the median (grad_differences). Only the float64
+# step holds the math tightly: in f32 and bf16 the per-rank statistics'
+# last bits move BN's E[x^2] - E[x]^2 and, in bf16, the rounding of every
+# activation, as any two routes do (phases 20 and 22). Measured on an
+# H100 at 700 W (2 ranks; 4): float64 gradients 5.8e-14 (8.6e-14)
+# largest, f32 5.9e-3 (1.4e-2) and medians 1.1e-4-1.2e-4 (1.4e-3-2.7e-3),
+# bf16 0.67 (0.63) and medians 0.20-0.36 (0.19-0.26), bf16 loss 3.1e-3
+SCALE_TOL = {"float64": (1e-12, 1e-10, 1e-9, 1e-9),
+             "float32": (1e-5, 1e-4, 5e-2, 1e-2),
+             "bfloat16": (1e-2, 5e-2, 1.0, 0.5)}
+WEAK_RUNS = ((CLS_SSG, 32, True), (SEM, 16, False))  # (model, rows a rank,
+WEAK_CALLS = 8  # fused) of the weak-scaling runs; timed calls of K steps
+SPAWN_TIMEOUT = 240  # s a phase-31 job of ranks may take (exit 124 past it)
+
+
+def scale_batch(name: str, B: int) -> dict:
+    """Phase 31's host batch of B rows in the step's layout, the last row
+    padding (mask 0): phase 3's clouds for cls_ssg; for sem_seg random 1.5 m
+    columns of 8192 points with labels and point weights."""
+    rng = np.random.default_rng(SEED + 31)
+    mask = np.ones(B, np.float32)
+    mask[-1] = 0.0
+    if name == SEM:
+        pts = rng.uniform(0.0, 1.0, (B, SEM_N, 3)) * [1.5, 1.5, 3.0]
+        return {"points": pts.astype(np.float32),
+                "seg": rng.integers(0, 21, (B, SEM_N)),
+                "smpw": rng.uniform(0.5, 2.0, (B, SEM_N)).astype(np.float32),
+                "mask": mask}
+    return {"points": make_clouds(B, N_POINT, SEED + 31),
+            "label": np.arange(B, dtype=np.int64) % NUM_CLASSES,
+            "mask": mask}
+
+
+def scale_steps(torch, device, B: int, log_dir: str) -> dict:
+    """One train step of each SCALE_CASES case from the seeded weights on
+    this process's rows of the global batch of B (all of it without a
+    process group), the generator at seed 5 (augmentation and dropout draw
+    for the global batch), and the eval counts of the initial weights on
+    the batch, summed over the ranks. Returns CPU copies."""
+    from pointnet2_tpu_torch import config
+    from pointnet2_tpu_torch.parallel.mesh import shard_batch
+    from pointnet2_tpu_torch.train.state import make_optimizer
+    from pointnet2_tpu_torch.train.steps import eval_counts, run_one_step
+
+    out = {}
+    for tag, name, dtype, fused in SCALE_CASES:
+        f64 = dtype == "float64"
+        with make_trainer(torch, "float32" if f64 else dtype,
+                          os.path.join(log_dir, "scale"), 1, model=name,
+                          batch_size=B, device=device,
+                          num_point=SEM_N if name == SEM else N_POINT,
+                          augment="scannet" if name == SEM else "cls") as tr:
+            state = tr.init_state()
+            state.model.load_state_dict(random_state_dict(torch, SEED, name))
+            host = scale_batch(name, B)
+            if f64:
+                state.model.double()
+                state.optimizer = make_optimizer(
+                    "adam", state.model.parameters(), tr.lr_schedule)
+                host = {k: v.astype(np.float64) if v.dtype == np.float32
+                        else v for k, v in host.items()}
+            batch = shard_batch(tr.mesh, host)
+            with config.default_impl("torch" if f64 else "auto"):
+                counts = eval_counts(state.model, batch, tr.task, tr.mesh)
+                tr.generator.manual_seed(5)
+                with config.fused_mlp(fused):
+                    m = run_one_step(state, batch, tr.loss_fn,
+                                     tr.bn_schedule, tr.augment_fn,
+                                     tr.generator, tr.task, mesh=tr.mesh)
+            opt = state.optimizer.state_dict()
+            model = state.model
+            out[tag] = {
+                "loss": float(m["loss"]),
+                "grads": {k: p.grad.cpu() for k, p in
+                          model.named_parameters()},
+                "buffers": {k: b.cpu() for k, b in model.named_buffers()},
+                "params": {k: p.detach().cpu() for k, p in
+                           model.named_parameters()},
+                "moments": [t.cpu() for k in state.optimizer.MOMENTS
+                            for t in opt[k]],
+                "generator": tr.generator.get_state(),
+                "counts": [c.cpu() for c in counts]}
+    return out
+
+
+def scale_rank(out_dir: str, B: int, device: str) -> None:
+    """Phase 31: a rank's scale_steps and its launches, saved for the
+    parent."""
+    import torch
+    import torch.distributed as dist
+
+    from pointnet2_tpu_torch import ops
+
+    for w in ops.KERNELS.values():
+        w.launches = 0
+    steps = scale_steps(torch, device, B, out_dir)
+    torch.cuda.synchronize()
+    torch.save({"steps": steps,
+                "launches": {k: w.launches for k, w in ops.KERNELS.items()}},
+               os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
+
+
+def bits_equal(torch, a: dict, b: dict) -> bool:
+    """Two ranks' states of one step bit for bit."""
+    return (all(torch.equal(a[g][k], b[g][k]) for g in ("params", "buffers")
+                for k in a[g])
+            and all(torch.equal(x, y) for x, y in zip(a["moments"],
+                                                       b["moments"]))
+            and torch.equal(a["generator"], b["generator"]))
+
+
+def check_scale_steps(torch, check: Checks, log_dir: str, n: int,
+                      device: str, backend: str) -> dict:
+    """Phase 31a (two gloo ranks sharing cuda:0) and 31c (n NCCL ranks, a
+    card each): each SCALE_CASES step on n ranks of SCALE_ROWS rows against
+    one process's step on the same global batch and weights on cuda:0. The
+    ranks hold the same state bit for bit; loss and running statistics,
+    gradients (largest and median of grad_differences) within SCALE_TOL;
+    the eval counts summed over the ranks equal. Returns the ranks'
+    launches."""
+    from pointnet2_tpu_torch import get_model, ops
+    from pointnet2_tpu_torch.parallel import launch
+
+    B = SCALE_ROWS * n
+    out_dir = os.path.join(log_dir, f"scale_{backend}{n}")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    rc = launch.spawn(scale_rank, n, device=device, backend=backend,
+                      args=(out_dir, B, device), timeout=SPAWN_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    if not check(rc == 0, f"{n} {backend} ranks on {device}: one step of "
+                 f"{len(SCALE_CASES)} cases at global B={B}, exit code "
+                 f"{rc}, {spawn_s:.1f} s"):
+        return launches
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(n)]
+    one = scale_steps(torch, "cuda:0" if "cuda" in device else device, B,
+                      log_dir)
+    for tag, name, dtype, _ in SCALE_CASES:
+        got, want = [r["steps"][tag] for r in ranks], one[tag]
+        same = all(bits_equal(torch, got[0], g) for g in got[1:])
+        loss_err = abs(got[0]["loss"] - want["loss"]) / abs(want["loss"])
+        stats_err = max(float((got[0]["buffers"][k] - b).abs().max()
+                              / b.abs().max().clamp_min(1e-30))
+                        for k, b in want["buffers"].items())
+        zero = exact_zero_biases(get_model(name, device="cpu"))
+        diffs = grad_differences(torch, got[0]["grads"], want["grads"], zero)
+        median = float(np.median([d for d, _ in diffs]))
+        # eval_counts sums over the ranks itself
+        counts = all(torch.equal(a, b) for a, b in zip(got[0]["counts"],
+                                                       want["counts"]))
+        tl, ts, tg, tm = SCALE_TOL[dtype]
+        check(same and counts and np.isfinite(got[0]["loss"])
+              and loss_err <= tl and stats_err <= ts and diffs[0][0] <= tg
+              and median <= tm,
+              f"{tag}, {n} {backend} ranks vs one process, global B={B}: "
+              f"ranks bit-identical {same}; loss {got[0]['loss']:.6f} vs "
+              f"{want['loss']:.6f} (rel {loss_err:.2e}, bound {tl:g}); "
+              f"running statistics {stats_err:.2e} (bound {ts:g}); gradients"
+              f" of {len(diffs)} tensors: largest {diffs[0][0]:.2e} "
+              f"({diffs[0][1]}), median {median:.2e} (bounds {tg:g}, "
+              f"{tm:g}); eval counts summed over the ranks equal {counts}")
+    for r in ranks:
+        launches = {k: launches[k] + r["launches"][k] for k in launches}
+    return launches
+
+
+def one_rank_epoch(torch, log_dir: str) -> dict:
+    """Phase 31b's epoch: fused bf16 cls_ssg, 6 batches of 16 with
+    steps_per_call=4 (a CUDA graph replay, then 2 single steps); returns
+    the end state's snapshot and the number of graphs."""
+    from pointnet2_tpu_torch import config
+
+    with config.fused_mlp(True), graph_trainer(torch, CLS_SSG, 16, GRAPH_K,
+                                               log_dir, num_devices=1) as tr:
+        state = tr.train_epoch(tr.init_state(), graph_data(CLS_SSG, 16), 0)
+        torch.cuda.synchronize()
+        return {"snapshot": train_snapshot(torch, tr, state),
+                "graphs": len(tr._multi.graphs)}
+
+
+def one_rank_nccl(out_dir: str) -> None:
+    """Phase 31b: one rank of an NCCL group: one_rank_epoch with every
+    collective of the step captured in its graph; saved with its
+    launches."""
+    import torch
+
+    from pointnet2_tpu_torch import ops
+
+    for w in ops.KERNELS.values():
+        w.launches = 0
+    run = one_rank_epoch(torch, out_dir)
+    run["snapshot"] = {k: v.cpu() for k, v in run["snapshot"].items()}
+    run["launches"] = {k: w.launches for k, w in ops.KERNELS.items()}
+    torch.save(run, os.path.join(out_dir, "rank0.pt"))
+
+
+def gloo_graph_rank(out_dir: str) -> None:
+    """Phase 31b: a gloo rank on cuda:0 asks for a CUDA graph of its step,
+    which would capture gloo's collectives: TrainMultiStep must refuse."""
+    import torch
+
+    with graph_trainer(torch, CLS_SSG, 16, GRAPH_K, out_dir) as tr:
+        try:
+            tr.multi_step(tr.init_state())
+        except RuntimeError as e:
+            with open(os.path.join(out_dir, "refused.txt"), "w") as f:
+                f.write(str(e))
+
+
+def check_one_rank_nccl(torch, check: Checks, log_dir: str) -> dict:
+    """Phase 31b: one_rank_epoch in a group of one NCCL rank on cuda:0 (an
+    all-reduce over one rank is a copy) equals it without a group bit for
+    bit; Predictor(num_devices=1) serves today's logits bit for bit; no
+    fallback: a graphed step over gloo on the card and more CUDA ranks than
+    cards raise. Returns the rank's launches."""
+    from pointnet2_tpu_torch import Predictor, ops
+    from pointnet2_tpu_torch.parallel import launch
+
+    gloo_dir = os.path.join(log_dir, "scale_gloo_graph")
+    os.makedirs(gloo_dir, exist_ok=True)
+    rc = launch.spawn(gloo_graph_rank, 1, device="cuda:0", backend="gloo",
+                      args=(gloo_dir,), timeout=SPAWN_TIMEOUT)
+    refused = os.path.join(gloo_dir, "refused.txt")
+    why = open(refused).read() if os.path.isfile(refused) else ""
+    check(rc == 0 and "needs NCCL" in why,
+          f"TrainMultiStep on a gloo rank on cuda:0 refuses: {why[:90]!r}")
+    try:
+        launch.spawn(gloo_graph_rank, torch.cuda.device_count() + 1,
+                     device="cuda", args=(gloo_dir,))
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    check("card" in raised, f"{torch.cuda.device_count() + 1} CUDA ranks "
+          f"on {torch.cuda.device_count()} card(s) raise: {raised!r}")
+
+    out_dir = os.path.join(log_dir, "scale_nccl1")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    rc = launch.spawn(one_rank_nccl, 1, device="cuda", args=(out_dir,),
+                      timeout=SPAWN_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    if not check(rc == 0, f"one NCCL rank: a fused bf16 cls_ssg epoch with "
+                 f"steps_per_call={GRAPH_K}, exit code {rc}, "
+                 f"{spawn_s:.1f} s"):
+        return dict.fromkeys(ops.KERNELS, 0)
+    ranked = torch.load(os.path.join(out_dir, "rank0.pt"), weights_only=False)
+    alone = one_rank_epoch(torch, os.path.join(log_dir, "scale_alone"))
+    err, names = snapshot_diff(torch, ranked["snapshot"],
+                               {k: v.cpu() for k, v in
+                                alone["snapshot"].items()})
+    check(not names and ranked["graphs"] == alone["graphs"] == 1,
+          f"Trainer(num_devices=1) in a one-rank NCCL group, its graph "
+          f"capturing the step's collectives: the epoch equals the trainer "
+          f"without a group bit for bit ({len(alone['snapshot'])} tensors; "
+          f"differing: {names[:4]}, max {err:.3e}); graphs "
+          f"{ranked['graphs']}")
+    sd = random_state_dict(torch, SEED)
+    clouds = make_clouds(16, N_POINT, SEED + 1)
+    a = Predictor(CLS_SSG, sd)(clouds)
+    b = Predictor(CLS_SSG, sd, num_devices=1)(clouds)
+    check(np.array_equal(a, b), "Predictor(num_devices=1): today's bf16 "
+          "logits bit for bit, 16 clouds")
+    return ranked["launches"]
+
+
+def weak_rank(out_dir: str, ranks: int) -> None:
+    """Phase 31c: a rank's weak-scaling runs (WEAK_RUNS, bf16,
+    steps_per_call=4 graph replays): ms a call of K steps (host clock), the
+    gradient all-reduce's ms (CUDA events, the flat float32 buffer of every
+    parameter) and an eager step's device time and its NCCL kernels'
+    (torch.profiler, trace_device); saved by rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from pointnet2_tpu_torch import config
+    from pointnet2_tpu_torch.parallel.mesh import local_rows
+    from pointnet2_tpu_torch.train.steps import run_one_step
+
+    res = {}
+    for name, rows, fused in WEAK_RUNS:
+        B = rows * ranks
+        with config.fused_mlp(fused), make_trainer(
+                torch, "bfloat16", os.path.join(out_dir, "weak"), 1,
+                model=name, batch_size=B, steps_per_call=GRAPH_K,
+                num_point=SEM_N if name == SEM else N_POINT,
+                augment="scannet" if name == SEM else "cls",
+                num_devices=ranks) as tr:
+            state = tr.init_state()
+            host = tr._host_view(dict(scale_batch(name, B), nvalid=B))
+            batches = [local_rows(tr.mesh, host)] * GRAPH_K
+            step = tr.multi_step(state)
+            for _ in range(2):  # capture, then a warm replay
+                step(batches)
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(WEAK_CALLS):
+                step(batches)
+            torch.cuda.synchronize()
+            call_ms = (time.perf_counter() - t0) * 1e3 / WEAK_CALLS
+            flat = torch.cat([p.detach().reshape(-1).float()
+                              for p in state.model.parameters()])
+            grad_ms = event_ms(torch, lambda: tr.mesh.mean(flat), 20)
+            dev_batch = {k: torch.from_numpy(v).to(tr.device)
+                         for k, v in batches[0].items()}
+            kernels, _, _, _ = trace_device(torch, lambda: run_one_step(
+                state, dev_batch, tr.loss_fn, tr.bn_schedule, tr.augment_fn,
+                tr.generator, tr.task, mesh=tr.mesh), 3)
+            nccl = [(us, n) for us, n, k in kernels if "nccl" in k.lower()]
+            res[name] = {"B": B, "call_ms": call_ms, "grad_ms": grad_ms,
+                         "grad_mb": flat.numel() * 4 / 1e6,
+                         "device_us": sum(us for us, _, _ in kernels),
+                         "nccl_us": sum(us for us, _ in nccl),
+                         "nccl_n": sum(n for _, n in nccl)}
+    if dist.get_rank() == 0:
+        torch.save(res, os.path.join(out_dir, f"weak{ranks}.pt"))
+
+
+def run_cli(name: str, *flags: str) -> subprocess.CompletedProcess:
+    """``python -m pointnet2_tpu_torch.cli.<name> flags`` in a process
+    group of its own, killed with every rank it started after
+    SPAWN_TIMEOUT (return code 124)."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
+        __file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"pointnet2_tpu_torch.cli.{name}", *flags],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=SPAWN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+        return subprocess.CompletedProcess(proc.args, 124, out, err)
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+
+def check_multi_card(torch, check: Checks, log_dir: str, gpu: str,
+                     n: int) -> dict:
+    """Phase 31c, where the machine has n >= 2 cards: the 31a steps on n
+    NCCL ranks (a card each) at global B=16n; cli.train --num_devices n
+    --synthetic for an epoch and cli.evaluate on its checkpoint;
+    Predictor(num_devices=n) against num_devices=1 (f32, phase 3's 1e-5 of
+    the logits' range); and weak scaling at 1, 2 and n ranks. Returns the
+    ranks' launches."""
+    from pointnet2_tpu_torch import Predictor
+    from pointnet2_tpu_torch.parallel import launch
+
+    launches = check_scale_steps(torch, check, log_dir, n, "cuda", "nccl")
+    run_dir = os.path.join(log_dir, f"cli_nccl{n}")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    flags = ["--model", CLS_SSG, "--synthetic", "--synthetic_size", "2",
+             "--batch_size", str(16 * n), "--log_dir", run_dir]
+    t0 = time.perf_counter()
+    train = run_cli("train", *flags, "--max_epoch", "1", "--num_devices",
+                    str(n), "--dtype", "bfloat16", "--steps_per_call", "2")
+    out = os.path.join(run_dir, "eval.json")
+    evaluate = run_cli("evaluate", *flags, "--num_votes", "2", "--out", out)
+    record = {}
+    if evaluate.returncode == 0 and os.path.isfile(out):
+        with open(out) as f:
+            record = json.load(f)
+    check(train.returncode == 0 and evaluate.returncode == 0
+          and record.get("step") == -(-80 // (16 * n))
+          and 0.0 <= record["metrics"]["accuracy"] <= 1.0,
+          f"cli.train --num_devices {n} --synthetic (80 clouds, batch "
+          f"{16 * n}, bf16, steps_per_call 2) then cli.evaluate: exit codes "
+          f"{train.returncode}, {evaluate.returncode}, step "
+          f"{record.get('step')}, vote accuracy "
+          f"{record.get('metrics', {}).get('accuracy')}; "
+          f"{time.perf_counter() - t0:.1f} s"
+          + "".join(f"; {p.stderr[-800:]}" for p in (train, evaluate)
+                    if p.returncode))
+    sd = random_state_dict(torch, SEED)
+    clouds = make_clouds(100, N_POINT, SEED + 1)
+    one = Predictor(CLS_SSG, sd, dtype=torch.float32)
+    many = Predictor(CLS_SSG, sd, dtype=torch.float32, num_devices=n)
+    for b in (1, 16, 100):
+        want, got = one(clouds[:b]), many(clouds[:b])
+        err = float(np.abs(got - want).max())
+        scale = float(np.abs(want).max())
+        check(got.shape == want.shape and err <= 1e-5 * scale,
+              f"Predictor(num_devices={n}) f32, {b} clouds (buckets "
+              f"{many._buckets}): max abs diff {err:.3e} against one card "
+              f"(logit range {scale:.3f})")
+    log(f"phase 31c: weak scaling, bf16, steps_per_call={GRAPH_K}, on {n} x "
+        f"{gpu}")
+    weak = {}
+    for ranks in sorted({1, 2, n}):
+        out_dir = os.path.join(log_dir, "weak")
+        os.makedirs(out_dir, exist_ok=True)
+        rc = launch.spawn(weak_rank, ranks, device="cuda",
+                          args=(out_dir, ranks), timeout=SPAWN_TIMEOUT)
+        if check(rc == 0, f"weak scaling on {ranks} rank(s): exit code "
+                 f"{rc}"):
+            weak[ranks] = torch.load(os.path.join(out_dir,
+                                                  f"weak{ranks}.pt"))
+    for name, rows, fused in WEAK_RUNS:
+        base = None
+        for ranks, res in sorted(weak.items()):
+            r = res[name]
+            rate = GRAPH_K * r["B"] / r["call_ms"] * 1e3
+            base = base or rate
+            share = r["nccl_us"] / max(r["device_us"], 1e-9)
+            rest = max(r["nccl_us"] - r["grad_ms"] * 1e3, 0.0)
+            log(f"  {name}{' fused' if fused else ''} {rows} a rank, "
+                f"{ranks} rank(s), global B={r['B']}: "
+                f"{r['call_ms'] / GRAPH_K:.3f} ms/step, {rate:.1f} "
+                f"examples/s, efficiency {rate / (ranks * base):.3f}; "
+                f"gradient all-reduce of {r['grad_mb']:.2f} MB "
+                f"{r['grad_ms'] * 1e3:.1f} us (CUDA events); an eager "
+                f"step's device time {r['device_us'] / 1e3:.3f} ms, NCCL "
+                f"kernels {r['nccl_n']:.0f} a step, {r['nccl_us']:.1f} us, "
+                f"{share:.4f} of it; less the gradient's all-reduce "
+                f"(the BN, chain-total and metric all-reduces) "
+                f"{rest:.1f} us, {rest / max(r['device_us'], 1e-9):.4f}")
+    return launches
+
+
+def check_scale_out(torch, check: Checks, log_dir: str, gpu: str) -> list:
+    """Phase 31: scale-out. 31a on every machine: two gloo ranks sharing
+    cuda:0 against one process; 31b: one NCCL rank; 31c where the machine
+    has more than one card. Returns the launches of each run."""
+    n = torch.cuda.device_count()
+    log(f"phase 31: data parallelism over ranks (torch.distributed) on "
+        f"{n} x {gpu}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs = [check_scale_steps(torch, check, log_dir, 2, "cuda:0", "gloo"),
+            check_one_rank_nccl(torch, check, log_dir)]
+    log(f"  phase 31a-b: {time.perf_counter() - t0:.1f} s")
+    if n >= 2:
+        t0 = time.perf_counter()
+        runs.append(check_multi_card(torch, check, log_dir, gpu, n))
+        log(f"  phase 31c: {time.perf_counter() - t0:.1f} s")
+    else:
+        log("  phase 31c: skipped, one card (it needs two or more)")
+    return runs
+
+
 def check_tensor_cores(_build, check: Checks) -> None:
     """Phase 1: in the built fused_mlp library's SASS, the bf16 dense
     pass's product and the bf16 dense backward's two are tensor-core
@@ -4297,6 +4773,13 @@ def main() -> int:
     _build.build_all()
     log(f"  built {len(_build.SOURCES)} sources ({', '.join(_build.SOURCES)})"
         f" in {time.perf_counter() - t0:.2f} s into {_build.BUILD_DIR.name}/")
+    # the Trainer's logs, in the checkout's git-ignored log/ directory
+    log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "log", "chip_smoke_train")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    if sys.argv[1:] == ["--phase", "31"]:
+        check_scale_out(torch, check, log_dir, gpu)
+        return finish(torch, check, t_start, gpu, None)
     for src in ("ball_query", "scatter", "three_nn", "fused_mlp"):
         log(f"  ptxas -v of csrc/{src}.cu (registers, shared memory, "
             "stack frame, spills):")
@@ -4425,10 +4908,6 @@ def main() -> int:
     for b in (16, 64):
         profile_forward(torch, predictors["bf16"], clouds, b)
 
-    # the Trainer's logs, in the checkout's git-ignored log/ directory
-    log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "log", "chip_smoke_train")
-    shutil.rmtree(log_dir, ignore_errors=True)
     check_scatter(torch, dev, check, errs)
     check_train_step(torch, dev, check, log_dir)
     fit = train_fit(torch, check, log_dir)
@@ -4500,23 +4979,31 @@ def main() -> int:
     remat = check_remat(torch, dev, check, log_dir, gpu, seg_batches)
     check_watchdog(torch, check, log_dir)
     normals = check_normal_txt(torch, check, log_dir)
+    scale_out = check_scale_out(torch, check, log_dir, gpu)
     # launches of each kernel over every main-path run (classifier serving,
     # training, sem_seg and part_seg serving, the MSG models' serving and
     # the MSG layers' other routes, the fused route's serving and
     # training, segmentation training, the resumed runs, the protocols,
     # the CLI journeys, the graphed epochs (a replay counts the launches
-    # recorded at its capture), the remat steps, the txt data's runs); the
-    # affine tail runs on no model path, so its phase-16 launches count
+    # recorded at its capture), the remat steps, the txt data's runs, the
+    # ranks' steps and epochs of phase 31); the affine tail runs on no
+    # model path, so its phase-16 launches count
     runs = [fit["counts"], seg["launches"][SEM], seg["launches"][PART],
             *msg["launches"].values(), *fused["launches"].values(),
             fused_fit, seg_fit, resume, protocols, journeys, graphed,
-            graph_resume, remat, normals]
+            graph_resume, remat, normals, *scale_out]
     launches = {k: launches[k] + sum(r[k] for r in runs) for k in REPLACES}
     launches["fused_affine"] += affine_launches
     check(all(launches[k] > 0 for k in REPLACES),
           "every kernel was launched in the main-path runs")
-    table = kernel_table(rows, launches, errs)
+    return finish(torch, check, t_start, gpu,
+                  kernel_table(rows, launches, errs))
 
+
+def finish(torch, check: Checks, t_start: float, gpu: str,
+           table: list | None) -> int:
+    """The run's verdict: the failed checks and exit code 1, or the GPU
+    line, the kernels line (a whole run's) and the last line."""
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if check.failed:
         log(f"FAILED: {len(check.failed)} check(s)")
@@ -4524,7 +5011,8 @@ def main() -> int:
             log(f"  {what}")
         return 1
     print(gpu)
-    print(json.dumps({"kernels": table}))
+    if table is not None:
+        print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

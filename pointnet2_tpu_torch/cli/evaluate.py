@@ -8,8 +8,17 @@ for ``sem_seg`` (scannet/train.py's eval passes). ``--out`` writes the
 JAX package's JSON record: ``model``, ``ckpt``, ``step``, ``num_votes``,
 ``metrics``. ``--device`` is ``cuda`` by default; ``cpu`` runs the plain
 PyTorch versions. ``--normal`` evaluates a classifier on the ModelNet
-txt data with normals (or 6-channel synthetic clouds), as in ``cli.train``;
-``--num_devices`` and ``--multihost`` raise, as there.
+txt data with normals (or 6-channel synthetic clouds), as in ``cli.train``.
+
+On several ranks (``--num_devices N``, N processes on this host; or
+``--multihost``, one rank of a torchrun job; JAX cli/evaluate.py:34-42,
+57-147) every rank restores the same checkpoint, scores its
+``process_shard`` of the test set at ``--batch_size`` / ranks a batch, and
+the protocols sum their counters over the ranks; the primary writes
+``--out``. The synthetic classification and part sets take no shard (as
+in the JAX package): each rank scores all of them, and every counter then
+counts each item once a rank, which leaves the metrics, all ratios, as
+they are.
 
 Usage:
   python -m pointnet2_tpu_torch.cli.evaluate --model pointnet2_cls_ssg \\
@@ -20,10 +29,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 import numpy as np
 
 from pointnet2_tpu_torch.models import MODEL_REGISTRY
+from pointnet2_tpu_torch.parallel import launch, multihost
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,13 +51,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_votes", type=int, default=12)
     p.add_argument("--normal", action="store_true")
     p.add_argument("--num_devices", type=int, default=None,
-                   help="not ported: one device")
+                   help="ranks: N > 1 starts N processes on this host, one "
+                        "a card, each scoring its shard of the test set")
     p.add_argument("--num_classes", type=int, default=None)
     p.add_argument("--model_kwargs", type=str, default=None,
                    help="JSON dict of extra model constructor kwargs "
                         "(must match the trained config)")
     p.add_argument("--multihost", action="store_true",
-                   help="not ported: one process")
+                   help="one rank of a torchrun job: --batch_size is the "
+                        "GLOBAL batch, the test set is sharded over ranks")
     p.add_argument("--out", default=None,
                    help="write the protocol metrics as JSON here")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -64,9 +77,35 @@ def _clean(v):
 
 
 def main(argv=None) -> None:
+    from pointnet2_tpu_torch.cli.train import check_ported
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
+    check_ported(args)
+    if (args.num_devices or 1) > 1 and not args.multihost:
+        rc = launch.spawn(run_rank, args.num_devices, device=args.device,
+                          args=(argv,))
+        if rc:
+            raise SystemExit(rc)
+        return
+    if args.multihost:
+        multihost.initialize(backend="gloo" if args.device == "cpu"
+                             else None)
+    evaluate(args)
+    if multihost.process_count() > 1:
+        launch.leave()
+
+
+def run_rank(argv: list[str]) -> None:
+    """One rank of ``--num_devices N`` (parallel.launch.spawn)."""
+    evaluate(build_parser().parse_args(argv))
+
+
+def evaluate(args) -> None:
     from pointnet2_tpu_torch.cli.train import (
         make_datasets,
         parse_model_kwargs,
+        rank_shard,
         whole_scene_dataset,
     )
     from pointnet2_tpu_torch.evaluation import (
@@ -78,11 +117,12 @@ def main(argv=None) -> None:
     from pointnet2_tpu_torch.train import TrainConfig, Trainer
     from pointnet2_tpu_torch.train import checkpoint as ckpt
 
-    args = build_parser().parse_args(argv)
     task = MODEL_REGISTRY[args.model].task
-    _, test_ds, _ = make_datasets(args, test_only=True)
+    local, shard = rank_shard(args, True)
+    _, test_ds, _ = make_datasets(local, test_only=True, shard=shard)
     config = TrainConfig(model=args.model, num_point=args.num_point,
-                         batch_size=args.batch_size, log_dir=args.log_dir,
+                         batch_size=args.batch_size,
+                         num_devices=args.num_devices, log_dir=args.log_dir,
                          model_kwargs=parse_model_kwargs(args, task))
     with Trainer(config, device=args.device) as trainer:
         state = ckpt.restore_checkpoint(args.log_dir, trainer.init_state(),
@@ -104,10 +144,10 @@ def main(argv=None) -> None:
             chopped = evaluate_scannet_chopped(logits_fn, test_ds, rng=0,
                                                log_fn=trainer.log)
             whole = evaluate_scannet_whole_scene(
-                logits_fn, whole_scene_dataset(args),
-                batch_size=args.batch_size, log_fn=trainer.log)
+                logits_fn, whole_scene_dataset(local, shard),
+                batch_size=local.batch_size, log_fn=trainer.log)
             results = {"chopped": chopped, "whole_scene": whole}
-        if args.out:
+        if args.out and multihost.is_primary():
             record = {"model": args.model, "ckpt": args.ckpt,
                       "step": state.step, "num_votes": args.num_votes,
                       "metrics": _clean(results)}

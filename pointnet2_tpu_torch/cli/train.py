@@ -8,11 +8,22 @@ checkpoint. ``--steps_per_call K`` trains K batches a CUDA graph replay,
 ``--remat`` checkpoints the forward, ``--watchdog_secs`` exits 75 on a
 stall (run under ``cli.supervise`` to resume), and ``--normal`` trains a
 classifier on xyz+normal clouds (the ModelNet txt data with the
-``cls_normals`` augmentation, or 6-channel synthetic clouds). Flags whose
-code is not ported yet raise ``NotImplementedError`` naming their
-ROADMAP.md item instead of running another configuration:
-``--num_devices`` and ``--multihost`` (item 6), ``--virtual_scan``
-(item 7).
+``cls_normals`` augmentation, or 6-channel synthetic clouds).
+
+Data parallelism (JAX cli/train.py:46,81-105,239-267):
+
+- ``--num_devices N`` starts N ranks on this host (``parallel.launch``:
+  NCCL on cards 0..N-1, gloo with ``--device cpu``). Every rank reads the
+  whole data set with the same seed and trains on its rows of each global
+  batch of ``--batch_size``; the sem_seg evaluation protocol scores each
+  rank's share of the test scenes and sums the counters. A rank's non-zero
+  exit code (the watchdog's 75) is this command's.
+- ``--multihost`` makes this process one rank of a group that torchrun
+  started (``multihost.initialize()`` from its environment): it loads its
+  ``process_shard`` of each data set, at ``--batch_size`` / ranks a batch.
+
+``--virtual_scan`` is not ported yet and raises ``NotImplementedError``
+naming its ROADMAP.md item instead of running another configuration.
 
 Usage:
   python -m pointnet2_tpu_torch.cli.train --model pointnet2_cls_ssg \\
@@ -22,21 +33,26 @@ Usage:
       --synthetic --num_point 8192 --max_epoch 10 --steps_per_call 4
   python -m pointnet2_tpu_torch.cli.train --model pointnet2_cls_ssg \\
       --normal --data data/modelnet40_normal_resampled
+  python -m pointnet2_tpu_torch.cli.train --synthetic --num_devices 4 \\
+      --batch_size 128 --steps_per_call 4
+  torchrun --nproc_per_node 4 -m pointnet2_tpu_torch.cli.train \\
+      --multihost --data data/modelnet40_ply_hdf5_2048 --batch_size 128
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
+import sys
 
 from pointnet2_tpu_torch.models import MODEL_REGISTRY
+from pointnet2_tpu_torch.parallel import launch, multihost
 
 # flag -> (the value that runs ported code, the ROADMAP.md item that ports
 # the rest)
 _NOT_PORTED = {
-    "num_devices": (None, "Queue 1 item 6 (scale-out)"),
-    "multihost": (False, "Queue 1 item 6 (scale-out)"),
     "virtual_scan": (False, "Queue 1 item 7 (ScannetDatasetVirtualScan)"),
 }
 
@@ -73,7 +89,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--normal", action="store_true",
                    help="use XYZ+normal input (txt dataset for cls)")
     p.add_argument("--num_devices", type=int, default=None,
-                   help="not ported: one device")
+                   help="data-parallel ranks: N > 1 starts N processes on "
+                        "this host, one a card")
     p.add_argument("--num_classes", type=int, default=None,
                    help="override the model's class count (e.g. sem_seg)")
     p.add_argument("--model_kwargs", type=str, default=None,
@@ -106,16 +123,32 @@ def build_parser() -> argparse.ArgumentParser:
                         "completes for this long; cli.supervise restarts "
                         "the run, which resumes (train/watchdog.py)")
     p.add_argument("--multihost", action="store_true",
-                   help="not ported: one process")
+                   help="one rank of a torchrun job: --batch_size is the "
+                        "GLOBAL batch, data is sharded over the ranks")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default) or cpu (the plain PyTorch "
                         "versions of the kernels)")
     return p
 
 
-def make_datasets(args, test_only: bool = False):
+def rank_shard(args, sharded: bool):
+    """(args with the rank's --batch_size, (rank, ranks)) when the data
+    sets are to be sharded over several ranks, else (args, None)."""
+    count = multihost.process_count()
+    if not sharded or count == 1:
+        return args, None
+    args = copy.copy(args)
+    args.batch_size = multihost.local_batch_size(args.batch_size)
+    return args, (multihost.process_index(), count)
+
+
+def make_datasets(args, test_only: bool = False, shard=None):
     """(train, eval, on-device augmentation name) for the model's task;
-    `test_only` skips loading the train split (None in its place)."""
+    `test_only` skips loading the train split (None in its place). With
+    ``shard=(rank, ranks)`` every reader that takes ``process_shard`` keeps
+    its share, the generated ScanNet scenes too (the synthetic
+    classification and part sets are every rank's, as in the JAX
+    package)."""
     check_ported(args)
     task = MODEL_REGISTRY[args.model].task
     if task == "cls":
@@ -134,18 +167,21 @@ def make_datasets(args, test_only: bool = False):
 
             train = None if test_only else ModelNetDataset(
                 args.data, batch_size=args.batch_size,
-                npoints=args.num_point, split="train")
+                npoints=args.num_point, split="train", process_shard=shard)
             test = ModelNetDataset(args.data, batch_size=args.batch_size,
-                                   npoints=args.num_point, split="test")
+                                   npoints=args.num_point, split="test",
+                                   process_shard=shard)
             return train, test, "cls_normals"
         from pointnet2_tpu_torch.data import ModelNetH5Dataset
 
         train = None if test_only else ModelNetH5Dataset(
             os.path.join(args.data, "train_files.txt"),
-            batch_size=args.batch_size, npoints=args.num_point)
+            batch_size=args.batch_size, npoints=args.num_point,
+            process_shard=shard)
         test = ModelNetH5Dataset(os.path.join(args.data, "test_files.txt"),
                                  batch_size=args.batch_size,
-                                 npoints=args.num_point, shuffle=False)
+                                 npoints=args.num_point, shuffle=False,
+                                 process_shard=shard)
         return train, test, "cls"
     if task in ("part_seg", "part_seg_one_hot"):
         if args.synthetic or args.data is None:
@@ -160,9 +196,10 @@ def make_datasets(args, test_only: bool = False):
 
         train = None if test_only else PartNormalDataset(
             args.data, npoints=args.num_point, split="trainval",
-            batch_size=args.batch_size)
+            batch_size=args.batch_size, process_shard=shard)
         test = PartNormalDataset(args.data, npoints=args.num_point,
-                                 split="test", batch_size=args.batch_size)
+                                 split="test", batch_size=args.batch_size,
+                                 process_shard=shard)
         return train, test, "none"
     # sem_seg
     from pointnet2_tpu_torch.data import ScannetDataset
@@ -174,22 +211,25 @@ def make_datasets(args, test_only: bool = False):
         train = ScannetDataset(scenes=make_synthetic_scenes(4),
                                npoints=args.num_point, split="train",
                                batch_size=args.batch_size,
-                               num_workers=workers)
+                               num_workers=workers, process_shard=shard)
         test = ScannetDataset(scenes=make_synthetic_scenes(2, seed=9),
                               npoints=args.num_point, split="test",
-                              batch_size=args.batch_size)
+                              batch_size=args.batch_size,
+                              process_shard=shard)
         return train, test, "scannet"
     train = None if test_only else ScannetDataset(
         root=args.data, npoints=args.num_point, split="train",
-        batch_size=args.batch_size, num_workers=workers)
+        batch_size=args.batch_size, num_workers=workers,
+        process_shard=shard)
     test = ScannetDataset(root=args.data, npoints=args.num_point,
-                          split="test", batch_size=args.batch_size)
+                          split="test", batch_size=args.batch_size,
+                          process_shard=shard)
     return train, test, "scannet"
 
 
-def whole_scene_dataset(args):
+def whole_scene_dataset(args, shard=None):
     """The whole-scene tiler over the test scenes (the pickle root or the
-    synthetic set)."""
+    synthetic set), ``shard``'s share of them."""
     from pointnet2_tpu_torch.data import ScannetDatasetWholeScene
 
     if args.synthetic or args.data is None:
@@ -197,9 +237,10 @@ def whole_scene_dataset(args):
 
         return ScannetDatasetWholeScene(
             scenes=make_synthetic_scenes(2, seed=9), npoints=args.num_point,
-            split="test", batch_size=args.batch_size)
+            split="test", batch_size=args.batch_size, process_shard=shard)
     return ScannetDatasetWholeScene(root=args.data, npoints=args.num_point,
-                                    split="test", batch_size=args.batch_size)
+                                    split="test", batch_size=args.batch_size,
+                                    process_shard=shard)
 
 
 def parse_model_kwargs(args, task) -> dict:
@@ -227,20 +268,53 @@ def parse_model_kwargs(args, task) -> dict:
 def make_sem_seg_eval_protocol(args, test_ds):
     """Whole-scene + calibrated-voxel-accuracy best-checkpoint selection
     (scannet/train.py:167-174): the chopped evaluation on `test_ds`, the
-    whole-scene one on the same scenes."""
+    whole-scene one on the same scenes. On several ranks each scores its
+    share of the scenes (the protocols sum their counters): under
+    ``--num_devices`` the chopped set is rebuilt sharded, since the one the
+    trainer cuts into rows is every rank's."""
     from pointnet2_tpu_torch.evaluation.scannet_eval import (
         make_scannet_eval_protocol,
     )
 
-    return make_scannet_eval_protocol(test_ds, whole_scene_dataset(args),
-                                      batch_size=args.batch_size)
+    local, shard = rank_shard(args, True)
+    if shard is not None and not args.multihost:
+        test_ds = make_datasets(local, test_only=True, shard=shard)[1]
+    return make_scannet_eval_protocol(test_ds,
+                                      whole_scene_dataset(local, shard),
+                                      batch_size=local.batch_size)
 
 
 def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
+    check_ported(args)
+    if (args.num_devices or 1) > 1 and not args.multihost:
+        rc = launch.spawn(run_rank, args.num_devices, device=args.device,
+                          args=(argv,))
+        if rc:
+            raise SystemExit(rc)
+        return
+    if args.multihost:
+        multihost.initialize(backend="gloo" if args.device == "cpu"
+                             else None)
+    train(args)
+    if multihost.process_count() > 1:
+        launch.leave()
+
+
+def run_rank(argv: list[str]) -> None:
+    """One rank of ``--num_devices N`` (parallel.launch.spawn)."""
+    train(build_parser().parse_args(argv))
+
+
+def train(args) -> None:
+    from pointnet2_tpu_torch.parallel.mesh import make_mesh
     from pointnet2_tpu_torch.train import TrainConfig, Trainer
 
-    args = build_parser().parse_args(argv)
-    train_ds, test_ds, augment = make_datasets(args)
+    local, shard = rank_shard(args, args.multihost)
+    train_ds, test_ds, augment = make_datasets(local, shard=shard)
+    mesh = (make_mesh(args.num_devices, args.device, host_sharded=True)
+            if shard is not None else None)
     task = MODEL_REGISTRY[args.model].task
     eval_every = args.eval_every
     if eval_every is None:
@@ -250,12 +324,13 @@ def main(argv=None) -> None:
         batch_size=args.batch_size, max_epoch=args.max_epoch,
         learning_rate=args.learning_rate, momentum=args.momentum,
         optimizer=args.optimizer, decay_step=args.decay_step,
-        decay_rate=args.decay_rate, augment=augment, log_dir=args.log_dir,
+        decay_rate=args.decay_rate, augment=augment,
+        num_devices=args.num_devices, log_dir=args.log_dir,
         eval_every=eval_every, compute_dtype=args.dtype,
         watchdog_secs=args.watchdog_secs, remat=args.remat,
         steps_per_call=args.steps_per_call,
         model_kwargs=parse_model_kwargs(args, task))
-    with Trainer(config, device=args.device) as trainer:
+    with Trainer(config, device=args.device, mesh=mesh) as trainer:
         trainer.log(f"config: {vars(args)}")
         eval_protocol = None
         if task == "sem_seg" and not args.no_whole_scene_eval:

@@ -12,7 +12,11 @@ Each transform is split in two: ``draw_<name>(generator, batch)`` draws its
 parameters from a ``torch.Generator`` on the batch's device, and
 ``<name>(batch, params)`` applies given parameters. ``torch`` and
 ``jax.random`` give different numbers from one seed, so tests hand both
-sides the same parameters. Rotations are float32 matmuls in full float32
+sides the same parameters. In a cross-replica train step (several ranks,
+nn/layers.py's ``cross_replica``) each draw is made for the global batch
+and the rank applies its own rows of it, so every rank's generator stays
+in step with the others' and with one process's on the same global batch.
+Rotations are float32 matmuls in full float32
 (TF32 off, ``config.disable_tf32``), row-vector convention (points @ R),
 normal-aware for 6-channel clouds.
 """
@@ -22,6 +26,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from pointnet2_tpu_torch.nn.layers import replica_rows
 
 
 def _rot_y(angles: torch.Tensor) -> torch.Tensor:
@@ -59,6 +65,7 @@ def _rot_xyz(angles: torch.Tensor) -> torch.Tensor:
 
 
 def _apply_rot(batch: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    R = R.to(batch.dtype)  # float32 draws rotate a float64 batch too
     parts = [batch[..., 0:3] @ R]
     if batch.shape[-1] >= 6:
         parts += [batch[..., 3:6] @ R, batch[..., 6:]]
@@ -167,9 +174,22 @@ CLS_CHAIN = (
 )
 
 
+# draws whose parameters every cloud shares (not one row a cloud)
+_SHARED = (draw_shuffle_points,)
+
+
 def _run_chain(chain, generator: torch.Generator, batch: torch.Tensor):
+    """Each transform of ``chain`` in order, its parameters drawn for the
+    global batch (a stand-in of the global shape: the draws read only the
+    shape and the device) and cut to this rank's rows."""
+    b = batch.shape[0]
+    off, total = replica_rows(b)
+    like = batch if total == b else batch[:1].expand(total, *batch.shape[1:])
     for draw, apply in chain:
-        batch = apply(batch, draw(generator, batch))
+        params = draw(generator, like)
+        if draw not in _SHARED:
+            params = params[off:off + b]
+        batch = apply(batch, params)
     return batch
 
 
@@ -190,6 +210,9 @@ def augment_cls_normals(generator: torch.Generator, batch: torch.Tensor):
     return _run_chain(CLS_NORMALS_CHAIN, generator, batch)
 
 
+SCANNET_CHAIN = ((draw_rotate_z, rotate_z),)
+
+
 def augment_scannet(generator: torch.Generator, batch: torch.Tensor):
     """A rotation about z only (scannet/train.py:230)."""
-    return rotate_z(batch, draw_rotate_z(generator, batch))
+    return _run_chain(SCANNET_CHAIN, generator, batch)

@@ -13,9 +13,9 @@ Port of pointnet2_tpu/data/modelnet.py:37-192, the reference's two readers:
   with ``epoch(augment=True)`` the chain ``augment_cls_batch_with_normals``.
 
 Both yield fixed-shape batches whose padded tail is marked by ``nvalid``.
-``h5py`` is imported when an HDF5 set is opened, not at import. Sharding
-over processes (``process_shard``) is not ported yet: ROADMAP.md Queue 1
-item 6.
+``h5py`` is imported when an HDF5 set is opened, not at import. With
+``process_shard=(rank, count)`` a reader keeps its contiguous share of the
+items, by ``parallel.multihost.shard_bounds`` (JAX modelnet.py:28-35,85).
 """
 
 from __future__ import annotations
@@ -26,6 +26,15 @@ from collections.abc import Iterator
 import numpy as np
 
 from pointnet2_tpu_torch.data import augment as A
+from pointnet2_tpu_torch.parallel.multihost import shard_bounds
+
+
+def host_slice(n: int, shard: tuple[int, int] | None) -> slice:
+    """The contiguous slice of n items that shard=(rank, count) owns; all
+    of them without a shard."""
+    if shard is None:
+        return slice(None)
+    return slice(*shard_bounds(n, *shard))
 
 
 def pc_normalize(pc: np.ndarray) -> np.ndarray:
@@ -59,7 +68,8 @@ class ModelNetH5Dataset:
     train_files.txt); a relative name is looked up beside the list."""
 
     def __init__(self, list_filename: str, batch_size: int = 32,
-                 npoints: int = 1024, shuffle: bool = True, seed: int = 0):
+                 npoints: int = 1024, shuffle: bool = True, seed: int = 0,
+                 process_shard: tuple[int, int] | None = None):
         import h5py  # deferred: only needed for the real dataset
 
         self.batch_size = batch_size
@@ -78,6 +88,8 @@ class ModelNetH5Dataset:
                 label.append(np.asarray(h5["label"][:], np.int32).reshape(-1))
         self.data = np.concatenate(data, 0)
         self.label = np.concatenate(label, 0)
+        sl = host_slice(len(self.label), process_shard)
+        self.data, self.label = self.data[sl], self.label[sl]
 
     def __len__(self):
         return self.data.shape[0]
@@ -106,13 +118,6 @@ class ModelNetH5Dataset:
                    "nvalid": nvalid}
 
 
-def _no_shard(process_shard) -> None:
-    if process_shard is not None:
-        raise NotImplementedError(
-            f"process_shard={process_shard!r}: sharding over processes is "
-            "not ported yet (ROADMAP.md Queue 1 item 6)")
-
-
 class ModelNetDataset:
     """Resampled-txt ModelNet reader with optional normals (10k points a
     shape).
@@ -132,7 +137,6 @@ class ModelNetDataset:
                  modelnet10: bool = False, cache_size: int = 15000,
                  shuffle: bool | None = None, seed: int = 0,
                  process_shard: tuple[int, int] | None = None):
-        _no_shard(process_shard)
         self.root = root
         self.batch_size = batch_size
         self.npoints = npoints
@@ -149,6 +153,8 @@ class ModelNetDataset:
         for sid in ids:
             cls = "_".join(sid.split("_")[:-1])
             self.datapath.append((cls, os.path.join(root, cls, sid + ".txt")))
+        self.datapath = self.datapath[host_slice(len(self.datapath),
+                                                 process_shard)]
         self.cache_size = cache_size
         self._cache: dict[int, tuple[np.ndarray, np.int32]] = {}
 

@@ -25,8 +25,9 @@ pickled lists) or from an in-memory list of (points, labels). The random
 streams are ``np.random.default_rng``'s, drawn in the JAX package's order,
 so the same seed gives the same batches.
 
-Not ported yet: ``ScannetDatasetVirtualScan``, and multi-host sharding
-(``process_shard``), which raises.
+``process_shard=(rank, count)`` keeps a process's contiguous share of the
+scenes after the class weights are computed on all of them (JAX
+scannet.py:87-92). Not ported yet: ``ScannetDatasetVirtualScan``.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from collections.abc import Iterator
 
 import numpy as np
 
-from pointnet2_tpu_torch.data.modelnet import _pad_batch
+from pointnet2_tpu_torch.data.modelnet import _pad_batch, host_slice
 from pointnet2_tpu_torch.utils.prefetch import parallel_map
 
 NUM_CLASSES = 21
@@ -99,9 +100,6 @@ class _ScannetBase:
                  split: str = "train", scenes=None, batch_size: int = 16,
                  seed: int = 0, process_shard: tuple[int, int] | None = None,
                  num_workers: int = 0):
-        if process_shard is not None:
-            raise NotImplementedError("process_shard (multi-host sharding) "
-                                      "is not ported yet")
         if scenes is not None:
             pts = [p for p, _ in scenes]
             lbl = [l for _, l in scenes]
@@ -130,6 +128,11 @@ class _ScannetBase:
                 self.semantic_labels_list)
         else:
             self.labelweights = np.ones(NUM_CLASSES, np.float32)
+        # the class weights are the whole train set's; then each process
+        # keeps its shard of the scenes (JAX scannet.py:87-92)
+        sl = host_slice(len(self.scene_points_list), process_shard)
+        self.scene_points_list = self.scene_points_list[sl]
+        self.semantic_labels_list = self.semantic_labels_list[sl]
 
     def __len__(self):
         return len(self.scene_points_list)

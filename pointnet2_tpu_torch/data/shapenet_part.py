@@ -13,8 +13,9 @@ int32, ``cls_label`` (B,) int32 and ``nvalid``. Both draw from
 ``np.random.default_rng`` streams in the JAX package's order, so the same
 seed gives the same batches.
 
-Not ported yet: the older ``PartDataset`` (.pts/.seg files), and
-multi-host sharding (``process_shard``), which raises.
+``process_shard=(rank, count)`` keeps a process's contiguous share of the
+shapes (JAX shapenet_part.py:89-93). Not ported yet: the older
+``PartDataset`` (.pts/.seg files).
 """
 
 from __future__ import annotations
@@ -25,7 +26,11 @@ from collections.abc import Iterator
 
 import numpy as np
 
-from pointnet2_tpu_torch.data.modelnet import _pad_batch, pc_normalize
+from pointnet2_tpu_torch.data.modelnet import (
+    _pad_batch,
+    host_slice,
+    pc_normalize,
+)
 
 
 def _zero_part_batch(batch_size: int, npoints: int) -> dict:
@@ -67,9 +72,6 @@ class PartNormalDataset:
                  normalize: bool = True, batch_size: int = 16,
                  shuffle: bool | None = None, cache_size: int = 20000,
                  seed: int = 0, process_shard: tuple[int, int] | None = None):
-        if process_shard is not None:
-            raise NotImplementedError("process_shard (multi-host sharding) "
-                                      "is not ported yet")
         self.root = root
         self.npoints = npoints
         self.normalize = normalize
@@ -95,6 +97,8 @@ class PartNormalDataset:
                 if os.path.splitext(fn)[0] in wanted:
                     self.datapath.append((item, os.path.join(d, fn)))
         self.classes = {cat: i for i, cat in enumerate(self.cat)}
+        self.datapath = self.datapath[host_slice(len(self.datapath),
+                                                 process_shard)]
         self.cache_size = cache_size
         self._cache: dict[int, tuple] = {}
 

@@ -3,8 +3,8 @@
 The port's copy of pointnet2_tpu/evaluation/lockstep.py. Processes agree on
 the largest per-process batch count, and a process that runs out feeds
 zero batches with nvalid=0, built from the dataset's shape metadata
-(``dataset.zero_batch()``), which add nothing to the counters. With the
-port's single-process ``multihost`` the count is the dataset's own.
+(``dataset.zero_batch()``), which add nothing to the counters. With one
+process the count is the dataset's own.
 """
 
 from __future__ import annotations

@@ -69,10 +69,25 @@ class PartSegMetrics:
             self.shape_ious[cat].append(float(np.mean(part_ious)))
 
     def allreduced(self) -> "PartSegMetrics":
-        """The metrics summed over the processes: with one, this object;
-        with more, ``multihost`` raises (not ported yet)."""
-        multihost.process_count()
-        return self
+        """The metrics summed over the processes (this object with one),
+        as pointnet2_tpu/evaluation/part_miou.py:81-99: the per-shape IoUs
+        reduce as (sum, count) per category, which keeps both the category
+        means and each shape's weight in the all-shapes mean."""
+        if multihost.process_count() == 1:
+            return self
+        cats = sorted(SEG_CLASSES)
+        per_cat = multihost.allreduce_sum(np.array(
+            [[float(np.sum(self.shape_ious[c])), len(self.shape_ious[c])]
+             for c in cats], np.float64))
+        out = PartSegMetrics()
+        for (total, n), c in zip(per_cat, cats):
+            out.shape_ious[c] = [total / n] * int(n) if n else []
+        scalars = multihost.allreduce_sum(np.array(
+            [self.total_correct, self.total_seen], np.int64))
+        out.total_correct, out.total_seen = int(scalars[0]), int(scalars[1])
+        out.seen_class = multihost.allreduce_sum(self.seen_class)
+        out.correct_class = multihost.allreduce_sum(self.correct_class)
+        return out
 
     def result(self, log_fn=print) -> dict:
         cat_miou = {c: float(np.mean(v)) for c, v in self.shape_ious.items()

@@ -145,10 +145,11 @@ def evaluate_scannet_whole_scene(eval_logits_fn, whole_scene_dataset,
     """Whole-scene sliding-block evaluation (scannet/train.py:326-427).
     Blocks are batched `batch_size` at a time; the last batch is padded by
     repeating its last block, and only its real rows count. Returns the
-    metrics, ``calibrated_accuracy_vox`` the headline number."""
-    # several processes would pad their dispatch counts to one another's
-    # (not ported): refuse them before the pass, not after it
-    multihost.process_count()
+    metrics, ``calibrated_accuracy_vox`` the headline number. On several
+    processes each scores the blocks of its own scenes and the counters are
+    summed: the port's eval forward holds no collective, so a process with
+    fewer blocks feeds no dummy batches (JAX scannet_eval.py:185-195 must,
+    its forward being one program over every process)."""
     metrics = ScanNetMetrics()
     block_pts, block_seg, block_w = [], [], []
 

@@ -21,7 +21,12 @@ import torch
 from torch import nn
 
 from pointnet2_tpu_torch import config
-from pointnet2_tpu_torch.nn.layers import DenseBN, init_dense, taped_mask
+from pointnet2_tpu_torch.nn.layers import (
+    DenseBN,
+    init_dense,
+    replica_rows,
+    taped_mask,
+)
 from pointnet2_tpu_torch.nn.pointnet import SetAbstraction
 
 
@@ -29,7 +34,9 @@ class Dropout(nn.Module):
     """Inverted dropout as flax.linen.Dropout: in train mode keep each
     element with probability 1-rate and scale it by 1/(1-rate), else zero
     it. The keep mask comes from :meth:`keep_mask` (``torch.rand`` on the
-    given generator; ``F.dropout`` takes none)."""
+    given generator; ``F.dropout`` takes none), drawn for the global batch
+    of a cross-replica step, of which this rank keeps its rows
+    (nn/layers.py's ``replica_rows``)."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -42,8 +49,13 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        keep = taped_mask(lambda: self.keep_mask(x.shape, x.device,
-                                                 generator))
+        off, total = replica_rows(x.shape[0])
+
+        def draw():
+            keep = self.keep_mask((total, *x.shape[1:]), x.device, generator)
+            return keep[off:off + x.shape[0]]
+
+        keep = taped_mask(draw)
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 

@@ -19,6 +19,17 @@ Port of pointnet2_tpu/nn/layers.py:48-134,137-329. Parity notes:
   package, and is read only in train mode: a number, or a 0-d float32
   tensor holding the same float32 value (what a CUDA graph of the train
   step passes, so that each replay reads its step's momentum).
+- Cross-replica BN (``cross_replica``, pointnet2_tpu/nn/layers.py:28-62):
+  while a data-parallel train step runs its forward and backward under a
+  mesh of several ranks, train-mode BN averages its (mean, mean square)
+  over the ranks before forming the variance, with one all-reduce of the
+  stacked (2, C) statistics, so the step normalises as one global batch
+  would. The average's backward averages the cotangent the same way: with
+  L = (1/N) sum_j L_j and m the average, rank i's cotangent for its local
+  statistics is (1/N) sum_j dL_j/dm, which makes the averaged gradient the
+  global batch's. Dropout (models/cls_ssg.py) and the on-device
+  augmentation draw for the global batch and keep the rank's rows
+  (``replica_rows``).
 - Rematerialisation (``RematTape``): a checkpointed forward runs twice, once
   in the forward and again inside the backward. The second run must not
   fold its batch statistics into the running ones again, nor draw other
@@ -40,6 +51,7 @@ from torch import nn
 from pointnet2_tpu_torch import config
 from pointnet2_tpu_torch.ops import fused_mlp
 from pointnet2_tpu_torch.ops.pooling import max_pool
+from pointnet2_tpu_torch.parallel.mesh import collective
 
 
 class Dense(nn.Linear):
@@ -86,14 +98,56 @@ def _stat_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
+_REPLICA: list = [None]  # the mesh of the running data-parallel step
+
+
+@contextlib.contextmanager
+def cross_replica(mesh):
+    """Run a train step's forward and backward as one rank of ``mesh``
+    (parallel/mesh.py): train-mode BN averages its statistics over the
+    ranks, and dropout masks and augmentation parameters are drawn for the
+    global batch, of which this rank keeps its rows. A mesh without a
+    process group (one process) changes nothing."""
+    _REPLICA.append(collective(mesh))
+    try:
+        yield
+    finally:
+        _REPLICA.pop()
+
+
+def replica_rows(b: int) -> tuple[int, int]:
+    """(this rank's first row, the global row count) of a batch of ``b``
+    rows a rank; (0, b) outside a cross-replica step."""
+    mesh = _REPLICA[-1]
+    return (0, b) if mesh is None else mesh.rows(b)
+
+
+class _ReplicaMean(torch.autograd.Function):
+    """The average over the ranks, whose backward averages the cotangent
+    over the ranks (JAX's pmean and its transpose)."""
+
+    @staticmethod
+    def forward(ctx, mesh, t):
+        ctx.mesh = mesh
+        return mesh.mean(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.mesh.mean(g)
+
+
 def _batch_stats(x: torch.Tensor):
     """Batch mean and biased var over all axes but the last, in at least
-    float32, as pointnet2_tpu/nn/layers.py:48-62 (single device: no
-    cross-replica average yet)."""
+    float32, as pointnet2_tpu/nn/layers.py:48-62: (mean, mean square)
+    averaged over the ranks of a cross-replica step before the variance."""
     xf = x.to(_stat_dtype(x))
     dims = tuple(range(x.dim() - 1))
     mean = xf.mean(dim=dims)
     meansq = xf.square().mean(dim=dims)
+    mesh = _REPLICA[-1]
+    if mesh is not None:
+        mean, meansq = _ReplicaMean.apply(
+            mesh, torch.stack([mean, meansq])).unbind(0)
     return mean, torch.clamp_min(meansq - mean.square(), 0.0)
 
 
@@ -343,7 +397,7 @@ class SharedMLP(nn.Module):
             if i > 0:
                 denses.append((block.dense.weight, block.dense.bias))
         cfg = fused_mlp.ChainConfig(eps=self.blocks[0].norm.epsilon,
-                                    pool=pool)
+                                    pool=pool, replica=_REPLICA[-1])
         if self.training:
             out, stats = fused_mlp.fused_chain_train(cfg, x, denses, scales,
                                                      biases)

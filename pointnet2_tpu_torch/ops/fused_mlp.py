@@ -52,11 +52,23 @@ _ACT = (torch.float32, torch.bfloat16)
 
 
 class ChainConfig(NamedTuple):
-    """Static chain description (the cross-replica BN axis of the JAX
-    package comes with scale-out)."""
+    """Static chain description. ``replica`` is the mesh of a cross-replica
+    train step (parallel/mesh.py; JAX's ``axis_name``): the train chain
+    then averages each BN's (mean, mean square) and the backward's T1/T2
+    means over its ranks (pointnet2_tpu/ops/pallas/fused_mlp.py:501-526,
+    573-580). None: one process, no collective."""
 
     eps: float
     pool: bool  # max-pool over the S axis in the epilogue
+    replica: object = None
+
+
+def _sync(cfg: ChainConfig, u: torch.Tensor, v: torch.Tensor):
+    """(u, v) averaged over ``cfg.replica``'s ranks by one all-reduce of
+    the stacked pair; themselves without a replica."""
+    if cfg.replica is None:
+        return u, v
+    return cfg.replica.mean(torch.stack([u, v])).unbind(0)
 
 
 def _affine_relu(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
@@ -649,13 +661,13 @@ class _ChainTrain(torch.autograd.Function):
         n = B * M * S
         x2d = x.reshape(n, C0)
         xf = x2d.float()
-        mean, meansq = xf.mean(0), xf.square().mean(0)
+        mean, meansq = _sync(cfg, xf.mean(0), xf.square().mean(0))
         means, vars_ = [mean], [torch.clamp_min(meansq - mean.square(), 0.0)]
         ys = [x2d]
         a, b = bn_affine(scales[0], biases[0], means[0], vars_[0], cfg.eps)
         for k, (w, bias) in enumerate(denses):
             y, s, ss = dense_fwd(ys[-1], a, b, w, bias, want_stats=True)
-            mean, meansq = s / n, ss / n  # the kernel's sums, as JAX
+            mean, meansq = _sync(cfg, s / n, ss / n)  # the kernel's sums
             means.append(mean)
             vars_.append(torch.clamp_min(meansq - mean.square(), 0.0))
             ys.append(y)
@@ -680,7 +692,13 @@ class _ChainTrain(torch.autograd.Function):
         scales, biases = rest[3 * D + 2:4 * D + 3], rest[4 * D + 3:]
 
         def pack(j, t1=None, t2=None):
-            # m1, m2: the means of the totals over the batch's rows
+            # m1, m2: the means of the totals over the batch's rows; over
+            # every rank's rows in a cross-replica step (the average of the
+            # totals over n local rows is the global sum over the global
+            # rows). The local totals themselves become d_biases/d_scales:
+            # the step's gradient average covers them.
+            if t1 is not None:
+                t1, t2 = _sync(cfg, t1, t2)
             return bn_pack(scales[j], biases[j], means[j], vars_[j], cfg.eps,
                            None if t1 is None else t1 / n,
                            None if t2 is None else t2 / n)

@@ -1,1 +1,3 @@
-"""Multi-process coordination of the port (single-process form only)."""
+"""Multi-process data parallelism of the port: the mesh of ranks
+(``mesh``), the host-side helpers (``multihost``) and the launcher
+(``launch``)."""

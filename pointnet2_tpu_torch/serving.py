@@ -17,7 +17,13 @@ Port of pointnet2_tpu/serving.py:42-337:
 - the one-hot part segmenter takes each cloud's category label beside it,
   padded and chunked with the points;
 - ``from_checkpoint`` serves a ``Trainer`` checkpoint
-  (train/checkpoint.py).
+  (train/checkpoint.py);
+- ``num_devices=N`` (pointnet2_tpu/serving.py:60-100) keeps one replica of
+  the model on each of ``cuda:0`` .. ``cuda:N-1``; buckets round up to
+  multiples of N, each padded batch is cut into N row shards, each shard
+  runs on its card (all launched before any is read back) and the shards
+  are put back in order. With ``device="cpu"`` the N shards run one after
+  another on the CPU.
 
 Usage::
 
@@ -38,6 +44,7 @@ Usage::
 
 from __future__ import annotations
 
+import copy
 from collections.abc import Sequence
 
 import numpy as np
@@ -84,17 +91,33 @@ class Predictor:
         bucket that fits; larger requests run in chunks of the largest.
     device: CUDA by default; without a card that raises. ``"cpu"`` runs the
         plain PyTorch versions of the kernels.
+    num_devices: shard each padded batch over this many cards (replicas on
+        ``cuda:0`` .. ``cuda:N-1``; fewer cards raise), bucket sizes rounded
+        up to multiples of it; on the CPU the shards run in turn.
     model_kwargs: forwarded to the model constructor (e.g. num_classes).
     """
 
     def __init__(self, model_name: str, variables=None, *,
                  dtype=torch.bfloat16,
                  buckets: Sequence[int] = _DEFAULT_BUCKETS, device="cuda",
-                 seed: int = 0, **model_kwargs):
+                 seed: int = 0, num_devices: int = 1, **model_kwargs):
         spec = get_spec(model_name)
         self.task = spec.task
         self.model_name = model_name
         self.device = config.check_device(device)
+        if num_devices < 1:
+            raise ValueError(f"num_devices must be at least 1, got "
+                             f"{num_devices}")
+        if num_devices > 1:
+            # every padded batch shards over the devices
+            buckets = [-(-b // num_devices) * num_devices for b in buckets]
+            if self.device.type == "cuda":
+                if num_devices > torch.cuda.device_count():
+                    raise ValueError(
+                        f"num_devices={num_devices} on a host with "
+                        f"{torch.cuda.device_count()} card(s)")
+                self.device = torch.device("cuda", 0)
+        self.num_devices = num_devices
         self._buckets = tuple(sorted(set(buckets)))
         model = spec.cls(dtype=dtype, device=self.device, seed=seed,
                          **model_kwargs)
@@ -103,6 +126,12 @@ class Predictor:
                 variables = flax_to_torch(variables, model)
             model.load_state_dict(variables, strict=True)
         self._model = model.eval()
+        # one replica a shard: a copy on each further card; on the CPU the
+        # one model serves every shard
+        self._replicas = [self._model] + [
+            copy.deepcopy(self._model).to(torch.device("cuda", i))
+            if self.device.type == "cuda" else self._model
+            for i in range(1, num_devices)]
 
     @property
     def model(self) -> torch.nn.Module:
@@ -130,10 +159,18 @@ class Predictor:
     def _run_padded(self, points: np.ndarray,
                     cls_label: np.ndarray | None) -> np.ndarray:
         b = points.shape[0]
-        args = [torch.from_numpy(self._pad(points)).to(self.device)]
+        inputs = [self._pad(points)]
         if cls_label is not None:
-            args.append(torch.from_numpy(self._pad(cls_label)).to(self.device))
-        return self._model(*args).float().cpu().numpy()[:b]
+            inputs.append(self._pad(cls_label))
+        n = len(self._replicas)
+        shard = inputs[0].shape[0] // n
+        outs = []
+        for i, model in enumerate(self._replicas):
+            dev = next(model.parameters()).device
+            args = [torch.from_numpy(np.ascontiguousarray(
+                a[i * shard:(i + 1) * shard])).to(dev) for a in inputs]
+            outs.append(model(*args).float())
+        return np.concatenate([o.cpu().numpy() for o in outs])[:b]
 
     def __call__(self, points, cls_label=None) -> np.ndarray:
         """points: (B, N, C) float; cls_label: (B,) int, the object
@@ -189,10 +226,11 @@ class Predictor:
         vote, shuffle the point order (diversifies FPS) and rotate about
         the up axis by vote/num_votes * 2pi, then sum.
 
-        Default (`on_device=True`): the batch is padded to a bucket and
-        uploaded once with the (V, N) permutations; views, model and the
-        vote sum run on the card. With `on_device=False` the V views are
-        stacked on the host and stream through the bucketed path. Both
+        Default (`on_device=True`, one device): the batch is padded to a
+        bucket and uploaded once with the (V, N) permutations; views, model
+        and the vote sum run on the card. With `on_device=False` (or with
+        ``num_devices`` > 1) the V views are stacked on the host and stream
+        through the bucketed path, sharded over the devices. Both
         draw one ``rng.permutation(N)`` per vote, in order."""
         from pointnet2_tpu_torch.evaluation.cls_vote import vote_logits
 
@@ -201,7 +239,7 @@ class Predictor:
         pts = np.asarray(points, np.float32)
         rng = rng if isinstance(rng, np.random.Generator) else \
             np.random.default_rng(rng)
-        if not on_device or pts.shape[0] == 0:
+        if not on_device or self.num_devices > 1 or pts.shape[0] == 0:
             return vote_logits(self, pts, num_votes, rng)
         B, N = pts.shape[:2]
         perms = torch.from_numpy(
@@ -290,7 +328,7 @@ class Predictor:
         """Serve checkpoint ``name`` of a ``Trainer`` run in ``ckpt_dir``:
         its model ``state_dict`` loads into a Predictor built with
         ``kwargs`` (``dtype``, ``buckets``, ``device``: CUDA unless
-        ``device="cpu"``, model kwargs). ``num_point``, ``in_channels``
+        ``device="cpu"``, ``num_devices``, model kwargs). ``num_point``, ``in_channels``
         and ``optimizer`` describe the training run as in the JAX
         package's signature, which needs them for its restore template;
         the torch format stores the state itself and needs none."""

@@ -20,6 +20,11 @@ it with ``weights_only=True``. The sidecar ``<name>.meta.json`` holds
 derive them from the step, and the best checkpoint's selection score, so a
 resumed run's first eval cannot overwrite a better best checkpoint.
 
+On several ranks the primary writes and every rank waits at a barrier
+after the write; every rank restores the same file onto its own device.
+The generators of all ranks hold the same state (each draws for the global
+batch), so one file resumes them all.
+
 Overwriting is crash-safe: the new checkpoint is written to
 ``<name>.new``, then two renames swap it in through ``<name>.old``; a
 crash between them leaves ``<name>.old``, which ``load_meta``,
@@ -90,7 +95,10 @@ def _recover_interrupted_swap(path: str) -> None:
     but no `<name>`: promote the previous generation back."""
     old = path + ".old"
     if not os.path.isdir(path) and os.path.isdir(old):
-        os.rename(old, path)
+        try:
+            os.rename(old, path)
+        except FileNotFoundError:  # another rank promoted it first
+            pass
 
 
 def read_checkpoint(directory: str, name: str = "ckpt",

@@ -1,8 +1,8 @@
-"""The single-device train step and the eval count step.
+"""The data-parallel train step and the eval count step.
 
 Port of pointnet2_tpu/train/steps_body.py:19-136 and train/steps.py:41-46,
-127-170 on one device (the data-parallel mesh and its cross-replica
-averages are not ported yet), for every task of the registry:
+127-185, for every task of the registry, on one rank of a mesh
+(parallel/mesh.py) or on one device:
 
 - ``run_one_step``: on-device augmentation, the BN momentum of the current
   step, the train-mode forward (batch-statistics BN, dropout), the loss
@@ -22,6 +22,19 @@ per-example ``mask`` (B,) is broadcast over the points.
 
 Both take batches of tensors already on the model's device; the returned
 metrics stay there too (no host sync inside a step).
+
+On a mesh of several ranks (JAX's ``shard_map`` step; each rank holds its
+rows of the global batch) the step runs its forward and backward under
+``nn.layers.cross_replica``: BN statistics and the fused chain's totals are
+averaged over the ranks, and the augmentation and dropout draw for the
+global batch from generators that stay in step on every rank. A masked
+batch's valid count ``den`` is averaged before ``num / max(den, 1e-8)``
+(a rank may hold only padding, steps_body.py:101-115); the gradients are
+averaged after the backward by one all-reduce of a flat float32 buffer
+(not DDP, whose reducer hooks a CUDA graph does not capture), and the loss
+and accuracy are averaged too. ``eval_counts`` sums its counts over the
+ranks. The step then equals one process's step on the global batch up to
+the collectives' summation order.
 
 Two switches of the JAX package's step (steps.py:91-125, steps_body.py:
 56-67,118-121) are ported here:
@@ -44,6 +57,11 @@ Two switches of the JAX package's step (steps.py:91-125, steps_body.py:
   The recompute replays the forward's dropout masks and skips BN's running
   update (``nn.layers.RematTape``), so every policy equals ``none`` bit for
   bit.
+
+On a mesh the graph captures the step's collectives, which needs NCCL: the
+eager warm-up step runs each of them once, so that NCCL's communicator
+exists before the capture. A group of another backend on the card raises
+(gloo's collectives synchronise with the host and cannot be captured).
 """
 
 from __future__ import annotations
@@ -62,7 +80,8 @@ from pointnet2_tpu_torch.data.augment_device import (
     augment_cls_normals,
     augment_scannet,
 )
-from pointnet2_tpu_torch.nn.layers import RematTape, remat_tape
+from pointnet2_tpu_torch.nn.layers import RematTape, cross_replica, remat_tape
+from pointnet2_tpu_torch.parallel.mesh import collective
 from pointnet2_tpu_torch.train.state import TrainState, upload_scalars
 
 AUGMENTATIONS: dict[str, Callable | None] = {
@@ -92,11 +111,13 @@ def loss_args(batch: dict, task: str) -> tuple:
                      "part_seg_one_hot, sem_seg")
 
 
-def accuracy(logits: torch.Tensor, batch: dict,
-             task: str = "cls") -> torch.Tensor:
+def accuracy(logits: torch.Tensor, batch: dict, task: str = "cls",
+             mesh=None) -> torch.Tensor:
     """Mean of argmax == target (``label`` for cls, else ``seg`` per
     point), over the rows (and their points) with mask 1 when a mask is
-    given (steps_body.py:36-53)."""
+    given (steps_body.py:36-53). On a mesh the valid count is averaged over
+    the ranks, so that the caller's average of the ranks' accuracies is
+    the global batch's."""
     target = batch["label"] if task == "cls" else batch["seg"]
     hit = (logits.argmax(-1) == target).float()
     mask = batch.get("mask")
@@ -106,6 +127,8 @@ def accuracy(logits: torch.Tensor, batch: dict,
         mask = mask[..., None]
     num = (hit * mask).sum()
     den = mask.expand_as(hit).sum()
+    if collective(mesh) is not None:
+        den = mesh.mean(den)
     return num / torch.clamp_min(den, 1e-8)
 
 
@@ -160,42 +183,63 @@ def step_scalars(state: TrainState, bn_momentum_fn: Callable,
     ]).astype(np.float32)
 
 
+def average_gradients(mesh, params) -> None:
+    """Each parameter's gradient replaced by its average over the ranks:
+    one all-reduce of every gradient packed into one flat float32 buffer."""
+    grads = [p.grad for p in params]
+    flat = mesh.mean(torch.cat([g.reshape(-1) for g in grads]))
+    torch._foreach_copy_(grads, [v.view_as(g) for v, g in zip(
+        flat.split([g.numel() for g in grads]), grads)])
+
+
 def run_one_step(state: TrainState, batch: dict, loss_fn: Callable,
                  bn_momentum_fn: Callable, augment_fn: Callable | None = None,
                  generator: torch.Generator | None = None,
                  task: str = "cls", remat: str = "none",
-                 scalars: torch.Tensor | None = None) -> dict:
+                 scalars: torch.Tensor | None = None, mesh=None) -> dict:
     """One forward/backward/optimizer step, in place on ``state``.
 
     batch: ``points`` (B, N, C) f32, the task's targets (module doc),
-    optional ``mask`` (B,) f32 of valid rows. ``scalars``: the step's
+    optional ``mask`` (B,) f32 of valid rows; on a mesh of several ranks
+    this rank's rows of the global batch. ``scalars``: the step's
     ``step_scalars`` on the device (None uploads them). Returns {"loss",
-    "accuracy"} as 0-dim tensors on the device."""
+    "accuracy"} as 0-dim tensors on the device, averaged over the ranks."""
     model, opt = state.model, state.optimizer
+    mesh = collective(mesh)
     if scalars is None:
         scalars = upload_scalars(step_scalars(state, bn_momentum_fn),
                                  batch["points"].device)
-    if augment_fn is not None:
-        batch = dict(batch, points=augment_fn(generator, batch["points"]))
     model.train()
-    logits = _forward(model, model_inputs(batch, task), scalars[0],
-                      generator, remat)
-    # `mask` zeroes the duplicated rows of a padded final batch out of the
-    # loss and gradients; BN batch statistics still see them. A batch whose
-    # every weight is zero gives num = 0 and a loss of 0.
-    mask = batch.get("mask")
-    if mask is None:
-        loss = loss_fn(logits, *loss_args(batch, task))
-    else:
-        num, den = loss_fn(logits, *loss_args(batch, task),
-                           sample_weight=mask, sum_count=True)
-        loss = num / torch.clamp_min(den, 1e-8)
-    opt.zero_grad()
-    loss.backward()
+    # the backward too: a checkpointed forward runs again inside it
+    with cross_replica(mesh):
+        if augment_fn is not None:
+            batch = dict(batch, points=augment_fn(generator, batch["points"]))
+        logits = _forward(model, model_inputs(batch, task), scalars[0],
+                          generator, remat)
+        # `mask` zeroes the duplicated rows of a padded final batch out of
+        # the loss and gradients; BN batch statistics still see them. A
+        # batch whose every weight is zero gives num = 0 and a loss of 0.
+        mask = batch.get("mask")
+        if mask is None:
+            loss = loss_fn(logits, *loss_args(batch, task))
+        else:
+            num, den = loss_fn(logits, *loss_args(batch, task),
+                               sample_weight=mask, sum_count=True)
+            if mesh is not None:
+                # the mean valid count a rank: the ranks' average of
+                # num / den is then the global masked mean
+                den = mesh.mean(den)
+            loss = num / torch.clamp_min(den, 1e-8)
+        opt.zero_grad()
+        loss.backward()
+    acc = accuracy(logits.detach(), batch, task, mesh)
+    loss = loss.detach()
+    if mesh is not None:
+        average_gradients(mesh, opt.params)
+        loss, acc = mesh.mean(torch.stack([loss, acc])).unbind(0)
     opt.step(scalars[1:])
     state.step += 1
-    return {"loss": loss.detach(),
-            "accuracy": accuracy(logits.detach(), batch, task)}
+    return {"loss": loss, "accuracy": acc}
 
 
 class TrainMultiStep:
@@ -216,18 +260,27 @@ class TrainMultiStep:
     def __init__(self, state: TrainState, loss_fn: Callable,
                  bn_momentum_fn: Callable, augment_fn: Callable | None = None,
                  generator: torch.Generator | None = None, task: str = "cls",
-                 remat: str = "none"):
+                 remat: str = "none", mesh=None):
         self.state = state
         self.step_args = (loss_fn, bn_momentum_fn, augment_fn, generator,
                           task, remat)
         self.generator = generator
+        self.mesh = collective(mesh)
         self.device = next(state.model.parameters()).device
+        if self.device.type == "cuda" and self.mesh is not None:
+            backend = torch.distributed.get_backend(self.mesh.group)
+            if "nccl" not in backend:
+                raise RuntimeError(
+                    f"a CUDA graph of a data-parallel step captures its "
+                    f"collectives, which needs NCCL; the group is "
+                    f"{backend!r} (steps_per_call=1 runs eager steps)")
         self.graphs: dict = {}  # (K, layout) -> _Graphed
         self.capture_s: dict = {}  # (K, layout) -> seconds to capture
 
     def _one(self, batch: dict, scalars=None) -> dict:
         return run_one_step(self.state, batch, *self.step_args[:5],
-                            remat=self.step_args[5], scalars=scalars)
+                            remat=self.step_args[5], scalars=scalars,
+                            mesh=self.mesh)
 
     def __call__(self, batches: list[dict]) -> dict:
         if self.device.type != "cuda":
@@ -339,10 +392,12 @@ class _Graphed:
 
 
 @torch.inference_mode()
-def eval_counts(model: torch.nn.Module, batch: dict, task: str = "cls"):
+def eval_counts(model: torch.nn.Module, batch: dict, task: str = "cls",
+                mesh=None):
     """(correct, total, per_class_correct (K,), per_class_total (K,)) of an
     eval forward, rows weighted by ``batch["mask"]`` (train/steps.py:
-    127-170); for the segmentation tasks every point of a row counts."""
+    127-170); for the segmentation tasks every point of a row counts. On a
+    mesh, summed over the ranks (one all-reduce of the four packed)."""
     model.eval()
     logits = model(*model_inputs(batch, task))
     mask = batch["mask"].float()
@@ -352,10 +407,17 @@ def eval_counts(model: torch.nn.Module, batch: dict, task: str = "cls"):
         hit = (logits.argmax(-1) == label).float() * mask
         onehot = torch.nn.functional.one_hot(label, K).float()
         onehot = onehot * mask[:, None]
-        return hit.sum(), mask.sum(), hit @ onehot, onehot.sum(0)
-    label = batch["seg"].long()
-    hit = (logits.argmax(-1) == label).float() * mask[:, None]
-    onehot = torch.nn.functional.one_hot(label, K).float()
-    onehot = onehot * mask[:, None, None]
-    return (hit.sum(), mask.sum() * logits.shape[1],
-            torch.einsum("bn,bnc->c", hit, onehot), onehot.sum((0, 1)))
+        counts = hit.sum(), mask.sum(), hit @ onehot, onehot.sum(0)
+    else:
+        label = batch["seg"].long()
+        hit = (logits.argmax(-1) == label).float() * mask[:, None]
+        onehot = torch.nn.functional.one_hot(label, K).float()
+        onehot = onehot * mask[:, None, None]
+        counts = (hit.sum(), mask.sum() * logits.shape[1],
+                  torch.einsum("bn,bnc->c", hit, onehot),
+                  onehot.sum((0, 1)))
+    mesh = collective(mesh)
+    if mesh is None:
+        return counts
+    flat = mesh.sum(torch.cat([c.reshape(-1) for c in counts]))
+    return (flat[0], flat[1], flat[2:2 + K], flat[2 + K:])

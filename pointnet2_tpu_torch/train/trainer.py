@@ -1,12 +1,24 @@
 """The trainer: one host loop of train epochs, evaluation and checkpoints.
 
-Port of pointnet2_tpu/train/trainer.py for one device and every task of
-the registry (``cls``, ``part_seg``, ``part_seg_one_hot``, ``sem_seg``;
-the dataset yields the task's keys, see train/steps.py): ``TrainConfig``
-keeps the JAX package's field names and defaults for what is ported
-(``pointnet2_cls_ssg`` defaults: batch 16, 1024 points, Adam at 1e-3 on
-the clipped staircase LR, BN momentum 0.5 -> 0.99). ``num_devices``, which
-is not ported yet, raises when given anything but its default.
+Port of pointnet2_tpu/train/trainer.py for every task of the registry
+(``cls``, ``part_seg``, ``part_seg_one_hot``, ``sem_seg``; the dataset
+yields the task's keys, see train/steps.py): ``TrainConfig`` keeps the JAX
+package's field names and defaults (``pointnet2_cls_ssg`` defaults: batch
+16, 1024 points, Adam at 1e-3 on the clipped staircase LR, BN momentum 0.5
+-> 0.99).
+
+Data parallelism (``num_devices``, JAX trainer.py:81-119,190-246): the
+trainer runs as one rank of a mesh (parallel/mesh.py), one process a rank
+as ``parallel.launch.spawn`` or torchrun start them; ``num_devices`` must
+be the process group's size (without a group, None or 1). The device is
+the rank's card. ``batch_size`` is the global batch: each host batch is
+cut to the rank's rows (``shard_batch``), unless the mesh is
+``host_sharded`` and the data set already yields them (``process_shard``,
+``--multihost``). The parameters are broadcast from rank 0, the epoch
+length is the ranks' least batch count, eval counts are summed over the
+ranks, and only the primary writes logs, metrics and checkpoints. Every
+rank's generator draws for the global batch, so all of them stay equal and
+one checkpoint resumes every rank exactly.
 
 ``steps_per_call=K`` trains K batches a call of ``TrainMultiStep`` (on the
 card one CUDA graph replay of K steps, captured at the first call; the
@@ -77,10 +89,15 @@ from typing import Any
 import numpy as np
 import torch
 
-from pointnet2_tpu_torch import config as port_config
 from pointnet2_tpu_torch.evaluation.lockstep import lockstep_batches
 from pointnet2_tpu_torch.models import get_spec
 from pointnet2_tpu_torch.parallel import multihost
+from pointnet2_tpu_torch.parallel.mesh import (
+    local_rows,
+    make_mesh,
+    replicate,
+    shard_batch,
+)
 from pointnet2_tpu_torch.train import checkpoint as ckpt
 from pointnet2_tpu_torch.train.schedules import (
     bn_momentum_schedule,
@@ -103,7 +120,7 @@ from pointnet2_tpu_torch.utils.prefetch import Prefetcher
 class TrainConfig:
     model: str = "pointnet2_cls_ssg"
     num_point: int = 1024
-    batch_size: int = 16
+    batch_size: int = 16  # global batch, split across the ranks
     max_epoch: int = 251
     learning_rate: float = 1e-3
     momentum: float = 0.9
@@ -116,7 +133,7 @@ class TrainConfig:
     augment: str = "none"  # none | cls | cls_normals | scannet (device)
     host_augment: bool = False  # the dataset's numpy augmentation instead
     steps_per_call: int = 1  # K batches a call of the step (a CUDA graph)
-    num_devices: int | None = None  # not ported: one device
+    num_devices: int | None = None  # ranks of the data-parallel mesh
     log_dir: str = "log"
     ckpt_every_epochs: int = 10
     eval_every: int = 1  # epochs between evals
@@ -130,16 +147,7 @@ class TrainConfig:
     remat: str = "none"  # none | full | dots | dots_nobatch (steps.py)
 
 
-# fields whose other values need code that is not ported yet
-_NOT_PORTED = {"num_devices": None}
-
-
 def _check_config(cfg: TrainConfig) -> None:
-    for name, default in _NOT_PORTED.items():
-        if getattr(cfg, name) != default:
-            raise NotImplementedError(
-                f"TrainConfig.{name}={getattr(cfg, name)!r} is not ported "
-                f"yet; leave it at {default!r}")
     if cfg.augment not in AUGMENTATIONS:
         raise NotImplementedError(
             f"augment={cfg.augment!r} is not ported; ported: "
@@ -156,9 +164,17 @@ def _check_config(cfg: TrainConfig) -> None:
 class Trainer:
     """Train-epoch / eval-epoch / fit loop around ``run_one_step``."""
 
-    def __init__(self, config: TrainConfig, device="cuda"):
-        self.device = port_config.check_device(device)
+    def __init__(self, config: TrainConfig, device="cuda", mesh=None):
         _check_config(config)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            config.num_devices, device)
+        if config.num_devices not in (None, self.mesh.size):
+            raise ValueError(f"num_devices={config.num_devices} on a mesh "
+                             f"of {self.mesh.size} ranks")
+        if config.batch_size % self.mesh.size:
+            raise ValueError(f"global batch {config.batch_size} not "
+                             f"divisible by {self.mesh.size} ranks")
+        self.device = self.mesh.device
         self.config = config
         spec = get_spec(config.model)
         self.task = spec.task
@@ -178,11 +194,16 @@ class Trainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
         os.makedirs(config.log_dir, exist_ok=True)
-        self._snapshot_sources()
-        self._log_file = open(os.path.join(config.log_dir, "log_train.txt"),
-                              "a")
+        # only the primary writes the shared log dir (several ranks
+        # appending to one file tear each other's lines)
+        primary = multihost.is_primary()
+        if primary:
+            self._snapshot_sources()
+        self._log_file = open(os.path.join(config.log_dir, "log_train.txt")
+                              if primary else os.devnull, "a")
         self._metrics_file = open(
-            os.path.join(config.log_dir, "metrics.jsonl"), "a")
+            os.path.join(config.log_dir, "metrics.jsonl")
+            if primary else os.devnull, "a")
         self.best_score = -float("inf")
         self._multi: TrainMultiStep | None = None  # K steps on one state
         self._watchdog: Watchdog | None = None  # armed by fit()
@@ -212,9 +233,10 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def log(self, msg: str) -> None:
-        print(msg, flush=True)
-        self._log_file.write(msg + "\n")
-        self._log_file.flush()
+        if multihost.is_primary():
+            print(msg, flush=True)
+            self._log_file.write(msg + "\n")
+            self._log_file.flush()
 
     def _beat(self) -> None:
         if self._watchdog is not None:
@@ -227,9 +249,11 @@ class Trainer:
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
         """A fresh model (Xavier-uniform dense weights from ``seed``, on the
-        device, in train mode) and optimizer, at step 0."""
-        model = self.model_cls(device=self.device, seed=self.config.seed,
-                               **self.model_kwargs).train()
+        device, in train mode; rank 0's on every rank) and optimizer, at
+        step 0."""
+        model = replicate(self.mesh, self.model_cls(
+            device=self.device, seed=self.config.seed,
+            **self.model_kwargs).train())
         opt = make_optimizer(self.config.optimizer, model.parameters(),
                              self.lr_schedule, self.config.momentum)
         return TrainState(step=0, model=model, optimizer=opt)
@@ -253,9 +277,9 @@ class Trainer:
         return out
 
     def _to_device(self, batch: dict) -> dict:
-        """Upload a host batch in the step's layout (:meth:`_host_view`)."""
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in self._host_view(batch).items()}
+        """Upload this rank's rows of a host batch in the step's layout
+        (:meth:`_host_view`)."""
+        return shard_batch(self.mesh, self._host_view(batch))
 
     def multi_step(self, state: TrainState) -> TrainMultiStep:
         """The K-steps-a-call step on ``state``, made once per state (a CUDA
@@ -263,7 +287,7 @@ class Trainer:
         if self._multi is None or self._multi.state is not state:
             self._multi = TrainMultiStep(
                 state, self.loss_fn, self.bn_schedule, self.augment_fn,
-                self.generator, self.task, self.config.remat)
+                self.generator, self.task, self.config.remat, self.mesh)
         return self._multi
 
     def train_epoch(self, state: TrainState, dataset, epoch: int):
@@ -277,7 +301,7 @@ class Trainer:
         def flush():
             if len(buf) == K and K > 1:
                 metrics = self.multi_step(state)(
-                    [self._host_view(b) for b in buf])
+                    [local_rows(self.mesh, self._host_view(b)) for b in buf])
                 losses.append(metrics["loss"])
                 accs.append(metrics["accuracy"])
             else:
@@ -285,7 +309,7 @@ class Trainer:
                     metrics = run_one_step(
                         state, self._to_device(b), self.loss_fn,
                         self.bn_schedule, self.augment_fn, self.generator,
-                        self.task, remat=self.config.remat)
+                        self.task, remat=self.config.remat, mesh=self.mesh)
                     losses.append(metrics["loss"].reshape(1))
                     accs.append(metrics["accuracy"].reshape(1))
             buf.clear()
@@ -319,14 +343,15 @@ class Trainer:
     def eval_epoch(self, state: TrainState, dataset, epoch: int) -> float:
         """Accuracy and avg-class accuracy (over the classes present) of
         the eval-mode model, padded rows excluded; per point for the
-        segmentation tasks."""
+        segmentation tasks. The ranks run the same number of batches (zero
+        batches pad the short ones) and sum their counts."""
         loader = Prefetcher(lockstep_batches(dataset, multihost),
                             depth=self.config.prefetch)
         counts = []
         try:
             for b in loader:
                 counts.append(eval_counts(state.model, self._to_device(b),
-                                          self.task))
+                                          self.task, self.mesh))
                 self._beat()
         finally:
             loader.close()
@@ -353,7 +378,9 @@ class Trainer:
         """Host batch -> numpy float32 logits of the eval-mode model, for
         the protocols that need raw logits (votes, ScanNet). The batch
         gives ``points`` (and ``cls_label`` for ``part_seg_one_hot``);
-        the model is back in train mode after each call."""
+        the model is back in train mode after each call. The forward is
+        this rank's alone (no collective): on several ranks each protocol
+        scores the rank's own data and sums its counters over the ranks."""
         model = state.model
 
         def fn(batch: dict) -> np.ndarray:

@@ -137,14 +137,26 @@ def test_parse_model_kwargs_equals_jax(argv):
     (["--model", "pointnet2_sem_seg", "--virtual_scan"], "item 7"),
 ])
 def test_unported_flags_raise(tmp_path, flags, item):
+    """--virtual_scan (ROADMAP item 7) raises before anything runs. The
+    flags of item 6 (scale-out) are ported and run: --num_devices 2 trains
+    on two gloo ranks, --multihost outside a torchrun job as one process;
+    cli.evaluate takes the same flag and reads the checkpoint (one epoch
+    of 40 clouds in batches of 8: step 5)."""
     base = ["--synthetic", "--device", "cpu", "--log_dir",
             str(tmp_path / "log")]
-    with pytest.raises(NotImplementedError, match=item):
-        cli_train.main(base + flags)
-    if flags[0] in ("--num_devices", "--multihost"):
+    if item == "item 7":
         with pytest.raises(NotImplementedError, match=item):
-            cli_evaluate.main(base + flags)
-    assert not os.path.exists(tmp_path / "log")  # nothing ran
+            cli_train.main(base + flags)
+        assert not os.path.exists(tmp_path / "log")  # nothing ran
+        return
+    small = ["--model", "pointnet_cls_basic", "--synthetic_size", "1",
+             "--num_point", "64", "--batch_size", "8"]
+    cli_train.main(base + small + ["--max_epoch", "1"] + flags)
+    out = tmp_path / "eval.json"
+    cli_evaluate.main(base + small + ["--num_votes", "1", "--out", str(out)]
+                      + flags)
+    with open(out) as f:
+        assert json.load(f)["step"] == 5
 
 
 # --- the trainer's switches and --normal ------------------------------------

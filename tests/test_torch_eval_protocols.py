@@ -47,6 +47,7 @@ from pointnet2_tpu_torch.evaluation.lockstep import lockstep_batches
 from pointnet2_tpu_torch.parallel import multihost
 from pointnet2_tpu_torch.utils import pc_util as tpc
 from tests.test_torch_model import _jax_init, _randomize
+from tests.test_torch_scale_out import run_ranks
 
 # the f32 models: matmul summation order (XLA:CPU vs oneDNN) and XLA's
 # FMA-contracted distances, as tests/test_torch_seg.py
@@ -181,20 +182,23 @@ def test_lockstep_zero_local_batches_feeds_metadata_zero_batches():
     assert not batches[1]["points"].any()
 
 
-def test_multihost_refuses_more_than_one_rank(monkeypatch):
+def test_multihost_refuses_more_than_one_rank(tmp_path):
+    """Without a process group every helper gives the one-process answer.
+    More than one rank no longer raises: on two gloo ranks each helper
+    acts over both (the name is the test's from before scale-out was
+    ported; tests/test_torch_scale_out.py holds four ranks)."""
     assert multihost.is_primary() and multihost.process_count() == 1
     assert multihost.sync_num_batches(7, "max") == 7
     x = np.arange(3)
     assert multihost.allreduce_sum(x) is x
     multihost.barrier("one")
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    for call in (multihost.is_primary, multihost.process_count,
-                 lambda: multihost.sync_num_batches(3),
-                 lambda: multihost.allreduce_sum(x),
-                 lambda: multihost.barrier("two")):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            call()
+    ranks = run_ranks({"mh": {"kind": "multihost"}}, 2, tmp_path)
+    for r, res in enumerate(ranks):
+        mh = res["mh"]
+        assert (mh["index"], mh["count"], mh["primary"]) == (r, 2, r == 0)
+        assert (mh["min"], mh["max"]) == (3, 4)
+        np.testing.assert_array_equal(mh["sum_i"], np.arange(4))
+        assert mh["local_batch"] == 4
 
 
 # ---------------------------------------------------------------------------

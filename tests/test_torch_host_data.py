@@ -113,6 +113,24 @@ def test_modelnet_txt_batches_equal_jax(tmp_path, normal_channel):
 
 
 def test_modelnet_txt_process_shard_raises(tmp_path):
+    """process_shard is ported (the name is the test's from before it
+    was): each process's contiguous share of the shapes and its batches
+    equal JAX's, the shares of 2 processes make up the split, and a share
+    of 7 shapes over 8 processes leaves the first seven one each and the
+    last none."""
     _write_tree(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ModelNetDataset(str(tmp_path), process_shard=(0, 2))
+    shares = []
+    for shard in ((0, 2), (1, 2), (0, 8), (7, 8)):
+        kw = dict(batch_size=2, npoints=20, seed=4, process_shard=shard)
+        ours, theirs = (ModelNetDataset(str(tmp_path), **kw),
+                        JaxModelNet(str(tmp_path), **kw))
+        assert ours.datapath == theirs.datapath
+        for a, b in zip(ours.epoch(True), theirs.epoch(True), strict=True):
+            assert a["nvalid"] == b["nvalid"]
+            np.testing.assert_array_equal(a["points"], b["points"])
+            np.testing.assert_array_equal(a["label"], b["label"])
+        shares.append(len(ours))
+    assert shares == [3, 4, 0, 7]
+    assert ModelNetDataset(str(tmp_path), process_shard=(0, 2)).datapath + \
+        ModelNetDataset(str(tmp_path), process_shard=(1, 2)).datapath == \
+        ModelNetDataset(str(tmp_path)).datapath

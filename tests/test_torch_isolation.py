@@ -1,6 +1,8 @@
 """The port stands alone: importing all of it, and chip_smoke.py, loads
 nothing of JAX, Flax or the JAX package, and its entry points refuse to run
-on the CPU unless asked to. Run in a fresh interpreter, so the test
+on the CPU unless asked to: the single-device ones, and the scale-out ones
+(``Predictor(num_devices=2)``, ``Trainer`` with ``num_devices``, the
+mesh, the launcher of CUDA ranks). Run in a fresh interpreter, so the test
 process's own imports do not count."""
 
 import os
@@ -17,6 +19,7 @@ _SCRIPT = textwrap.dedent("""
         importlib.import_module(info.name)
     import chip_smoke  # noqa: F401  (runs nothing at import)
     from pointnet2_tpu_torch.ops import fused_mlp  # noqa: F401
+    from pointnet2_tpu_torch.parallel import launch, mesh, multihost
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
                  or m == "pointnet2_tpu" or m.startswith("pointnet2_tpu."))
@@ -41,13 +44,23 @@ _SCRIPT = textwrap.dedent("""
                  lambda: PointNet2PartSegMSGOneHot(),
                  lambda: PointNetClsBasic(),
                  lambda: Trainer(TrainConfig(model="pointnet2_cls_msg")),
-                 lambda: Trainer(TrainConfig())):
+                 lambda: Trainer(TrainConfig()),
+                 lambda: Trainer(TrainConfig(num_devices=1)),
+                 lambda: Predictor("pointnet2_cls_ssg", num_devices=2),
+                 lambda: mesh.make_mesh(1)):
         try:
             make()
         except RuntimeError as e:
             assert "CUDA is not available" in str(e), e
         else:
             raise AssertionError("an entry point ran without a card")
+    try:
+        launch.spawn(print, 2)  # CUDA ranks on a host with no card
+    except ValueError as e:
+        assert "0 card(s)" in str(e), e
+    else:
+        raise AssertionError("CUDA ranks started without a card")
+    assert multihost.process_count() == 1 and multihost.is_primary()
     print("isolated", len([m for m in sys.modules
                            if m.startswith("pointnet2_tpu_torch")]))
 """)

@@ -141,8 +141,20 @@ def test_part_normal_dataset_equals_jax(tmp_path, split):
         got = _same_batches(ours.epoch(), theirs.epoch())
     pts = got[0]["points"][:got[0]["nvalid"], :, :3]
     assert np.linalg.norm(pts, axis=-1).max() <= 1.0 + 1e-6  # unit sphere
-    with pytest.raises(NotImplementedError, match="process_shard"):
-        tpart.PartNormalDataset(str(tmp_path), process_shard=(0, 2))
+    # process_shard: each process's contiguous share of the shapes, and its
+    # batches, as JAX's (the remainder to the last; a share may be empty)
+    shares = []
+    for shard in ((0, 2), (1, 2), (0, 4), (3, 4)):
+        ours, theirs = (
+            tpart.PartNormalDataset(str(tmp_path), process_shard=shard, **kw),
+            jpart.PartNormalDataset(str(tmp_path), process_shard=shard,
+                                    **kw))
+        assert ours.datapath == theirs.datapath
+        if ours.datapath:
+            _same_batches(ours.epoch(), theirs.epoch())
+        shares.append(ours.datapath)
+    whole = tpart.PartNormalDataset(str(tmp_path), **kw).datapath
+    assert shares[0] + shares[1] == whole
 
 
 # ---------------------------------------------------------------------------
@@ -224,11 +236,28 @@ def test_scannet_score_one_equals_score_candidates(scenes):
 
 def test_scannet_refuses_what_is_not_ported(scenes):
     # the thread pool is ported (tests/test_torch_eval_protocols.py holds
-    # its stream to JAX's); multi-host sharding is not
+    # its stream to JAX's); so is multi-host sharding: each process keeps
+    # its contiguous share of the scenes, the class weights the whole
+    # train set's, and its crops and whole-scene blocks are JAX's
     assert tscannet.ScannetDataset(scenes=scenes, num_workers=2).num_workers \
         == 2
-    with pytest.raises(NotImplementedError, match="process_shard"):
-        tscannet.ScannetDataset(scenes=scenes, process_shard=(0, 2))
+    for shard in ((0, 3), (2, 3)):
+        kw = dict(scenes=scenes, npoints=32, batch_size=2, seed=8,
+                  process_shard=shard)
+        ours, theirs = (tscannet.ScannetDataset(**kw),
+                        jscannet.ScannetDataset(**kw))
+        assert len(ours) == len(theirs) == (1 if shard[0] < 2 else 2)
+        np.testing.assert_array_equal(ours.labelweights, theirs.labelweights)
+        for a, b in zip(ours.scene_points_list, theirs.scene_points_list,
+                        strict=True):
+            np.testing.assert_array_equal(a, b)
+        _same_batches(ours.epoch(), theirs.epoch())
+        kw["split"] = "test"
+        for a, b in zip(tscannet.ScannetDatasetWholeScene(**kw).blocks(),
+                        jscannet.ScannetDatasetWholeScene(**kw).blocks(),
+                        strict=True):
+            for x, y in zip(a, b, strict=True):
+                np.testing.assert_array_equal(x, y)
     zb = tscannet.ScannetDataset(scenes=scenes, npoints=16,
                                  batch_size=2).zero_batch()
     assert zb["points"].shape == (2, 16, 3) and zb["nvalid"] == 0

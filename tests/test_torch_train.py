@@ -525,9 +525,15 @@ def test_synthetic_dataset_equals_jax():
 
 
 def test_train_config_refuses_what_is_not_ported(tmp_path):
-    for kw in ({"num_devices": 2}, {"augment": "cls_and_jitter"}):
-        with pytest.raises(NotImplementedError):
-            Trainer(TrainConfig(log_dir=str(tmp_path), **kw), device="cpu")
+    """An augmentation the port has not is refused; num_devices=2 is
+    ported, and without a process group of two ranks it raises instead of
+    training on one (tests/test_torch_scale_out.py runs it on two)."""
+    with pytest.raises(NotImplementedError):
+        Trainer(TrainConfig(log_dir=str(tmp_path), augment="cls_and_jitter"),
+                device="cpu")
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
+        Trainer(TrainConfig(log_dir=str(tmp_path), num_devices=2),
+                device="cpu")
 
 
 @pytest.fixture(scope="module")
