@@ -26,9 +26,10 @@ generated rooms (8192 points, the wdp input dropout, ``augment="scannet"``),
 ``SyntheticShapeNetPart`` (2048 points with normals, category labels);
 checkpoints with exact resume and ``Predictor.from_checkpoint``; the vote,
 part-mIoU and ScanNet evaluation protocols; the train and evaluate CLIs;
-and the trainer's switches: ``steps_per_call`` as one CUDA graph of K train
+the trainer's switches: ``steps_per_call`` as one CUDA graph of K train
 steps, ``remat``, the stall watchdog under ``cli.supervise``, and
-``--normal`` on the ModelNet txt data with the host augmentation. Phases:
+``--normal`` on the ModelNet txt data with the host augmentation; scale-out
+over ranks; and the procedural stand-ins with ``--virtual_scan``. Phases:
 
 1. build the kernels from ``pointnet2_tpu_torch/csrc/`` with nvcc, one
    process per source, all at once; log ``ptxas -v`` of ``ball_query.cu``,
@@ -249,6 +250,19 @@ steps, ``remat``, the stall watchdog under ``cli.supervise``, and
     checkpoint, ``Predictor(num_devices=N)`` against one card, and weak
     scaling at 1, 2 and N ranks (examples/s, efficiency, the gradient
     all-reduce's time, the collectives' share of a step's device time).
+32. the procedural stand-ins and the virtual scan: (a) the ModelNet,
+    ShapeNet-part and ScanNet generators through their ``python -m`` entry
+    points in subprocesses (2 train / 1 test shapes a class in the txt
+    layout with normals, and in HDF5 where h5py imports; 1 / 1 / 1 part
+    shapes a category; 3 train / 2 test rooms), each layout through the
+    port's reader; (b) ``cli.train --model pointnet2_sem_seg
+    --virtual_scan --dtype bfloat16`` on those rooms (8192 points, B=8, 2
+    epochs, the chopped and whole-scene protocols each epoch) and
+    ``cli.evaluate --ckpt best``, every counter from 0: finite losses, the
+    metrics JSON as JAX's, FPS, the ball query, the gather, the scatter
+    and three_nn launched; (c) one bf16 sem_seg train step on a
+    virtual-scan batch through the kernels and the plain versions, held
+    as phase 22 holds its steps.
 
 Prints the GPU's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
@@ -263,6 +277,7 @@ generated room (floor, ceiling, walls, box furniture).
 Usage (from the repository root, one GPU):  python3 chip_smoke.py
 Phase 31 alone, after phase 1's build (on every card of the machine):
 python3 chip_smoke.py --phase 31
+Phase 32 alone, after phase 1's build:  python3 chip_smoke.py --phase 32
 """
 
 from __future__ import annotations
@@ -4727,6 +4742,212 @@ def check_scale_out(torch, check: Checks, log_dir: str, gpu: str) -> list:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 32: the procedural stand-ins and the virtual scan
+# ---------------------------------------------------------------------------
+
+# phase 32a's sizes: ModelNet shapes a class (train, test), ShapeNet-part
+# shapes a category (train, val, test), ScanNet rooms (train, test; each
+# at the generator's 60-180k points)
+STANDIN_MODELNET = (2, 1)
+STANDIN_PART = (1, 1, 1)
+STANDIN_ROOMS = (3, 2)
+VSCAN_EPOCHS, VSCAN_BATCH = 2, 8  # phase 32b's cli.train
+
+
+def generate_standins(root: str) -> tuple:
+    """Phase 32a: the three generators through their ``python -m`` entry
+    points, in subprocesses started together; the HDF5 layout only where
+    h5py imports. Returns (the failed commands' tails, whether HDF5 was
+    written)."""
+    try:
+        import h5py  # noqa: F401
+        has_h5 = True
+    except ImportError:
+        has_h5 = False
+    tr, te = (str(n) for n in STANDIN_MODELNET)
+    mn = ["--train_per_class", tr, "--test_per_class", te]
+    jobs = [("procedural_modelnet", ["--out", os.path.join(root, "txt"),
+                                     "--format", "txt", *mn]),
+            ("procedural_shapenet_part", [
+                "--out", os.path.join(root, "part"), "--train_per_class",
+                str(STANDIN_PART[0]), "--val_per_class", str(STANDIN_PART[1]),
+                "--test_per_class", str(STANDIN_PART[2])]),
+            ("procedural_scannet", ["--out", os.path.join(root, "scannet"),
+                                    "--train", str(STANDIN_ROOMS[0]),
+                                    "--test", str(STANDIN_ROOMS[1])])]
+    if has_h5:
+        jobs.append(("procedural_modelnet",
+                     ["--out", os.path.join(root, "h5"), *mn]))
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
+        __file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", f"pointnet2_tpu_torch.data.{mod}", *flags],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for mod, flags in jobs]
+    failed = []
+    for (mod, flags), proc in zip(jobs, procs):
+        try:
+            out, err = proc.communicate(timeout=SPAWN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{mod} {flags}: rc {proc.returncode}, "
+                          f"{err[-500:]}")
+        else:
+            log(f"  {mod}: {out.strip()}")
+    return failed, has_h5
+
+
+def check_standin_layouts(root: str, has_h5: bool, check: Checks) -> None:
+    """Phase 32a: each generated layout through the port's reader."""
+    from pointnet2_tpu_torch.data import (
+        ModelNetDataset,
+        ModelNetH5Dataset,
+        PartNormalDataset,
+        ScannetDataset,
+    )
+
+    n_cls = 40 * sum(STANDIN_MODELNET)
+    sets = [("ModelNetDataset (txt, normals)",
+             ModelNetDataset(os.path.join(root, "txt"), batch_size=16,
+                             npoints=N_POINT, split="train"),
+             40 * STANDIN_MODELNET[0], (16, N_POINT, 6)),
+            ("PartNormalDataset (v0_normal)",
+             PartNormalDataset(os.path.join(root, "part"), npoints=PART_N,
+                               split="trainval", batch_size=16),
+             16 * sum(STANDIN_PART[:2]), (16, PART_N, 6)),
+            ("ScannetDataset (pickles)",
+             ScannetDataset(root=os.path.join(root, "scannet"),
+                            npoints=SEM_N, split="train", batch_size=16),
+             STANDIN_ROOMS[0], (16, SEM_N, 3))]
+    if has_h5:
+        sets.append(("ModelNetH5Dataset (HDF5)", ModelNetH5Dataset(
+            os.path.join(root, "h5", "train_files.txt"), batch_size=16,
+            npoints=N_POINT), 40 * STANDIN_MODELNET[0], (16, N_POINT, 3)))
+    for what, ds, n, shape in sets:
+        batch = next(ds.epoch())
+        pts = batch["points"]
+        check(len(ds) == n and pts.shape == shape
+              and bool(np.isfinite(pts).all()) and batch["nvalid"] > 0,
+              f"{what}: {len(ds)} items (want {n}), a batch of "
+              f"{pts.shape}, finite")
+    log(f"  ({n_cls} ModelNet shapes a layout; HDF5 "
+        f"{'written and read' if has_h5 else 'skipped: no h5py'})")
+
+
+def check_virtual_scan_cli(torch, check: Checks, root: str,
+                           log_dir: str) -> dict:
+    """Phase 32b: ``cli.train --model pointnet2_sem_seg --virtual_scan
+    --dtype bfloat16`` on 32a's rooms (8192 points, B=8, 2 epochs, the
+    chopped and whole-scene protocols every epoch), then ``cli.evaluate
+    --ckpt best --out``, in this process, every counter from 0. Returns the
+    launches."""
+    from pointnet2_tpu_torch import ops
+    from pointnet2_tpu_torch.cli import evaluate as cli_evaluate
+    from pointnet2_tpu_torch.cli import train as cli_train
+
+    run_dir = os.path.join(log_dir, "cli_vscan")
+    out = os.path.join(log_dir, "cli_vscan.json")
+    common = ["--model", SEM, "--data", os.path.join(root, "scannet"),
+              "--num_point", str(SEM_N), "--batch_size", str(VSCAN_BATCH),
+              "--log_dir", run_dir]
+    for w in ops.KERNELS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    cli_train.main(common + ["--virtual_scan", "--dtype", "bfloat16",
+                             "--max_epoch", str(VSCAN_EPOCHS),
+                             "--eval_every", "1"])
+    t1 = time.perf_counter()
+    cli_evaluate.main(common + ["--ckpt", "best", "--out", out])
+    t2 = time.perf_counter()
+    counts = {k: w.launches for k, w in ops.KERNELS.items()}
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    with open(out) as f:
+        record = json.load(f)
+    train_rows = [r for r in rows if r["split"] == "train"]
+    keys = {"point_accuracy", "point_accuracy_vox", "avg_class_accuracy",
+            "avg_class_accuracy_vox", "calibrated_accuracy_vox",
+            "calibrated_accuracy_point"}
+    check([r["split"] for r in rows]
+          == ["train", "eval_chopped", "eval_whole_scene"] * VSCAN_EPOCHS
+          and all(np.isfinite(r["loss"]) for r in train_rows)
+          and record["ckpt"] == "best" and record["model"] == SEM
+          and set(record["metrics"]) == {"chopped", "whole_scene"}
+          and all(set(m) == keys and all(np.isfinite(list(m.values())))
+                  for m in record["metrics"].values()),
+          f"cli.train --virtual_scan ({t1 - t0:.1f} s): train losses "
+          f"{[round(r['loss'], 4) for r in train_rows]} at steps "
+          f"{[r['step'] for r in train_rows]}; cli.evaluate --ckpt best "
+          f"({t2 - t1:.1f} s): step {record['step']}, whole-scene "
+          f"calibrated voxel accuracy "
+          f"{record['metrics']['whole_scene']['calibrated_accuracy_vox']:.4f}")
+    log(f"  launches in the virtual-scan journey: {counts}")
+    check(all(counts[k] > 0 for k in ("fps", "ball_query", "gather_rows",
+                                      "scatter_rows", "three_nn")),
+          "the virtual-scan journey launched FPS, the ball query, the "
+          "gather, the scatter and three_nn")
+    return counts
+
+
+def check_virtual_scan_step(torch, check: Checks, root: str,
+                            log_dir: str) -> None:
+    """Phase 32c: one bf16 sem_seg train step on a virtual-scan batch
+    (B=16, 8192 points, the wdp input dropout) through the kernels and
+    through the plain versions on the card, from the same weights and
+    generator seed: loss and running statistics equal, gradients within
+    phase 22's bf16 limits, and every scatter of the step bit for bit its
+    plain version on CPU copies."""
+    from pointnet2_tpu_torch.data import ScannetDatasetVirtualScan
+
+    views = ScannetDatasetVirtualScan(root=os.path.join(root, "scannet"),
+                                      npoints=SEM_N, split="train",
+                                      batch_size=16, seed=SEED)
+    batch = next(views.epoch())
+    tol, median_tol = SEG_STEP_TOL["bfloat16"]
+    with seg_trainer(torch, SEM, "bfloat16", os.path.join(
+            log_dir, "vscan_step"), 1) as tr:
+        dev_batch = tr._to_device(batch)
+        zero = exact_zero_biases(tr.init_state().model)
+        with capture_scatters() as calls:
+            la, ga, ba, _ = one_step(torch, tr, dev_batch, "auto")
+        lb, gb, bb, _ = one_step(torch, tr, dev_batch, "torch")
+    stats_equal = all(torch.equal(ba[k], bb[k]) for k in ba)
+    diffs = grad_differences(torch, ga, gb, zero)
+    median = float(np.median([d for d, _ in diffs]))
+    check(la == lb and np.isfinite(la) and stats_equal
+          and diffs[0][0] <= tol and median <= median_tol,
+          f"virtual-scan bf16 step ({len(views._all_views())} views, a "
+          f"batch of {batch['nvalid']}): loss {la:.6f} (plain {lb:.6f}), "
+          f"running statistics equal: {stats_equal}, gradient differences: "
+          f"largest {diffs[0][0]:.2e} ({diffs[0][1]}), median "
+          f"{median:.2e}; bounds {tol:g}, median {median_tol:g}")
+    check_step_scatters(torch, "virtual-scan bf16", calls, check)
+
+
+def check_standins(torch, check: Checks, log_dir: str) -> dict:
+    """Phase 32: the generators, their layouts through the port's readers,
+    the virtual-scan CLI journey and a virtual-scan step kernels vs plain.
+    Returns 32b's launches."""
+    log("phase 32: the procedural stand-ins and the virtual scan")
+    t0 = time.perf_counter()
+    root = os.path.join(log_dir, "standins")
+    failed, has_h5 = generate_standins(root)
+    check(not failed, f"the three generators' python -m entry points ran "
+          f"({time.perf_counter() - t0:.1f} s){': ' if failed else ''}"
+          f"{'; '.join(failed)}")
+    if failed:
+        return {k: 0 for k in REPLACES}
+    check_standin_layouts(root, has_h5, check)
+    counts = check_virtual_scan_cli(torch, check, root, log_dir)
+    check_virtual_scan_step(torch, check, root, log_dir)
+    torch.cuda.synchronize()
+    log(f"  phase 32: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def check_tensor_cores(_build, check: Checks) -> None:
     """Phase 1: in the built fused_mlp library's SASS, the bf16 dense
     pass's product and the bf16 dense backward's two are tensor-core
@@ -4779,6 +5000,9 @@ def main() -> int:
     shutil.rmtree(log_dir, ignore_errors=True)
     if sys.argv[1:] == ["--phase", "31"]:
         check_scale_out(torch, check, log_dir, gpu)
+        return finish(torch, check, t_start, gpu, None)
+    if sys.argv[1:] == ["--phase", "32"]:
+        check_standins(torch, check, log_dir)
         return finish(torch, check, t_start, gpu, None)
     for src in ("ball_query", "scatter", "three_nn", "fused_mlp"):
         log(f"  ptxas -v of csrc/{src}.cu (registers, shared memory, "
@@ -4980,18 +5204,20 @@ def main() -> int:
     check_watchdog(torch, check, log_dir)
     normals = check_normal_txt(torch, check, log_dir)
     scale_out = check_scale_out(torch, check, log_dir, gpu)
+    standins = check_standins(torch, check, log_dir)
     # launches of each kernel over every main-path run (classifier serving,
     # training, sem_seg and part_seg serving, the MSG models' serving and
     # the MSG layers' other routes, the fused route's serving and
     # training, segmentation training, the resumed runs, the protocols,
     # the CLI journeys, the graphed epochs (a replay counts the launches
     # recorded at its capture), the remat steps, the txt data's runs, the
-    # ranks' steps and epochs of phase 31); the affine tail runs on no
-    # model path, so its phase-16 launches count
+    # ranks' steps and epochs of phase 31, the virtual-scan journey of
+    # phase 32); the affine tail runs on no model path, so its phase-16
+    # launches count
     runs = [fit["counts"], seg["launches"][SEM], seg["launches"][PART],
             *msg["launches"].values(), *fused["launches"].values(),
             fused_fit, seg_fit, resume, protocols, journeys, graphed,
-            graph_resume, remat, normals, *scale_out]
+            graph_resume, remat, normals, *scale_out, standins]
     launches = {k: launches[k] + sum(r[k] for r in runs) for k in REPLACES}
     launches["fused_affine"] += affine_launches
     check(all(launches[k] > 0 for k in REPLACES),

@@ -77,11 +77,8 @@ def _clean(v):
 
 
 def main(argv=None) -> None:
-    from pointnet2_tpu_torch.cli.train import check_ported
-
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    check_ported(args)
     if (args.num_devices or 1) > 1 and not args.multihost:
         rc = launch.spawn(run_rank, args.num_devices, device=args.device,
                           args=(argv,))

@@ -22,8 +22,9 @@ Data parallelism (JAX cli/train.py:46,81-105,239-267):
   started (``multihost.initialize()`` from its environment): it loads its
   ``process_shard`` of each data set, at ``--batch_size`` / ranks a batch.
 
-``--virtual_scan`` is not ported yet and raises ``NotImplementedError``
-naming its ROADMAP.md item instead of running another configuration.
+``--virtual_scan`` trains sem_seg on the eight virtual camera scans a
+scene (``ScannetDatasetVirtualScan``) instead of random crops; the test
+set and the whole-scene protocol stay the same.
 
 Usage:
   python -m pointnet2_tpu_torch.cli.train --model pointnet2_cls_ssg \\
@@ -33,6 +34,8 @@ Usage:
       --synthetic --num_point 8192 --max_epoch 10 --steps_per_call 4
   python -m pointnet2_tpu_torch.cli.train --model pointnet2_cls_ssg \\
       --normal --data data/modelnet40_normal_resampled
+  python -m pointnet2_tpu_torch.cli.train --model pointnet2_sem_seg \\
+      --data data/procedural_scannet --num_point 8192 --virtual_scan
   python -m pointnet2_tpu_torch.cli.train --synthetic --num_devices 4 \\
       --batch_size 128 --steps_per_call 4
   torchrun --nproc_per_node 4 -m pointnet2_tpu_torch.cli.train \\
@@ -49,22 +52,6 @@ import sys
 
 from pointnet2_tpu_torch.models import MODEL_REGISTRY
 from pointnet2_tpu_torch.parallel import launch, multihost
-
-# flag -> (the value that runs ported code, the ROADMAP.md item that ports
-# the rest)
-_NOT_PORTED = {
-    "virtual_scan": (False, "Queue 1 item 7 (ScannetDatasetVirtualScan)"),
-}
-
-
-def check_ported(args) -> None:
-    """Raise NotImplementedError for a flag set to what is not ported."""
-    for flag, (ported, item) in _NOT_PORTED.items():
-        value = getattr(args, flag, ported)
-        if value != ported:
-            raise NotImplementedError(
-                f"--{flag} {value!r} is not ported yet: ROADMAP.md {item}")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
@@ -109,7 +96,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sem_seg: threads producing crop samples in "
                         "parallel (0/1 = in-line)")
     p.add_argument("--virtual_scan", action="store_true",
-                   help="sem_seg: 8-view virtual-scan samples (not ported)")
+                   help="sem_seg: train on 8-view virtual-scan samples "
+                        "instead of random crops")
     p.add_argument("--steps_per_call", type=int, default=1,
                    help="train K prefetched batches a call: one CUDA graph "
                         "replay of K steps on the card")
@@ -148,8 +136,8 @@ def make_datasets(args, test_only: bool = False, shard=None):
     ``shard=(rank, ranks)`` every reader that takes ``process_shard`` keeps
     its share, the generated ScanNet scenes too (the synthetic
     classification and part sets are every rank's, as in the JAX
-    package)."""
-    check_ported(args)
+    package). ``--virtual_scan`` makes the sem_seg train set the
+    virtual-scan sampler."""
     task = MODEL_REGISTRY[args.model].task
     if task == "cls":
         if args.synthetic or args.data is None:
@@ -202,22 +190,27 @@ def make_datasets(args, test_only: bool = False, shard=None):
                                  process_shard=shard)
         return train, test, "none"
     # sem_seg
-    from pointnet2_tpu_torch.data import ScannetDataset
+    from pointnet2_tpu_torch.data import (
+        ScannetDataset,
+        ScannetDatasetVirtualScan,
+    )
 
+    train_cls = (ScannetDatasetVirtualScan
+                 if getattr(args, "virtual_scan", False) else ScannetDataset)
     workers = getattr(args, "loader_workers", 2)  # cli.evaluate has none
     if args.synthetic or args.data is None:
         from pointnet2_tpu_torch.data import make_synthetic_scenes
 
-        train = ScannetDataset(scenes=make_synthetic_scenes(4),
-                               npoints=args.num_point, split="train",
-                               batch_size=args.batch_size,
-                               num_workers=workers, process_shard=shard)
+        train = train_cls(scenes=make_synthetic_scenes(4),
+                          npoints=args.num_point, split="train",
+                          batch_size=args.batch_size,
+                          num_workers=workers, process_shard=shard)
         test = ScannetDataset(scenes=make_synthetic_scenes(2, seed=9),
                               npoints=args.num_point, split="test",
                               batch_size=args.batch_size,
                               process_shard=shard)
         return train, test, "scannet"
-    train = None if test_only else ScannetDataset(
+    train = None if test_only else train_cls(
         root=args.data, npoints=args.num_point, split="train",
         batch_size=args.batch_size, num_workers=workers,
         process_shard=shard)
@@ -287,7 +280,6 @@ def make_sem_seg_eval_protocol(args, test_ds):
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    check_ported(args)
     if (args.num_devices or 1) > 1 and not args.multihost:
         rc = launch.spawn(run_rank, args.num_devices, device=args.device,
                           args=(argv,))

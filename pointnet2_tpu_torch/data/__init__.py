@@ -8,10 +8,12 @@ from pointnet2_tpu_torch.data.modelnet import (
 )
 from pointnet2_tpu_torch.data.scannet import (
     ScannetDataset,
+    ScannetDatasetVirtualScan,
     ScannetDatasetWholeScene,
     make_synthetic_scenes,
 )
 from pointnet2_tpu_torch.data.shapenet_part import (
+    PartDataset,
     PartNormalDataset,
     SyntheticShapeNetPart,
 )
@@ -20,7 +22,8 @@ from pointnet2_tpu_torch.data.synthetic import (
     SyntheticSegmentation,
 )
 
-__all__ = ["ModelNetDataset", "ModelNetH5Dataset", "PartNormalDataset", "ScannetDataset",
-           "ScannetDatasetWholeScene",
+__all__ = ["ModelNetDataset", "ModelNetH5Dataset", "PartDataset",
+           "PartNormalDataset", "ScannetDataset",
+           "ScannetDatasetVirtualScan", "ScannetDatasetWholeScene",
            "SyntheticClassification", "SyntheticSegmentation",
            "SyntheticShapeNetPart", "make_synthetic_scenes", "pc_normalize"]

@@ -1,6 +1,6 @@
 """ScanNet semantic-segmentation data, numpy only.
 
-Port of pointnet2_tpu/data/scannet.py:1-424,487-503:
+Port of pointnet2_tpu/data/scannet.py:
 
 - :class:`ScannetDataset`, the training sampler of the reference
   (scannet/scannet_dataset.py:27-61): a random 1.5 x 1.5 m x full-height
@@ -16,6 +16,10 @@ Port of pointnet2_tpu/data/scannet.py:1-424,487-503:
 - :class:`ScannetDatasetWholeScene`, the evaluation tiler of the reference
   (scannet/scannet_dataset.py:64-120): 1.5 m columns, one ``npoints``
   sample a non-empty block;
+- :class:`ScannetDatasetVirtualScan`, the reference's virtual-scan sampler
+  (scannet/scannet_dataset.py:122-167): the points eight virtual cameras
+  of a scene see (``utils.scene_util.virtual_scan``), each view resampled
+  to ``npoints``, in the crop sampler's batch format;
 - :func:`make_synthetic_scenes`, generated rooms for hermetic runs;
 - :func:`block_members`, the 1.5 m columns with 0.2 m overlap that
   ``Predictor.predict_scene`` cuts a room into.
@@ -27,7 +31,7 @@ so the same seed gives the same batches.
 
 ``process_shard=(rank, count)`` keeps a process's contiguous share of the
 scenes after the class weights are computed on all of them (JAX
-scannet.py:87-92). Not ported yet: ``ScannetDatasetVirtualScan``.
+scannet.py:87-92), in every sampler.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import numpy as np
 
 from pointnet2_tpu_torch.data.modelnet import _pad_batch, host_slice
 from pointnet2_tpu_torch.utils.prefetch import parallel_map
+from pointnet2_tpu_torch.utils.scene_util import virtual_scan
 
 NUM_CLASSES = 21
 
@@ -367,6 +372,67 @@ class ScannetDatasetWholeScene(_ScannetBase):
             ps, seg, w = self.get_item(i)
             for b in range(ps.shape[0]):
                 yield ps[b], seg[b], w[b]
+
+
+class ScannetDatasetVirtualScan(_ScannetBase):
+    """Eight virtual camera scans a scene (scannet/scannet_dataset.py:
+    122-165 and scene_util.py): each scene gives up to 8 views, the points
+    visible from a camera at one of 8 horizontal orientations, each
+    resampled to ``npoints``; a view that sees fewer than 300 points is
+    dropped. A scene's ray casts run once and are cached, so epochs after
+    the first pay only the resampling."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._scan_cache: dict[int, list[np.ndarray]] = {}
+
+    def view_indices(self, index: int) -> list[np.ndarray]:
+        """The visible point ids of the >= 300-point views of a scene."""
+        if index not in self._scan_cache:
+            views = []
+            for mode in range(8):
+                smpidx = virtual_scan(self.scene_points_list[index],
+                                      mode=mode)
+                if len(smpidx) >= 300:
+                    views.append(smpidx)
+            self._scan_cache[index] = views
+        return self._scan_cache[index]
+
+    def _sample_view(self, index: int, smpidx: np.ndarray):
+        idx = smpidx[self._rng.integers(len(smpidx), size=self.npoints)]
+        seg = self.semantic_labels_list[index][idx]
+        return (self.scene_points_list[index][idx], seg,
+                self.labelweights[seg].astype(np.float32))
+
+    def get_item(self, index: int):
+        """(points (nviews, npoints, 3), seg (nviews, npoints), weights
+        (nviews, npoints)) of the kept views of scene `index`."""
+        views = [self._sample_view(index, s)
+                 for s in self.view_indices(index)]
+        return (np.stack([v[0] for v in views]),
+                np.stack([v[1] for v in views]),
+                np.stack([v[2] for v in views]))
+
+    def _all_views(self) -> list[tuple[int, int]]:
+        return [(i, v) for i in range(len(self))
+                for v in range(len(self.view_indices(i)))]
+
+    def num_batches(self) -> int:
+        return -(-len(self._all_views()) // self.batch_size)
+
+    def epoch(self, augment: bool = False,
+              input_dropout: bool = True) -> Iterator[dict]:
+        """Fixed-shape batches over the flattened (scene, view) pairs in a
+        fresh order, in the crop sampler's format, with the reference's
+        input dropout on the train split."""
+        pairs = self._all_views()
+        order = self._rng.permutation(len(pairs))
+        wdp = input_dropout and self.split == "train"
+        items = (self._sample_view(pairs[k][0],
+                                   self.view_indices(pairs[k][0])[pairs[k][1]])
+                 for k in order)
+        yield from _batched_items(items, self.batch_size, self._rng,
+                                  input_dropout=wdp)
 
 
 def make_synthetic_scenes(num_scenes: int = 4, points_per_scene: int = 20000,

@@ -1,6 +1,6 @@
 """ShapeNet-part segmentation data (xyz + normal + part labels), numpy only.
 
-Port of pointnet2_tpu/data/shapenet_part.py:1-195, the host-side loader of
+Port of pointnet2_tpu/data/shapenet_part.py, the host-side loader of
 the reference's PartNormalDataset (part_seg/part_dataset_all_normal.py:
 19-112): json split files, a per-shape txt of x,y,z,nx,ny,nz,seg rows,
 unit-sphere normalisation, resampling with replacement to ``npoints``. The
@@ -14,8 +14,8 @@ int32, ``cls_label`` (B,) int32 and ``nvalid``. Both draw from
 seed gives the same batches.
 
 ``process_shard=(rank, count)`` keeps a process's contiguous share of the
-shapes (JAX shapenet_part.py:89-93). Not ported yet: the older
-``PartDataset`` (.pts/.seg files).
+shapes (JAX shapenet_part.py:89-93). :class:`PartDataset` reads the older
+.pts/.seg layout.
 """
 
 from __future__ import annotations
@@ -201,3 +201,73 @@ class SyntheticShapeNetPart:
                                                  self.batch_size)
             yield {"points": pts, "seg": seg, "cls_label": cls,
                    "nvalid": nvalid}
+
+
+class PartDataset:
+    """The older ShapeNet-part format (.pts points and .seg per-point
+    labels) of the reference's visual test driver (part_seg/
+    part_dataset.py); JAX shapenet_part.py:196-260. ``dataset[i]`` is one
+    shape resampled with replacement to ``npoints``: (points, seg), or
+    (points, category id) with ``classification``.
+
+    Directory layout: <root>/<synset>/points/<id>.pts and
+    <root>/<synset>/points_label/<id>.seg, with the same json split files
+    as PartNormalDataset. Per-category seg labels are 1-based local ids.
+    """
+
+    def __init__(self, root: str, npoints: int = 2500,
+                 classification: bool = False, class_choice=None,
+                 split: str = "train", normalize: bool = True,
+                 cache_size: int = 10000, seed: int = 0):
+        self.root = root
+        self.npoints = npoints
+        self.classification = classification
+        self.normalize = normalize
+        self._rng = np.random.default_rng(seed)
+        with open(os.path.join(root, "synsetoffset2category.txt")) as f:
+            self.cat = dict(line.strip().split() for line in f if line.strip())
+        if class_choice is not None:
+            self.cat = {k: v for k, v in self.cat.items() if k in class_choice}
+        split_dir = os.path.join(root, "train_test_split")
+
+        def _ids(name):
+            with open(os.path.join(split_dir,
+                                   f"shuffled_{name}_file_list.json")) as f:
+                return {d.split("/")[2] for d in json.load(f)}
+
+        wanted = (_ids("train") | _ids("val")) if split == "trainval" \
+            else _ids(split)
+        self.datapath = []
+        for item, synset in self.cat.items():
+            dir_point = os.path.join(root, synset, "points")
+            dir_seg = os.path.join(root, synset, "points_label")
+            for fn in sorted(os.listdir(dir_point)):
+                token = os.path.splitext(fn)[0]
+                if token in wanted:
+                    self.datapath.append(
+                        (item, os.path.join(dir_point, token + ".pts"),
+                         os.path.join(dir_seg, token + ".seg")))
+        self.classes = {cat: i for i, cat in enumerate(self.cat)}
+        self.cache_size = cache_size
+        self._cache: dict[int, tuple] = {}
+
+    def __len__(self):
+        return len(self.datapath)
+
+    def __getitem__(self, index: int):
+        if index in self._cache:
+            pts, seg, cls = self._cache[index]
+        else:
+            cat, pts_path, seg_path = self.datapath[index]
+            cls = np.int32(self.classes[cat])
+            pts = np.loadtxt(pts_path).astype(np.float32)
+            seg = np.loadtxt(seg_path).astype(np.int32)
+            if self.normalize:
+                pts = pc_normalize(pts)
+            if len(self._cache) < self.cache_size:
+                self._cache[index] = (pts, seg, cls)
+        choice = self._rng.choice(len(seg), self.npoints, replace=True)
+        pts, seg = pts[choice], seg[choice]
+        if self.classification:
+            return pts, cls
+        return pts, seg

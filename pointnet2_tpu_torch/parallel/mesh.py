@@ -69,8 +69,9 @@ def make_mesh(num_devices: int | None = None, device="cuda", *,
     """The mesh of this process. Without a process group: one rank on
     ``device`` (``num_devices`` must be None or 1). With one: every rank of
     it (``num_devices`` must be None or its size), on ``device``; a bare
-    ``"cuda"`` is this rank's card, ``cuda:LOCAL_RANK``, and a host with
-    fewer cards than CUDA ranks raises. An explicit ``cuda:i`` is kept:
+    ``"cuda"`` is this rank's card, ``cuda:multihost.local_rank()`` (the
+    global rank modulo the host's cards without ``LOCAL_RANK``), and a
+    local rank past the host's cards raises. An explicit ``cuda:i`` is kept:
     ranks that share a card must talk over gloo (NCCL refuses two ranks on
     one GPU)."""
     if not (dist.is_available() and dist.is_initialized()):

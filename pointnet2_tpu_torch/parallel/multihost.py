@@ -28,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 _HOST_GROUP: list = []  # the gloo group beside an NCCL default group
+_LOCAL_RANK: list = []  # the local rank given to initialize
 
 
 def _active() -> bool:
@@ -37,16 +38,23 @@ def _active() -> bool:
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None, *,
-               backend: str | None = None) -> None:
+               backend: str | None = None,
+               local_rank: int | None = None) -> None:
     """Join this process to the default process group and make the gloo
     group beside it.
 
     With ``coordinator_address`` (``host:port``), ``num_processes`` and
-    ``process_id`` the call is strict. Without them it reads torchrun's
-    environment; with no ``WORLD_SIZE`` there this is one process and
-    nothing is joined. An initialised group is kept. ``backend`` defaults
-    to NCCL when the machine has a card, else gloo; on NCCL this rank's
-    card is ``cuda:LOCAL_RANK``."""
+    ``process_id`` the call is strict. ``num_processes`` counts ranks (one
+    process a card), not hosts as JAX's does, and ``process_id`` is this
+    rank's global index. Without them it reads torchrun's environment; with
+    no ``WORLD_SIZE`` there this is one process and nothing is joined. An
+    initialised group is kept. ``backend`` defaults to NCCL when the
+    machine has a card, else gloo; on NCCL this rank's card is
+    ``cuda:local_rank``: the argument, else torchrun's ``LOCAL_RANK``, else
+    the global rank modulo the host's card count (every host the same
+    count), which :func:`local_rank` answers from then on."""
+    if local_rank is not None:
+        _LOCAL_RANK[:] = [local_rank]
     if not _active():
         if coordinator_address is not None:
             if num_processes is None or process_id is None:
@@ -64,20 +72,26 @@ def initialize(coordinator_address: str | None = None,
             # no watchdog queries of events a CUDA graph captured
             # (PyTorch's notes on NCCL in CUDA graphs)
             os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
-            torch.cuda.set_device(local_rank(rank))
+            torch.cuda.set_device(_local_rank(rank))
         kw = {} if world is None else {"world_size": world, "rank": rank}
         dist.init_process_group(backend, init_method=init, **kw)
     host_group()
 
 
 def local_rank(rank: int | None = None) -> int:
-    """This process's rank on its host: torchrun's ``LOCAL_RANK``, else
-    the global rank (one host)."""
+    """This process's rank on its host: the one given to
+    :func:`initialize`, else torchrun's ``LOCAL_RANK``, else the global
+    rank (``rank``, or this process's) modulo the host's card count."""
+    return _local_rank(rank)
+
+
+def _local_rank(rank: int | None) -> int:
+    if _LOCAL_RANK:
+        return _LOCAL_RANK[0]
     if "LOCAL_RANK" in os.environ:
         return int(os.environ["LOCAL_RANK"])
-    if rank is not None:
-        return rank
-    return process_index()
+    rank = process_index() if rank is None else rank
+    return rank % max(torch.cuda.device_count(), 1)
 
 
 def host_group():

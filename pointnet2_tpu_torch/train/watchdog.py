@@ -44,7 +44,12 @@ class Watchdog:
         self._last = time.monotonic()
 
     def close(self) -> None:
+        """Stop the thread and wait for it: a thread still waiting when the
+        interpreter exits can abort the process (measured: exit 134 after a
+        cli.train run with steps_per_call=2 on the CPU)."""
         self._stop.set()
+        if self._thread is not threading.current_thread():
+            self._thread.join()
 
     def __enter__(self):
         return self

@@ -6,9 +6,9 @@ The user journey of tests/test_cli_journey.py:20 without ``cli.visualize``
 and ``Predictor.from_checkpoint`` serves it; the same for sem_seg with its
 whole-scene protocol and two loader threads. The parsers take the JAX
 package's flags with its defaults, ``parse_model_kwargs`` gives JAX's
-kwargs, and each flag whose code is not ported raises. The trainer's
-switches run: ``--steps_per_call`` and ``--remat`` write the checkpoint of
-the run without them bit for bit, ``--watchdog_secs`` arms the watchdog,
+kwargs, and every flag runs (``--virtual_scan`` on generated rooms). The
+trainer's switches run: ``--steps_per_call`` and ``--remat`` write the
+checkpoint of the run without them bit for bit, ``--watchdog_secs`` arms the watchdog,
 ``--normal`` trains and evaluates a classifier on 6-channel synthetic
 clouds and on a generated ModelNet txt tree; every run's config.json,
 metrics.jsonl and sidecar laid out as JAX's CLI writes them.
@@ -137,17 +137,32 @@ def test_parse_model_kwargs_equals_jax(argv):
     (["--model", "pointnet2_sem_seg", "--virtual_scan"], "item 7"),
 ])
 def test_unported_flags_raise(tmp_path, flags, item):
-    """--virtual_scan (ROADMAP item 7) raises before anything runs. The
-    flags of item 6 (scale-out) are ported and run: --num_devices 2 trains
-    on two gloo ranks, --multihost outside a torchrun job as one process;
-    cli.evaluate takes the same flag and reads the checkpoint (one epoch
-    of 40 clouds in batches of 8: step 5)."""
+    """Every flag once refused as not ported now runs. --virtual_scan
+    (ROADMAP item 7) trains one epoch of sem_seg on the virtual scans of two
+    generated rooms, with the chopped and whole-scene protocols on a third,
+    and writes metrics.jsonl. The flags of item 6 (scale-out): --num_devices
+    2 trains on two gloo ranks, --multihost outside a torchrun job as one
+    process; cli.evaluate takes the same flag and reads the checkpoint (one
+    epoch of 40 clouds in batches of 8: step 5)."""
     base = ["--synthetic", "--device", "cpu", "--log_dir",
             str(tmp_path / "log")]
     if item == "item 7":
-        with pytest.raises(NotImplementedError, match=item):
-            cli_train.main(base + flags)
-        assert not os.path.exists(tmp_path / "log")  # nothing ran
+        from pointnet2_tpu_torch.data import ScannetDatasetVirtualScan
+        from pointnet2_tpu_torch.data.procedural_scannet import generate
+
+        data = str(tmp_path / "rooms")
+        generate(data, train=2, test=1, seed=2, min_points=3000,
+                 max_points=4000)
+        views = ScannetDatasetVirtualScan(root=data, npoints=64,
+                                          batch_size=8)
+        cli_train.main(base[1:] + flags + [
+            "--data", data, "--num_point", "64", "--batch_size", "8",
+            "--max_epoch", "1", "--eval_every", "1"])
+        rows = _rows(str(tmp_path / "log"))
+        assert [r["split"] for r in rows] == [
+            "train", "eval_chopped", "eval_whole_scene"]
+        assert np.isfinite(rows[0]["loss"])
+        assert rows[0]["step"] == views.num_batches() > 1
         return
     small = ["--model", "pointnet_cls_basic", "--synthetic_size", "1",
              "--num_point", "64", "--batch_size", "8"]

@@ -378,6 +378,62 @@ def test_seg_train_step_kernels_vs_plain(dev, name, n, tmp_path):
 
 
 
+def test_virtual_scan_train_step_kernels_vs_plain(dev, tmp_path):
+    """One bf16 sem_seg train step at B=4 on a virtual-scan batch (two
+    generated rooms, 2048 points a view, the wdp input dropout) through
+    the kernels and through the plain versions on the card: loss and
+    running statistics equal, gradients within chip_smoke's bf16 limits
+    (SEG_STEP_TOL: 0.5 of a tensor's scale, the median 2e-2), and every
+    scatter of the step bit for bit its plain version on CPU copies."""
+    from chip_smoke import (
+        SEG_STEP_TOL,
+        capture_scatters,
+        exact_zero_biases,
+        grad_differences,
+    )
+    from pointnet2_tpu_torch.data import ScannetDatasetVirtualScan
+    from pointnet2_tpu_torch.data.procedural_scannet import generate_scenes
+    from pointnet2_tpu_torch.train import TrainConfig, Trainer
+    from pointnet2_tpu_torch.train.steps import run_one_step
+
+    rooms = generate_scenes(2, seed=3, min_points=20000, max_points=30000)
+    views = ScannetDatasetVirtualScan(scenes=rooms, npoints=2048,
+                                      batch_size=4)
+    host = next(views.epoch())
+    assert host["nvalid"] == 4 and (host["smpw"] == 0).any()
+    cfg = TrainConfig(model="pointnet2_sem_seg", batch_size=4,
+                      num_point=2048, augment="scannet",
+                      compute_dtype="bfloat16", log_dir=str(tmp_path))
+    out = {}
+    with Trainer(cfg, device=dev) as tr:
+        batch = tr._to_device(host)
+        for impl in ("auto", "torch"):
+            state = tr.init_state()
+            tr.generator.manual_seed(5)
+            with capture_scatters() as calls, config.default_impl(impl):
+                m = run_one_step(state, batch, tr.loss_fn, tr.bn_schedule,
+                                 tr.augment_fn, tr.generator, tr.task)
+            model = state.model
+            out[impl] = (float(m["loss"]),
+                         {k: p.grad.clone() for k, p in
+                          model.named_parameters()},
+                         {k: b.clone() for k, b in model.named_buffers()},
+                         list(calls))
+    (la, ga, ba, calls), (lb, gb, bb, plain_calls) = (out["auto"],
+                                                     out["torch"])
+    assert la == lb and np.isfinite(la)
+    assert len(calls) > 0 and not plain_calls
+    for g, idx, got in calls:
+        ok, err = scatter_same(torch, got, g, idx, got.shape[1])
+        assert ok, err
+    for k in ba:
+        torch.testing.assert_close(ba[k], bb[k], rtol=0, atol=0, msg=k)
+    tol, median_tol = SEG_STEP_TOL["bfloat16"]
+    diffs = grad_differences(torch, ga, gb, exact_zero_biases(model))
+    assert diffs[0][0] <= tol, diffs[:3]
+    assert float(np.median([d for d, _ in diffs])) <= median_tol
+
+
 @pytest.mark.parametrize("dtype,name", [(torch.float32, "f32"),
                                         (torch.bfloat16, "bf16")])
 def test_fused_sem_seg_layers_kernels_vs_plain(dev, dtype, name):

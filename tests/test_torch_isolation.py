@@ -20,6 +20,13 @@ _SCRIPT = textwrap.dedent("""
     import chip_smoke  # noqa: F401  (runs nothing at import)
     from pointnet2_tpu_torch.ops import fused_mlp  # noqa: F401
     from pointnet2_tpu_torch.parallel import launch, mesh, multihost
+    # the generators, the virtual scan and its sampler, the older reader
+    from pointnet2_tpu_torch.data import (PartDataset,  # noqa: F401
+                                          ScannetDatasetVirtualScan,
+                                          procedural_modelnet,
+                                          procedural_scannet,
+                                          procedural_shapenet_part)
+    from pointnet2_tpu_torch.utils import scene_util  # noqa: F401
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
                  or m == "pointnet2_tpu" or m.startswith("pointnet2_tpu."))

@@ -727,3 +727,26 @@ def test_cli_multihost_as_torchrun_starts_it(tmp_path):
     assert record["step"] == 10
     # each rank scores all 40 synthetic clouds; the counters are summed
     assert sum(record["metrics"]["per_class_seen"]) == 80
+
+
+def test_initialize_picks_the_card_by_the_local_rank(monkeypatch):
+    """initialize("h:1", 8, 6) is global rank 6 of 8 (two hosts of four
+    cards): without LOCAL_RANK it takes card 6 % 4 = 2, not card 6, which
+    the host lacks; an explicit local_rank wins, and local_rank() (what
+    make_mesh asks) answers the same afterwards."""
+    cards, groups = [], []
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    monkeypatch.setenv("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
+    monkeypatch.setattr(multihost, "_LOCAL_RANK", [])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "set_device", cards.append)
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda *a, **kw: groups.append((a, kw)))
+    multihost.initialize("h:1", 8, 6, backend="nccl")
+    assert cards == [2]
+    assert groups == [(("nccl",), {"init_method": "tcp://h:1",
+                                   "world_size": 8, "rank": 6})]
+    assert multihost.local_rank(6) == 2
+    multihost.initialize("h:1", 8, 6, backend="nccl", local_rank=3)
+    assert cards == [2, 3]
+    assert multihost.local_rank(6) == 3

@@ -54,6 +54,19 @@ def test_watchdog_is_quiet_while_beaten_and_after_close():
     assert DEFAULT_TIMEOUT_S == 900.0
 
 
+def test_watchdog_close_ends_its_thread():
+    """close() returns after the thread has ended, not at its next poll
+    (10 s at the default timeout): a watchdog thread still waiting at the
+    interpreter's exit aborted cli.train with 134 after it had written its
+    checkpoint (steps_per_call=2 on the CPU)."""
+    wd = Watchdog(timeout_s=DEFAULT_TIMEOUT_S, log_fn=lambda s: None,
+                  _exit_fn=lambda rc: None)
+    t0 = time.monotonic()
+    wd.close()
+    assert not wd._thread.is_alive()
+    assert time.monotonic() - t0 < 5.0
+
+
 class _Recorder:
     """Watchdog stand-in: records its timeout, beats and close."""
 
