@@ -29,7 +29,10 @@ part-mIoU and ScanNet evaluation protocols; the train and evaluate CLIs;
 the trainer's switches: ``steps_per_call`` as one CUDA graph of K train
 steps, ``remat``, the stall watchdog under ``cli.supervise``, and
 ``--normal`` on the ModelNet txt data with the host augmentation; scale-out
-over ranks; and the procedural stand-ins with ``--virtual_scan``. Phases:
+over ranks; the procedural stand-ins with ``--virtual_scan``; and the rest
+of the surface: mesh sampling, the layer zoo, the parity-day rehearsal
+through ``data.ingest``, ``cli.visualize``, the three demos and the
+profiling helpers. Phases:
 
 1. build the kernels from ``pointnet2_tpu_torch/csrc/`` with nvcc, one
    process per source, all at once; log ``ptxas -v`` of ``ball_query.cu``,
@@ -263,6 +266,23 @@ over ranks; and the procedural stand-ins with ``--virtual_scan``. Phases:
     and three_nn launched; (c) one bf16 sem_seg train step on a
     virtual-scan batch through the kernels and the plain versions, held
     as phase 22 holds its steps.
+33. the rest of the surface: (a) ``ops.sample_mesh`` (area-weighted
+    triangle picks by ``prob_sample``, the corner gather, FPS to 1024) on
+    the icosahedron of the mesh demo and on 16 meshes of 2000 triangles,
+    8192 draws each, through the kernels and through the plain versions on
+    the same uniforms: dense draws and reduced points exact, FPS indices
+    bit for bit, and ``prob_sample`` on the card against the CPU; (b) the
+    conv/pool layer zoo (``nn.extras``) on the card against the CPU in
+    f32; (c) the dress rehearsal: miniature ModelNet40 (txt layout),
+    ShapeNet-part and ScanNet zips through ``data.ingest``, ``cli.train``
+    and ``cli.evaluate`` of cls_ssg, part_seg_msg_one_hot and sem_seg;
+    (d) ``cli.visualize`` on those checkpoints with the native ball
+    renderer (built by g++); (e) the three demos (mesh sampling,
+    interpolation, whole-scene inference on a room generated for 80-100k
+    points) with
+    ``--device cuda``, PNGs under ``chiprun_out/phase33/``; (f)
+    ``utils.profiling``: ``time_op_loop`` of the gather beside CUDA events,
+    and ``trace``'s Chrome trace.
 
 Prints the GPU's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
@@ -278,6 +298,7 @@ Usage (from the repository root, one GPU):  python3 chip_smoke.py
 Phase 31 alone, after phase 1's build (on every card of the machine):
 python3 chip_smoke.py --phase 31
 Phase 32 alone, after phase 1's build:  python3 chip_smoke.py --phase 32
+Phase 33 alone, after phase 1's build:  python3 chip_smoke.py --phase 33
 """
 
 from __future__ import annotations
@@ -4948,6 +4969,512 @@ def check_standins(torch, check: Checks, log_dir: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 33: the rest of the surface
+# ---------------------------------------------------------------------------
+
+MESH_CASES = ((1, 20, "icosahedron"), (16, 2000, "random"))  # (B, T, mesh)
+MESH_DRAWS, MESH_NPOINT = 8192, 1024
+# phase 33b: (layer, spatial input, kernel), each with SAME and VALID at
+# strides 1 and 2, 16 -> 32 channels, B=4
+EXTRA_CASES = (("Conv1D", (256,), (5,)), ("Conv2D", (32, 32), (3, 3)),
+               ("Conv3D", (12, 12, 12), (3, 3, 3)),
+               ("Conv2DTranspose", (16, 16), (3, 3)))
+# phase 33c's miniature data sets: shapes a class (ModelNet, txt layout),
+# shapes a category and split (ShapeNet-part), rooms (ScanNet) and their
+# sizes
+REHEARSAL_MODELNET, REHEARSAL_PART = (1, 1), (1, 1, 1)
+TRACED_GATHERS = 20  # phase 33f's launches inside profiling.trace
+REHEARSAL_ROOMS = {"train": 2, "test": 1, "min_points": 20_000,
+                   "max_points": 40_000}
+
+
+def zero_launches() -> None:
+    from pointnet2_tpu_torch import ops
+
+    for w in ops.KERNELS.values():
+        w.launches = 0
+
+
+def read_launches() -> dict:
+    from pointnet2_tpu_torch import ops
+
+    return {k: w.launches for k, w in ops.KERNELS.items()}
+
+
+def add_launches(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + more.get(k, 0) for k in REPLACES}
+
+
+def mesh_input(torch, dev, B: int, T: int, kind: str):
+    """(triangles (B, T, 3, 3) on the card, uniforms (r, u, v) drawn on the
+    card from a seeded generator)."""
+    from pointnet2_tpu_torch.examples.mesh_sampling_demo import icosahedron
+
+    if kind == "icosahedron":
+        tris = icosahedron()
+    else:  # small random triangles scattered in the unit cube
+        rng = np.random.default_rng(SEED + 33)
+        centre = rng.uniform(-1, 1, (B, T, 1, 3))
+        tris = (centre + 0.05 * rng.normal(size=(B, T, 3, 3))).astype(
+            np.float32)
+    g = torch.Generator(device=dev).manual_seed(SEED + T)
+    draws = tuple(torch.rand((B, MESH_DRAWS), generator=g, device=dev)
+                  for _ in range(3))
+    return torch.from_numpy(tris).to(dev), draws
+
+
+def check_mesh(torch, dev, check: Checks) -> dict:
+    """Phase 33a: ``sample_mesh`` through the kernels (the row gather of the
+    corners and FPS) against the plain route on the same injected uniforms,
+    at the demo's size and at B=16 meshes of 2000 triangles, 8192 draws ->
+    1024: the dense draws and the reduced points exact, FPS's indices bit
+    for bit; ``prob_sample`` on the card against the CPU (equal except
+    within the cumsum gap, counted); host ms and launches a call. Returns
+    the main-path launches."""
+    from pointnet2_tpu_torch import config
+    from pointnet2_tpu_torch.ops import (
+        fps_kernel,
+        prob_sample,
+        sample_mesh,
+        triangle_areas,
+    )
+    from pointnet2_tpu_torch.ops.sampling import fps_plain
+
+    log("phase 33a: sample_mesh through the kernels vs the plain route, "
+        "same uniforms")
+    launches = {}
+    for B, T, kind in MESH_CASES:
+        tris, draws = mesh_input(torch, dev, B, T, kind)
+        zero_launches()
+        dense = sample_mesh(tris, MESH_DRAWS, uniforms=draws)
+        reduced = sample_mesh(tris, MESH_DRAWS, npoint=MESH_NPOINT,
+                              uniforms=draws)
+        torch.cuda.synchronize()
+        got = read_launches()
+        launches = add_launches(launches, got)
+        with config.default_impl("torch"):
+            dense_p = sample_mesh(tris, MESH_DRAWS, uniforms=draws)
+            reduced_p = sample_mesh(tris, MESH_DRAWS, npoint=MESH_NPOINT,
+                                    uniforms=draws)
+        idx_k = fps_kernel(dense, MESH_NPOINT)
+        idx_p = fps_plain(dense, MESH_NPOINT)
+        ms = host_ms(torch, lambda: sample_mesh(
+            tris, MESH_DRAWS, npoint=MESH_NPOINT, uniforms=draws).cpu(), 10)
+        check(got["fps"] == 1 and got["gather_rows"] == 3
+              and torch.equal(dense, dense_p) and torch.equal(idx_k, idx_p)
+              and torch.equal(reduced, reduced_p)
+              and bool(torch.isfinite(reduced).all())
+              and reduced.shape == (B, MESH_NPOINT, 3),
+              f"{kind} B={B} T={T}, {MESH_DRAWS} -> {MESH_NPOINT}: dense "
+              f"draws exact, FPS indices bit for bit, reduced points exact; "
+              f"launches {{fps: {got['fps']}, gather_rows: "
+              f"{got['gather_rows']}}} (two calls); host {ms:.3f} ms a "
+              f"reducing call")
+    # prob_sample: the card's cumsum against the CPU's on the same weights
+    w = triangle_areas(tris).cpu()
+    r = draws[0].cpu()
+    got, want = prob_sample(w.to(dev), r.to(dev)).cpu(), prob_sample(w, r)
+    cs_d = torch.cumsum(w.to(dev), 1).cpu().double()
+    cs_h = torch.cumsum(w, 1).double()
+    gap = float((cs_d - cs_h).abs().max()
+                + (cs_d[:, -1] - cs_h[:, -1]).abs().max())
+    diff = (got != want).nonzero().tolist()
+    q = r.double() * cs_h[:, -1:]
+    within = all(abs(int(got[b, m]) - int(want[b, m])) == 1
+                 and abs(float(q[b, m] - cs_h[b, min(int(got[b, m]),
+                                                      int(want[b, m]))]))
+                 <= gap + 1e-6 * float(cs_h[b, -1]) for b, m in diff)
+    check(within and len(diff) <= max(2, got.numel() // 500),
+          f"prob_sample on the card vs the CPU ({tuple(w.shape)} weights, "
+          f"{tuple(r.shape)} draws): {len(diff)} indices differ, each by one "
+          f"within the cumsums' gap {gap:.3e}")
+    return launches
+
+
+def check_extras(torch, dev, check: Checks) -> None:
+    """Phase 33b: the conv/pool layer zoo on the card against the CPU, f32
+    with TF32 off (config.disable_tf32): every conv kind, SAME and VALID,
+    strides 1 and 2, in eval and train mode with BN, within 1e-5 of max|y|;
+    the max pools equal, the average pools within 1e-5 of max|y|."""
+    import copy
+
+    from pointnet2_tpu_torch import config
+    from pointnet2_tpu_torch.nn import extras
+
+    log("phase 33b: nn.extras on the card vs the CPU, f32 (TF32 off)")
+    config.disable_tf32()
+    g = torch.Generator().manual_seed(SEED + 34)
+    worst = {}
+    for name, spatial, kernel in EXTRA_CASES:
+        x = torch.randn((4, *spatial, 16), generator=g)
+        for padding in ("SAME", "VALID"):
+            for s in (1, 2):
+                layer = getattr(extras, name)(16, 32, kernel,
+                                              (s,) * len(kernel), padding,
+                                              bn=True)
+                layer.reset_parameters(g)
+                card = copy.deepcopy(layer).to(dev)
+                for mode in ("eval", "train"):
+                    getattr(layer, mode)()
+                    getattr(card, mode)()
+                    with torch.no_grad():
+                        want = layer(x, 0.9)
+                        got = card(x.to(dev), 0.9).cpu()
+                    err = float((got - want).abs().max()
+                                / want.abs().max())
+                    key = f"{name} {padding} s={s} {mode}"
+                    worst[key] = err
+                    if got.shape != want.shape or not err <= 1e-5:
+                        check(False, f"{key}: shape {tuple(got.shape)}, "
+                              f"relative error {err:.2e}")
+    check(max(worst.values()) <= 1e-5,
+          f"{len(worst)} conv cases on the card within 1e-5 of max|y| of "
+          f"the CPU's: largest {max(worst.values()):.2e} "
+          f"({max(worst, key=worst.get)})")
+    x = torch.randn((4, 15, 16, 17, 8), generator=g)
+    errs = []
+    for nd, xs in ((2, x[:, 0]), (3, x)):
+        for padding in ("SAME", "VALID"):
+            args = ((3,) * nd, (2,) * nd, padding)
+            mx = getattr(extras, f"max_pool{nd}d")
+            av = getattr(extras, f"avg_pool{nd}d")
+            errs.append(torch.equal(mx(xs.to(dev), *args).cpu(),
+                                    mx(xs, *args)))
+            want = av(xs, *args)
+            errs.append(float((av(xs.to(dev), *args).cpu() - want).abs().max()
+                              / want.abs().max()) <= 1e-5)
+    check(all(errs), "max pools 2d/3d SAME/VALID equal on the card and the "
+          "CPU, average pools within 1e-5 of max|y|")
+
+
+def rehearsal_data(root: str) -> dict:
+    """Phase 33c: the three miniature data sets in their real layouts
+    (ModelNet40 txt with normals: the card's machine has no h5py;
+    ShapeNet-part v0_normal; ScanNet pickles), each zipped with one wrapper
+    directory as downloaded. Returns {dataset: zip path}."""
+    from pointnet2_tpu_torch.data import procedural_modelnet as mn
+    from pointnet2_tpu_torch.data import procedural_scannet as sc
+    from pointnet2_tpu_torch.data import procedural_shapenet_part as sp
+
+    raws = {"modelnet40_normal": os.path.join(
+                root, "raw", "modelnet40_normal_resampled"),
+            "shapenet_part": os.path.join(
+                root, "raw",
+                "shapenetcore_partanno_segmentation_benchmark_v0_normal"),
+            "scannet": os.path.join(root, "raw", "scannet_data_pointnet2")}
+    mn.generate_txt(raws["modelnet40_normal"],
+                    train_per_class=REHEARSAL_MODELNET[0],
+                    test_per_class=REHEARSAL_MODELNET[1], npoints=N_POINT,
+                    seed=SEED)
+    tr, va, te = REHEARSAL_PART
+    sp.generate(raws["shapenet_part"], train_per_class=tr, val_per_class=va,
+                test_per_class=te, npoints=PART_N, seed=SEED)
+    sc.generate(raws["scannet"], seed=SEED, **REHEARSAL_ROOMS)
+    zips = {}
+    for name, raw in raws.items():
+        zips[name] = shutil.make_archive(
+            os.path.join(root, f"{name}_download"), "zip",
+            root_dir=os.path.dirname(raw), base_dir=os.path.basename(raw))
+        shutil.rmtree(raw)
+    return zips
+
+
+def check_rehearsal(torch, check: Checks, log_dir: str) -> tuple:
+    """Phase 33c: the parity-day path on the card: each miniature zip
+    through ``data.ingest``, then ``cli.train`` (1 epoch) and
+    ``cli.evaluate --out`` with ``--device cuda``: cls_ssg ``--normal`` on
+    the ModelNet txt layout (1024 points, B=16, 2 votes),
+    part_seg_msg_one_hot on ShapeNet-part (2048 points, B=16, 2 votes),
+    sem_seg on ScanNet (8192 points, B=8, the chopped and whole-scene
+    protocols). Returns (the launches, {model: (data root, run dir,
+    flags)})."""
+    from pointnet2_tpu_torch.cli import evaluate as cli_evaluate
+    from pointnet2_tpu_torch.cli import train as cli_train
+    from pointnet2_tpu_torch.data import ingest
+
+    log("phase 33c: the dress rehearsal on the card: ingest, cli.train, "
+        "cli.evaluate")
+    root = os.path.join(log_dir, "rehearsal")
+    t0 = time.perf_counter()
+    zips = rehearsal_data(root)
+    log(f"  wrote the three miniature zips in {time.perf_counter() - t0:.1f}"
+        " s")
+    try:
+        import h5py  # noqa: F401
+        h5 = "h5py is installed here"
+    except ImportError:
+        try:
+            ingest.validate_modelnet40_h5(root, log=lambda m: None)
+            h5 = "the H5 validator ran without h5py"
+        except ImportError as e:
+            h5 = f"the H5 validator raises here: {e}"
+    log(f"  ModelNet40 HDF5 layout: validated on the CPU only "
+        f"(tests/test_torch_dress_rehearsal.py); {h5}")
+    cases = (
+        ("modelnet40_normal", "modelnet40_normal_resampled", CLS_SSG,
+         ["--normal", "--num_point", str(N_POINT), "--batch_size", "16"],
+         ["--num_votes", "2"], ("accuracy", "avg_class_accuracy")),
+        ("shapenet_part", "shapenet_part", PART_MSG,
+         ["--num_point", str(PART_N), "--batch_size", "16"],
+         ["--num_votes", "2"], ("accuracy", "instance_miou",
+                                "category_miou")),
+        ("scannet", "scannet_pickles", SEM,
+         ["--num_point", str(SEM_N), "--batch_size", "8"], [],
+         ("chopped", "whole_scene")))
+    zero_launches()
+    runs = {}
+    for dataset, dest_name, model, flags, eval_flags, keys in cases:
+        dest = os.path.join(root, "data", dest_name)
+        run_dir = os.path.join(root, f"run_{model}")
+        out = os.path.join(root, f"{model}.json")
+        common = ["--model", model, "--data", dest, "--log_dir", run_dir,
+                  "--device", "cuda", *flags]
+        t0 = time.perf_counter()
+        ingest.main(["--dataset", dataset, "--src", zips[dataset], "--dest",
+                     dest])
+        t1 = time.perf_counter()
+        cli_train.main(common + ["--max_epoch", "1"])
+        t2 = time.perf_counter()
+        cli_evaluate.main(common + eval_flags + ["--out", out])
+        t3 = time.perf_counter()
+        with open(out) as f:
+            record = json.load(f)
+        metrics = record["metrics"]
+        flat = (metrics if model != SEM else
+                {f"{k}.{m}": v for k, d in metrics.items()
+                 for m, v in d.items()})
+        scalars = {k: v for k, v in flat.items() if isinstance(v, float)}
+        check(all(k in metrics for k in keys) and record["step"] >= 1
+              and os.path.isfile(os.path.join(run_dir, "ckpt", "state.pt"))
+              and all(np.isfinite(v) for v in scalars.values()),
+              f"{dataset} -> {model}: ingest {t1 - t0:.1f} s, cli.train "
+              f"{t2 - t1:.1f} s ({record['step']} steps), cli.evaluate "
+              f"{t3 - t2:.1f} s; "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(scalars.items())))
+        runs[model] = (dest, run_dir, flags)
+    counts = read_launches()
+    log(f"  launches in the dress rehearsal: {counts}")
+    check(all(counts[k] > 0 for k in ("fps", "ball_query", "gather_rows",
+                                      "scatter_rows", "three_nn")),
+          "the rehearsal launched FPS, the ball query, the gather, the "
+          "scatter and three_nn (the MSG layers query radius by radius by "
+          "default, as in JAX)")
+    return counts, runs
+
+
+def png_ok(path: str) -> tuple:
+    """(decodes with the standard-library reader, share of pixels off the
+    background) of a PNG the port wrote."""
+    from pointnet2_tpu_torch.utils.png import read_png
+
+    img = read_png(path)
+    lit = float((img.reshape(img.shape[0], img.shape[1], -1).max(-1)
+                 > 0).mean())
+    return img.ndim in (2, 3), lit
+
+
+def check_visualize(torch, check: Checks, runs: dict, out_dir: str) -> dict:
+    """Phase 33d: ``cli.visualize`` on 33c's classifier and part-segmenter
+    checkpoints, on the card: the native renderer built by g++ and loaded
+    (not the numpy fallback), the PNGs decode and are not blank. Returns
+    the launches."""
+    from pointnet2_tpu_torch.cli import visualize
+    from pointnet2_tpu_torch.viz import viewer
+
+    log("phase 33d: cli.visualize on the rehearsal's checkpoints")
+    zero_launches()
+    written = []
+    for model in (CLS_SSG, PART_MSG):
+        data, run_dir, flags = runs[model]
+        t0 = time.perf_counter()
+        paths = visualize.main(["--model", model, "--data", data,
+                                "--log_dir", run_dir, "--num_samples", "2",
+                                "--canvas", "400", "--out",
+                                os.path.join(out_dir, f"viz_{model}"),
+                                "--device", "cuda", *flags])
+        with open(os.path.join(run_dir, "log_train.txt")) as f:
+            restored = "restored ckpt at step" in f.read()
+        stats = [png_ok(p) for p in paths]
+        check(restored and len(paths) == (2 if model == CLS_SSG else 4)
+              and all(ok and lit > 0.005 for ok, lit in stats),
+              f"{model}: restored its checkpoint, wrote {len(paths)} PNGs "
+              f"({time.perf_counter() - t0:.1f} s), each decodes, lit "
+              f"pixels {min(s[1] for s in stats):.3f}-"
+              f"{max(s[1] for s in stats):.3f}")
+        written += paths
+    lib = viewer.native_library()
+    check(lib is not None and os.path.isfile(lib)
+          and os.path.dirname(lib) == str(viewer.BUILD_DIR),
+          f"the native ball renderer was built by g++ "
+          f"({' '.join(viewer.GXX_FLAGS)}) and loaded: {lib} "
+          f"{viewer.build_error()}")
+    return read_launches()
+
+
+def check_demos(torch, check: Checks, out_dir: str) -> dict:
+    """Phase 33e: the three demos with ``--device cuda``, their PNGs under
+    ``out_dir``: the mesh demo's reduced cloud the FPS subset of its dense
+    one, the interpolation demo equal to its CPU run within 1e-5, the
+    scene demo at its full size (a room generated for 80-100k points,
+    sem_seg at 8192 points a block, random weights): every point labelled,
+    votes, wall time. Returns the launches."""
+    from pointnet2_tpu_torch.examples import (
+        interpolation_demo,
+        mesh_sampling_demo,
+        scene_inference_demo,
+    )
+    from pointnet2_tpu_torch.ops import fps_kernel
+
+    log("phase 33e: the three demos on the card")
+    zero_launches()
+    t0 = time.perf_counter()
+    mesh = mesh_sampling_demo.main(["--out", os.path.join(out_dir, "mesh"),
+                                    "--device", "cuda"])
+    t1 = time.perf_counter()
+    interp = interpolation_demo.main([
+        "--out", os.path.join(out_dir, "interp"), "--device", "cuda"])
+    t2 = time.perf_counter()
+    scene = scene_inference_demo.main([
+        "--out", os.path.join(out_dir, "scene_pred.png"), "--device",
+        "cuda"])
+    t3 = time.perf_counter()
+    counts = read_launches()
+    dense = torch.from_numpy(mesh["dense"]).cuda()
+    idx = fps_kernel(dense, MESH_NPOINT).cpu().numpy()
+    check(mesh["reduced"].shape == (1, MESH_NPOINT, 3)
+          and np.array_equal(mesh["reduced"][0], mesh["dense"][0, idx[0]])
+          and all(png_ok(p)[1] > 0.005 for p in mesh["paths"]),
+          f"mesh demo ({t1 - t0:.2f} s): {mesh['dense'].shape} -> "
+          f"{mesh['reduced'].shape}, the reduced cloud is the dense one's "
+          "FPS subset, PNGs decode, not blank")
+    cpu = interpolation_demo.main([
+        "--out", os.path.join(out_dir, "interp_cpu"), "--device", "cpu"])
+    err = float(np.abs(interp["dense_color"] - cpu["dense_color"]).max())
+    check(err <= 1e-5 and all(png_ok(p)[1] > 0.005 for p in interp["paths"]),
+          f"interpolation demo ({t2 - t1:.2f} s): dense colours on the card "
+          f"vs the CPU max abs diff {err:.2e}, PNGs decode, not blank")
+    pred = scene["pred"]
+    n = len(scene["points"])
+    check(n >= SEM_N and pred["labels"].shape == (n,)
+          and int(pred["votes"].min()) >= 1
+          and bool(np.isfinite(pred["logits"]).all())
+          and png_ok(os.path.join(out_dir, "scene_pred.png"))[1] > 0.005,
+          f"scene demo ({t3 - t2:.2f} s): {n} points, every one labelled, "
+          f"votes {int(pred['votes'].min())}-{int(pred['votes'].max())}, "
+          f"predict_scene {scene['seconds'] * 1e3:.1f} ms (host clock, "
+          f"first call), annotated accuracy {scene['accuracy']:.4f} "
+          "(random weights)")
+    log(f"  launches in the demos: {counts}")
+    check(all(counts[k] > 0 for k in ("fps", "ball_query", "gather_rows",
+                                      "three_nn")),
+          "the demos launched FPS, the ball query, the gather and three_nn")
+    return counts
+
+
+# phase 33f's trace in a fresh process: the row gather at phase 5's bf16
+# shape, TRACED_GATHERS launches inside profiling.trace
+TRACE_SCRIPT = """\
+import json, sys
+import torch
+sys.path.insert(0, {root!r})
+from pointnet2_tpu_torch.ops import grouping
+from pointnet2_tpu_torch.utils import profiling
+g = torch.Generator(device="cuda").manual_seed(0)
+pts = torch.randn((16, 1024, 64), generator=g, device="cuda").bfloat16()
+ix = torch.randint(0, 1024, (16, 16384), generator=g, device="cuda",
+                   dtype=torch.int32)
+grouping.gather_rows_kernel(pts, ix)
+with profiling.trace({tdir!r}) as prof:
+    for _ in range({n}):
+        grouping.gather_rows_kernel(pts, ix)
+print(json.dumps(sum(getattr(e, "self_device_time_total", 0)
+                     for e in prof.key_averages()
+                     if "gather_rows_kernel" in e.key)))
+"""
+
+
+def traced_gathers(tdir: str) -> list:
+    """The names of ``gather_rows_kernel`` events in tdir/trace.json."""
+    with open(os.path.join(tdir, "trace.json")) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    return [n for n in names if "gather_rows_kernel" in n]
+
+
+def check_profiling(torch, dev, gpu: str, check: Checks,
+                    out_dir: str) -> None:
+    """Phase 33f: ``utils.profiling`` on the card: ``time_op_loop`` of the
+    row gather at phase 5's bf16 shape beside phase 5's CUDA-event timing
+    of the same launch, and ``trace`` writing a Chrome trace that names
+    the gather's kernel, in a fresh process (checked) and in this one
+    after the earlier phases (logged: a full run's earlier phases leave the
+    profiler recording the launches but no kernel activity)."""
+    from pointnet2_tpu_torch.ops import grouping
+    from pointnet2_tpu_torch.utils import profiling
+
+    log(f"phase 33f: utils.profiling on {gpu}")
+    lv = kernel_inputs(torch, dev, 16)[0]
+    pts = lv["lifted"].to(torch.bfloat16)
+    ix = lv["idx"].reshape(16, -1)
+    out = torch.empty((16, ix.shape[1], pts.shape[2]), dtype=pts.dtype,
+                      device=dev)
+    loop_ms = profiling.time_op_loop(
+        lambda p: grouping.launch_gather_rows(p, ix, out), pts,
+        iters=100) * 1e3
+    ev_ms = event_ms(torch, lambda: grouping.launch_gather_rows(pts, ix, out),
+                     100, prefill=True)
+    fn_ms = profiling.time_fn(lambda: grouping.gather_rows_kernel(pts, ix),
+                              iters=20) * 1e3
+    check(0 < loop_ms < 10 * ev_ms + 0.05,
+          f"gather_rows {tuple(pts.shape)} bf16 by {tuple(ix.shape)}: "
+          f"time_op_loop {loop_ms:.6f} ms a launch, phase 5's CUDA events "
+          f"(queue pre-filled) {ev_ms:.6f} ms, time_fn {fn_ms:.6f} ms a "
+          "synchronised call (host clock)")
+    tdir = os.path.join(out_dir, "trace_here")
+    with profiling.trace(tdir):
+        for _ in range(TRACED_GATHERS):
+            grouping.gather_rows_kernel(pts, ix)
+    log(f"  trace in this process: {len(traced_gathers(tdir))} of "
+        f"{TRACED_GATHERS} gather launches as kernel events")
+    tdir = os.path.join(out_dir, "trace")
+    script = TRACE_SCRIPT.format(
+        root=os.path.dirname(os.path.abspath(__file__)), tdir=tdir,
+        n=TRACED_GATHERS)
+    proc = subprocess.run([sys.executable, "-c", script],
+                          capture_output=True, text=True,
+                          timeout=SPAWN_TIMEOUT)
+    hits = traced_gathers(tdir) if proc.returncode == 0 else []
+    device_us = float(proc.stdout.strip() or 0) if hits else 0.0
+    check(len(hits) == TRACED_GATHERS,
+          f"trace in a fresh process wrote {tdir}/trace.json naming "
+          f"{hits[0][:60] if hits else 'no gather kernel'}, {len(hits)} of "
+          f"{TRACED_GATHERS} launches ({device_us / TRACED_GATHERS:.1f} us "
+          f"a launch by key_averages){proc.stderr[-500:] if not hits else ''}")
+
+
+def check_surface(torch, dev, gpu: str, check: Checks, log_dir: str) -> dict:
+    """Phase 33: mesh sampling, the layer zoo, the dress rehearsal,
+    cli.visualize, the demos and the profiling helpers on the card. Returns
+    the main-path launches of 33a, 33c, 33d and 33e."""
+    log("phase 33: the rest of the surface")
+    t0 = time.perf_counter()
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chiprun_out", "phase33")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    counts = check_mesh(torch, dev, check)
+    check_extras(torch, dev, check)
+    rehearsal, runs = check_rehearsal(torch, check, log_dir)
+    counts = add_launches(counts, rehearsal)
+    counts = add_launches(counts, check_visualize(torch, check, runs,
+                                                  out_dir))
+    counts = add_launches(counts, check_demos(torch, check, out_dir))
+    check_profiling(torch, dev, gpu, check, out_dir)
+    torch.cuda.synchronize()
+    log(f"  phase 33: {time.perf_counter() - t0:.1f} s, launches {counts}")
+    return counts
+
+
 def check_tensor_cores(_build, check: Checks) -> None:
     """Phase 1: in the built fused_mlp library's SASS, the bf16 dense
     pass's product and the bf16 dense backward's two are tensor-core
@@ -5003,6 +5530,9 @@ def main() -> int:
         return finish(torch, check, t_start, gpu, None)
     if sys.argv[1:] == ["--phase", "32"]:
         check_standins(torch, check, log_dir)
+        return finish(torch, check, t_start, gpu, None)
+    if sys.argv[1:] == ["--phase", "33"]:
+        check_surface(torch, dev, gpu, check, log_dir)
         return finish(torch, check, t_start, gpu, None)
     for src in ("ball_query", "scatter", "three_nn", "fused_mlp"):
         log(f"  ptxas -v of csrc/{src}.cu (registers, shared memory, "
@@ -5205,6 +5735,7 @@ def main() -> int:
     normals = check_normal_txt(torch, check, log_dir)
     scale_out = check_scale_out(torch, check, log_dir, gpu)
     standins = check_standins(torch, check, log_dir)
+    surface = check_surface(torch, dev, gpu, check, log_dir)
     # launches of each kernel over every main-path run (classifier serving,
     # training, sem_seg and part_seg serving, the MSG models' serving and
     # the MSG layers' other routes, the fused route's serving and
@@ -5212,12 +5743,13 @@ def main() -> int:
     # the CLI journeys, the graphed epochs (a replay counts the launches
     # recorded at its capture), the remat steps, the txt data's runs, the
     # ranks' steps and epochs of phase 31, the virtual-scan journey of
-    # phase 32); the affine tail runs on no model path, so its phase-16
+    # phase 32, phase 33's mesh sampling, dress rehearsal, visualize runs
+    # and demos); the affine tail runs on no model path, so its phase-16
     # launches count
     runs = [fit["counts"], seg["launches"][SEM], seg["launches"][PART],
             *msg["launches"].values(), *fused["launches"].values(),
             fused_fit, seg_fit, resume, protocols, journeys, graphed,
-            graph_resume, remat, normals, *scale_out, standins]
+            graph_resume, remat, normals, *scale_out, standins, surface]
     launches = {k: launches[k] + sum(r[k] for r in runs) for k in REPLACES}
     launches["fused_affine"] += affine_launches
     check(all(launches[k] > 0 for k in REPLACES),

@@ -19,8 +19,13 @@ a category label, ``Predictor(points, cls_label)``), the PointNet baseline
 training of every model, with checkpoints and exact resume
 (``train.checkpoint``), the evaluation protocols (``evaluation``: the
 vote, part mIoU, ScanNet's chopped and whole-scene passes),
-``Predictor.from_checkpoint``, and the command-line tools ``cli.train``
-and ``cli.evaluate``.
+``Predictor.from_checkpoint``, the command-line tools (``cli.train``,
+``cli.evaluate``, ``cli.supervise``, ``cli.visualize``,
+``cli.plot_metrics``), scale-out over ranks, the data tools
+(``data.ingest``, ``data.scannet_preprocessing``, the procedural
+stand-ins), the viewer (``viz``), mesh sampling (``ops.sample_mesh``), the
+conv/pool layers (``nn.extras``), the profiling helpers and the demos
+(``examples``): everything of the JAX package but its benchmark harness.
 """
 
 from pointnet2_tpu_torch.convert import flax_to_torch

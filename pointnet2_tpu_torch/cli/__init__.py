@@ -1,1 +1,2 @@
-"""Command-line tools of the port: ``cli.train`` and ``cli.evaluate``."""
+"""Command-line tools of the port: ``cli.train``, ``cli.evaluate``,
+``cli.supervise``, ``cli.visualize`` and ``cli.plot_metrics``."""

@@ -1,7 +1,8 @@
 """Point ops of the port: FPS, ball query (single, with grouped xyz, and
 multi-radius), kNN, row gathers with their scatter-add gradient, max
 pooling, the three-NN search and interpolation of feature propagation, and
-the fused SA chain's forward and backward (``ops.fused_mlp``).
+the fused SA chain's forward and backward (``ops.fused_mlp``), and
+probability sampling with the area-weighted mesh sampler (``ops.mesh``).
 
 ``KERNELS`` names each hand-written CUDA kernel's wrapper; a wrapper's
 ``launches`` attribute counts its launches.
@@ -33,11 +34,13 @@ from pointnet2_tpu_torch.ops.interpolate import (
     three_nn,
     three_nn_kernel,
 )
+from pointnet2_tpu_torch.ops.mesh import sample_mesh, triangle_areas
 from pointnet2_tpu_torch.ops.pooling import max_pool
 from pointnet2_tpu_torch.ops.sampling import (
     farthest_point_sample,
     fps_kernel,
     gather_point,
+    prob_sample,
 )
 
 KERNELS = {
@@ -63,10 +66,13 @@ __all__ = [
     "group_point",
     "knn_point",
     "max_pool",
+    "prob_sample",
     "query_ball_and_group_xyz",
     "query_ball_point",
     "query_ball_point_multi",
+    "sample_mesh",
     "scatter_rows",
     "three_interpolate",
     "three_nn",
+    "triangle_areas",
 ]

@@ -1,6 +1,7 @@
-"""Sampling ops: farthest point sampling and point gather.
+"""Sampling ops: farthest point sampling, point gather, probability
+sampling.
 
-Port of pointnet2_tpu/ops/sampling.py:33-132:
+Port of pointnet2_tpu/ops/sampling.py:33-167:
 
 - ``farthest_point_sample``: seed is always index 0; iteratively selects the
   point with the maximum min squared distance to the selected set; ties
@@ -8,6 +9,9 @@ Port of pointnet2_tpu/ops/sampling.py:33-132:
 - ``gather_point``: gathers (B,M,C) from (B,N,C) by (B,M) indices, an exact
   copy (the row gather of ops/grouping.py), whose gradient is the
   scatter-add.
+- ``prob_sample``: categorical indices by cumulative sum and binary
+  search, plain PyTorch on every device (no Pallas kernel in the JAX
+  package either). No gradient.
 
 FPS runs its CUDA kernel on CUDA tensors and its plain PyTorch version on
 CPU tensors (``config.use_kernel``); ``fps_kernel.launches`` counts the
@@ -104,3 +108,23 @@ def gather_point(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Gather rows of points by per-batch indices: points (B, N, C),
     idx (B, M) -> (B, M, C)."""
     return gather_rows(points, idx)
+
+
+def prob_sample(inp: torch.Tensor, inpr: torch.Tensor) -> torch.Tensor:
+    """Sample categorical indices proportional to unnormalized weights
+    (pointnet2_tpu/ops/sampling.py:156-167).
+
+    inp: (B, N) unnormalized weights (e.g. triangle areas); inpr: (B, M)
+    uniform randoms in [0, 1). Returns (B, M) int32 indices: the smallest
+    r with cumsum(inp)[r] >= u * cumsum(inp)[-1], clamped to N - 1.
+
+    The float32 prefix sums are ``torch.cumsum``'s, whose order of
+    additions differs from XLA's (and between the CPU and CUDA): where a
+    draw lies within that rounding of a boundary the index can move by
+    one. On weights whose prefix sums are exact (small integers, dyadic
+    values) every order gives the same indices.
+    """
+    cs = torch.cumsum(inp.detach().float(), dim=1).contiguous()
+    q = (inpr.detach().float() * cs[:, -1:]).contiguous()
+    idx = torch.searchsorted(cs, q, side="left")
+    return idx.clamp_max(inp.shape[1] - 1).to(torch.int32)

@@ -1474,3 +1474,45 @@ def test_remat_equals_none_on_card(dev, tmp_path, remat):
     assert not names, names
     assert counts["fps"] == 2 * per["fps"]
     assert counts["scatter_rows"] == per["scatter_rows"]
+
+
+@pytest.mark.parametrize("B,T,S,npoint", [(1, 20, 8192, 1024),
+                                          (3, 500, 4000, 333)])
+def test_sample_mesh_kernels_equal_plain_on_card(dev, rs, B, T, S, npoint):
+    """ops.sample_mesh: the corner gather and FPS through the kernels,
+    against the plain route on the same uniforms: exact."""
+    tris = torch.from_numpy(rs.normal(size=(B, T, 3, 3)).astype(
+        np.float32)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    draws = tuple(torch.rand((B, S), generator=g, device=dev)
+                  for _ in range(3))
+    before = (ops.fps_kernel.launches, ops.gather_rows_kernel.launches)
+    got = ops.sample_mesh(tris, S, npoint=npoint, uniforms=draws)
+    assert (ops.fps_kernel.launches - before[0],
+            ops.gather_rows_kernel.launches - before[1]) == (1, 2)
+    want = _plain(lambda: ops.sample_mesh(tris, S, npoint=npoint,
+                                          uniforms=draws))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name,spatial,kernel", [
+    ("Conv1D", (64,), (5,)), ("Conv2D", (15, 16), (3, 3)),
+    ("Conv3D", (7, 8, 9), (3, 2, 3)), ("Conv2DTranspose", (7, 8), (3, 4))])
+@pytest.mark.parametrize("padding", ["SAME", "VALID"])
+def test_extras_on_card_match_cpu(dev, name, spatial, kernel, padding):
+    """nn.extras in f32 (TF32 off) on the card within 1e-5 of max|y| of
+    the CPU, strides 2, BN in train mode."""
+    import copy
+
+    from pointnet2_tpu_torch.nn import extras
+
+    config.disable_tf32()
+    layer = getattr(extras, name)(6, 10, kernel, (2,) * len(kernel),
+                                  padding, bn=True).train()
+    card = copy.deepcopy(layer).to(dev)
+    x = torch.randn((2, *spatial, 6), generator=torch.Generator()
+                    .manual_seed(4))
+    with torch.no_grad():
+        want, got = layer(x), card(x.to(dev)).cpu()
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())

@@ -1,5 +1,7 @@
 """The port stands alone: importing all of it, and chip_smoke.py, loads
-nothing of JAX, Flax or the JAX package, and its entry points refuse to run
+nothing of JAX, Flax or the JAX package, nor any of the optional packages
+the card's machine lacks (h5py, matplotlib, PIL, OpenCV, plyfile: the
+modules that use them import them at the call), and its entry points refuse to run
 on the CPU unless asked to: the single-device ones, and the scale-out ones
 (``Predictor(num_devices=2)``, ``Trainer`` with ``num_devices``, the
 mesh, the launcher of CUDA ranks). Run in a fresh interpreter, so the test
@@ -27,12 +29,28 @@ _SCRIPT = textwrap.dedent("""
                                           procedural_scannet,
                                           procedural_shapenet_part)
     from pointnet2_tpu_torch.utils import scene_util  # noqa: F401
+    # the rest of the surface: parity-day tools, viewers and plots, the
+    # layer zoo, mesh sampling, profiling and the demos
+    from pointnet2_tpu_torch.cli import plot_metrics, visualize  # noqa: F401
+    from pointnet2_tpu_torch.data import (ingest,  # noqa: F401
+                                          scannet_preprocessing)
+    from pointnet2_tpu_torch.examples import (  # noqa: F401
+        interpolation_demo, mesh_sampling_demo, scene_inference_demo)
+    from pointnet2_tpu_torch.nn import extras  # noqa: F401
+    from pointnet2_tpu_torch.ops import mesh as ops_mesh  # noqa: F401
+    from pointnet2_tpu_torch.ops import prob_sample  # noqa: F401
+    from pointnet2_tpu_torch.utils import pc_util, png, profiling  # noqa
+    from pointnet2_tpu_torch.viz import viewer  # noqa: F401
     bad = sorted(m for m in sys.modules
-                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                        "h5py", "matplotlib", "PIL", "cv2",
+                                        "plyfile")
                  or m == "pointnet2_tpu" or m.startswith("pointnet2_tpu."))
     assert not bad, bad
+    import tempfile
     import torch
     assert not torch.cuda.is_available()
+    tmp = tempfile.mkdtemp()
     from pointnet2_tpu_torch import (Predictor, PointNet2ClsMSG,
                                      PointNet2ClsSSG, PointNet2PartSeg,
                                      PointNet2PartSegMSGOneHot,
@@ -54,7 +72,14 @@ _SCRIPT = textwrap.dedent("""
                  lambda: Trainer(TrainConfig()),
                  lambda: Trainer(TrainConfig(num_devices=1)),
                  lambda: Predictor("pointnet2_cls_ssg", num_devices=2),
-                 lambda: mesh.make_mesh(1)):
+                 lambda: mesh.make_mesh(1),
+                 lambda: mesh_sampling_demo.main(["--out", tmp]),
+                 lambda: interpolation_demo.main(["--out", tmp]),
+                 lambda: scene_inference_demo.main(["--min_points", "10",
+                                                    "--max_points", "20"]),
+                 lambda: visualize.main(["--model", "pointnet_cls_basic",
+                                         "--synthetic", "--out", tmp,
+                                         "--log_dir", tmp])):
         try:
             make()
         except RuntimeError as e:
