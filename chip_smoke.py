@@ -32,7 +32,8 @@ steps, ``remat``, the stall watchdog under ``cli.supervise``, and
 over ranks; the procedural stand-ins with ``--virtual_scan``; and the rest
 of the surface: mesh sampling, the layer zoo, the parity-day rehearsal
 through ``data.ingest``, ``cli.visualize``, the three demos and the
-profiling helpers. Phases:
+profiling helpers; and FPS at any cloud size, on its thread-block-cluster
+route above 16384 points. Phases:
 
 1. build the kernels from ``pointnet2_tpu_torch/csrc/`` with nvcc, one
    process per source, all at once; log ``ptxas -v`` of ``ball_query.cu``,
@@ -282,7 +283,19 @@ profiling helpers. Phases:
     points) with
     ``--device cuda``, PNGs under ``chiprun_out/phase33/``; (f)
     ``utils.profiling``: ``time_op_loop`` of the gather beside CUDA events,
-    and ``trace``'s Chrome trace.
+    and ``trace``'s Chrome trace in a fresh process (and, logged, in this
+    one: late in a full run the profiler loses kernels, erratically);
+34. FPS at any cloud size: the CTA route's edge (16, 16384 -> 1024), the
+    cluster route (16385 to 262144 points: two whole generated ScanNet
+    rooms thinned to 8192, four clouds of 50000) and its scratch route
+    (262145 and 1000000 points), a lattice and a far point copied across
+    slices (ties), 40000 identical points, each through
+    ``farthest_point_sample`` bit for bit ``fps_plain`` with one launch,
+    and timed (µs a step beside sem_seg SA1's, the plain version, the
+    operations bound); ``sample_mesh`` with 100000 draws -> 10000 points
+    on 16 meshes through the kernels and the plain route, exact; three_nn
+    and the scatter-add at B = 65537 clouds bit for bit; ``ptxas -v`` of
+    ``fps.cu``; under 60 s after the build.
 
 Prints the GPU's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
@@ -299,6 +312,7 @@ Phase 31 alone, after phase 1's build (on every card of the machine):
 python3 chip_smoke.py --phase 31
 Phase 32 alone, after phase 1's build:  python3 chip_smoke.py --phase 32
 Phase 33 alone, after phase 1's build:  python3 chip_smoke.py --phase 33
+Phase 34 alone, after phase 1's build:  python3 chip_smoke.py --phase 34
 """
 
 from __future__ import annotations
@@ -5006,9 +5020,10 @@ def add_launches(total: dict, more: dict) -> dict:
     return {k: total.get(k, 0) + more.get(k, 0) for k in REPLACES}
 
 
-def mesh_input(torch, dev, B: int, T: int, kind: str):
-    """(triangles (B, T, 3, 3) on the card, uniforms (r, u, v) drawn on the
-    card from a seeded generator)."""
+def mesh_input(torch, dev, B: int, T: int, kind: str,
+               n_draws: int = MESH_DRAWS):
+    """(triangles (B, T, 3, 3) on the card, uniforms (r, u, v) of n_draws
+    a mesh drawn on the card from a seeded generator)."""
     from pointnet2_tpu_torch.examples.mesh_sampling_demo import icosahedron
 
     if kind == "icosahedron":
@@ -5019,7 +5034,7 @@ def mesh_input(torch, dev, B: int, T: int, kind: str):
         tris = (centre + 0.05 * rng.normal(size=(B, T, 3, 3))).astype(
             np.float32)
     g = torch.Generator(device=dev).manual_seed(SEED + T)
-    draws = tuple(torch.rand((B, MESH_DRAWS), generator=g, device=dev)
+    draws = tuple(torch.rand((B, n_draws), generator=g, device=dev)
                   for _ in range(3))
     return torch.from_numpy(tris).to(dev), draws
 
@@ -5406,10 +5421,14 @@ def check_profiling(torch, dev, gpu: str, check: Checks,
     """Phase 33f: ``utils.profiling`` on the card: ``time_op_loop`` of the
     row gather at phase 5's bf16 shape beside phase 5's CUDA-event timing
     of the same launch, and ``trace`` writing a Chrome trace that names
-    the gather's kernel, in a fresh process (checked) and in this one
-    after the earlier phases (logged: a full run's earlier phases leave the
-    profiler recording the launches but no kernel activity)."""
+    every launch of the gather's kernel in a fresh process (checked); and
+    (logged) in this process after the earlier phases, followed by a
+    second window (tools/profiler_probe.window): late in a full run the
+    profiler loses some or all of a window's kernels, erratically, which
+    no history of tools/profiler_probe.py reproduces in a fresh
+    process."""
     from pointnet2_tpu_torch.ops import grouping
+    from pointnet2_tpu_torch.tools.profiler_probe import PROBE, window
     from pointnet2_tpu_torch.utils import profiling
 
     log(f"phase 33f: utils.profiling on {gpu}")
@@ -5434,8 +5453,11 @@ def check_profiling(torch, dev, gpu: str, check: Checks,
     with profiling.trace(tdir):
         for _ in range(TRACED_GATHERS):
             grouping.gather_rows_kernel(pts, ix)
+    again = window(torch, lambda: grouping.gather_rows_kernel(pts, ix),
+                   "plain")
     log(f"  trace in this process: {len(traced_gathers(tdir))} of "
-        f"{TRACED_GATHERS} gather launches as kernel events")
+        f"{TRACED_GATHERS} gather launches as kernel events; a second "
+        f"window right after: {again} of {PROBE}")
     tdir = os.path.join(out_dir, "trace")
     script = TRACE_SCRIPT.format(
         root=os.path.dirname(os.path.abspath(__file__)), tdir=tdir,
@@ -5472,6 +5494,181 @@ def check_surface(torch, dev, gpu: str, check: Checks, log_dir: str) -> dict:
     check_profiling(torch, dev, gpu, check, out_dir)
     torch.cuda.synchronize()
     log(f"  phase 33: {time.perf_counter() - t0:.1f} s, launches {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 34: FPS at any cloud size
+# ---------------------------------------------------------------------------
+
+# (B, N, npoint, what) of phase 34's random clouds; the rooms, the tied
+# clouds and the identical points follow them
+FPS_ANY = ((16, 16384, 1024, "the CTA route's edge"),
+           (1, 16385, 64, "the cluster route's first size"),
+           (4, 50000, 1024, "four clouds of 50000"),
+           (1, 262144, 512, "the registers' edge"),
+           (1, 262145, 64, "the scratch route's first size"),
+           (1, 1_000_000, 128, "a lidar-sized cloud"))
+FPS_ROOMS, FPS_ROOM_NPOINT = 2, 8192  # whole generated ScanNet rooms
+FPS_MESH = (16, 2000, 100_000, 10_000)  # meshes, triangles, draws, points
+FPS_PHASE_S = 60.0  # phase 34's time limit, s, after the build
+GRID_Y_CLOUDS = 65537  # three_nn's and the scatter's B past gridDim.y
+
+
+def fps_any_case(torch, xyz, npoint: int, what: str, seg_us: float,
+                 check: Checks, errs: dict) -> tuple:
+    """Phase 34a-b for one input: ``farthest_point_sample`` through the
+    kernel (launches counted) bit for bit ``fps_plain`` on the card, then
+    the launch's time (CUDA events, queue pre-filled), µs a step beside
+    sem_seg SA1's ``seg_us``, the plain version's time and the operations
+    bound. Returns (the call's launches, its indices)."""
+    from pointnet2_tpu_torch import ops
+    from pointnet2_tpu_torch.ops import sampling
+
+    B, N, _ = xyz.shape
+    route, c = sampling.fps_route(N)
+    zero_launches()
+    got = ops.farthest_point_sample(xyz, npoint)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    want = sampling.fps_plain(xyz, npoint)
+    errs["fps"] = max(errs["fps"], int((got - want).abs().max()))
+    out, scratch = torch.empty_like(got), sampling.fps_scratch(xyz)
+    ms = event_ms(torch, lambda: sampling.launch_fps(xyz, out, scratch), 3,
+                  prefill=True)
+    plain = event_ms(torch, lambda: sampling.fps_plain(xyz, npoint), 1)
+    bound = fps_bound(B, N, npoint)
+    us = ms * 1e3 / max(npoint - 1, 1)
+    check(torch.equal(got, want) and torch.equal(out, want)
+          and counts["fps"] == 1,
+          f"fps {what} {tuple(xyz.shape)} -> {npoint}: route {route}, C={c},"
+          f" bit for bit fps_plain (the call and the timed launches), "
+          f"{counts['fps']} launch")
+    log(f"   kernel {ms:.6f} ms, {us:.4f} us a step ({us / seg_us:.2f}x "
+        f"sem_seg SA1's {seg_us:.4f}), plain {plain:.6f} ms, bound "
+        f"{bound[0]:.6f} ms ({bound[1]}, {bound[0] / ms:.2%} of the kernel)")
+    return counts, got
+
+
+def fps_rooms(torch, dev) -> list:
+    """Phase 34a's whole rooms: FPS_ROOMS clouds of make_scene's 60-180k
+    points on the card, each (1, N, 3), ragged."""
+    from pointnet2_tpu_torch.data.procedural_scannet import make_scene
+
+    rng = np.random.default_rng(SEED + 34)
+    return [torch.from_numpy(make_scene(rng)[0][None]).to(dev)
+            for _ in range(FPS_ROOMS)]
+
+
+def fps_tied(torch, dev) -> list:
+    """Phase 34a's tied clouds: (cloud, npoint, what, the expected second
+    pick or None): a 64^3 integer lattice (262144 points, C=16), whose
+    equal distances straddle every slice; one far point copied into the
+    fourth, second and third slice of a 50000-point cloud (C=4, S=12500),
+    whose lowest copy, 13000, must be the second pick; and 40000 identical
+    points, every pick 0."""
+    g = np.stack(np.meshgrid(*[np.arange(64.0)] * 3, indexing="ij"),
+                 -1).reshape(1, -1, 3).astype(np.float32)
+    far = np.random.default_rng(SEED + 35).random((1, 50000, 3)).astype(
+        np.float32)
+    far[0, [45000, 13000, 26000]] = 5.0
+    same = np.full((1, 40000, 3), -0.5, np.float32)
+    return [(torch.from_numpy(g).to(dev), 256, "a 64^3 lattice", None),
+            (torch.from_numpy(far).to(dev), 128,
+             "a far point copied across slices", 13000),
+            (torch.from_numpy(same).to(dev), 64, "40000 identical points", 0)]
+
+
+def check_fps_any_size(torch, dev, gpu: str, check: Checks,
+                       errs: dict) -> dict:
+    """Phase 34: FPS at any cloud size on the card. (a-b) every FPS_ANY
+    shape, two whole generated rooms thinned to 8192 points, the tied
+    clouds and the identical points through ``farthest_point_sample``,
+    bit for bit ``fps_plain``, one launch a call, each timed (µs a step
+    beside sem_seg SA1's, timed first); (c) ``sample_mesh`` with 100000
+    draws -> 10000 points on 16 meshes through the kernels and the plain
+    route, exact; (d) three_nn and the scatter-add at B = 65537, bit for
+    bit their plain versions. Logs ptxas -v of csrc/fps.cu first. Returns
+    the launches of the calls through the public ops."""
+    from pointnet2_tpu_torch import config, ops
+    from pointnet2_tpu_torch.ops import _build, sampling, sample_mesh
+    from pointnet2_tpu_torch.ops.interpolate import three_nn_plain
+
+    log(f"phase 34: FPS at any cloud size on {gpu}")
+    log("  ptxas -v of csrc/fps.cu (registers, shared memory, stack frame, "
+        "spills):")
+    for line in _build.ptxas_report("fps"):
+        log(f"   {line}")
+    t0 = time.perf_counter()
+    counts = dict.fromkeys(REPLACES, 0)
+    Bs, n, npoint = FPS_SEG
+    xyz = fps_seg_input(torch, dev)
+    out = torch.empty((Bs, npoint), dtype=torch.int32, device=dev)
+    ms = event_ms(torch, lambda: sampling.launch_fps(xyz, out), 10,
+                  prefill=True)
+    seg_us = ms * 1e3 / (npoint - 1)
+    log(f"  fps sem_seg SA1 ({Bs},{n},3)->{npoint} (the CTA route): kernel "
+        f"{ms:.6f} ms, {seg_us:.4f} us a step")
+    cases = [(torch.from_numpy(make_clouds(B, N, SEED + N)).to(dev), m, what)
+             for B, N, m, what in FPS_ANY]
+    cases += [(room, FPS_ROOM_NPOINT, f"a whole room of {room.shape[1]}")
+              for room in fps_rooms(torch, dev)]
+    for xyz, m, what in cases:
+        got, _ = fps_any_case(torch, xyz, m, what, seg_us, check, errs)
+        counts = add_launches(counts, got)
+    del cases
+    for xyz, m, what, second in fps_tied(torch, dev):
+        got, idx = fps_any_case(torch, xyz, m, what, seg_us, check, errs)
+        counts = add_launches(counts, got)
+        if second is not None:
+            check(int(idx[0, 1]) == second and (second != 0 or not idx.any()),
+                  f"fps {what}: the second pick is {int(idx[0, 1])}"
+                  f"{', every pick 0' if second == 0 else ''}")
+
+    B, T, draws_n, m = FPS_MESH
+    tris, draws = mesh_input(torch, dev, B, T, "random", draws_n)
+    zero_launches()
+    reduced = sample_mesh(tris, draws_n, npoint=m, uniforms=draws)
+    torch.cuda.synchronize()
+    got = read_launches()
+    counts = add_launches(counts, got)
+    with config.default_impl("torch"):
+        reduced_p = sample_mesh(tris, draws_n, npoint=m, uniforms=draws)
+    ms = host_ms(torch, lambda: sample_mesh(tris, draws_n, npoint=m,
+                                            uniforms=draws), 3, warmup=1)
+    check(torch.equal(reduced, reduced_p) and reduced.shape == (B, m, 3)
+          and bool(torch.isfinite(reduced).all()) and got["fps"] == 1
+          and got["gather_rows"] == 2,
+          f"sample_mesh {B} meshes of {T} triangles, {draws_n} draws -> {m} "
+          f"(FPS route {sampling.fps_route(draws_n)}): through the kernels "
+          f"exact against the plain route; launches {{fps: {got['fps']}, "
+          f"gather_rows: {got['gather_rows']}}}; host {ms:.3f} ms a call")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 36)
+    xyz1 = torch.rand((GRID_Y_CLOUDS, 4, 3), generator=gen, device=dev)
+    xyz2 = torch.rand((GRID_Y_CLOUDS, 5, 3), generator=gen, device=dev)
+    g = torch.randn((GRID_Y_CLOUDS, 8, 3), generator=gen, device=dev)
+    idx = torch.randint(-1, 6, (GRID_Y_CLOUDS, 8), generator=gen,
+                        device=dev, dtype=torch.int32)
+    zero_launches()
+    dist, nn_idx = ops.three_nn(xyz1, xyz2)
+    summed = ops.scatter_rows(g, idx, 5)
+    torch.cuda.synchronize()
+    got = read_launches()
+    counts = add_launches(counts, got)
+    wdist, widx = three_nn_plain(xyz1, xyz2)
+    same, err = scatter_same(torch, summed, g, idx, 5)
+    check(torch.equal(nn_idx, widx)
+          and torch.equal(dist.view(torch.int32), wdist.view(torch.int32))
+          and same and got["three_nn"] == 1 and got["scatter_rows"] == 1,
+          f"B={GRID_Y_CLOUDS} clouds (past gridDim.y's 65535): three_nn "
+          f"{tuple(xyz1.shape)} by {tuple(xyz2.shape)} and scatter_rows "
+          f"{tuple(g.shape)} -> 5 rows bit for bit their plain versions "
+          f"(scatter max abs diff {err:.3e}), one launch each")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(dt < FPS_PHASE_S, f"phase 34 took {dt:.1f} s after the build and "
+          f"ptxas (limit {FPS_PHASE_S:g} s); launches {counts}")
     return counts
 
 
@@ -5533,6 +5730,9 @@ def main() -> int:
         return finish(torch, check, t_start, gpu, None)
     if sys.argv[1:] == ["--phase", "33"]:
         check_surface(torch, dev, gpu, check, log_dir)
+        return finish(torch, check, t_start, gpu, None)
+    if sys.argv[1:] == ["--phase", "34"]:
+        check_fps_any_size(torch, dev, gpu, check, {"fps": 0})
         return finish(torch, check, t_start, gpu, None)
     for src in ("ball_query", "scatter", "three_nn", "fused_mlp"):
         log(f"  ptxas -v of csrc/{src}.cu (registers, shared memory, "
@@ -5736,6 +5936,7 @@ def main() -> int:
     scale_out = check_scale_out(torch, check, log_dir, gpu)
     standins = check_standins(torch, check, log_dir)
     surface = check_surface(torch, dev, gpu, check, log_dir)
+    fps_any = check_fps_any_size(torch, dev, gpu, check, errs)
     # launches of each kernel over every main-path run (classifier serving,
     # training, sem_seg and part_seg serving, the MSG models' serving and
     # the MSG layers' other routes, the fused route's serving and
@@ -5744,12 +5945,14 @@ def main() -> int:
     # recorded at its capture), the remat steps, the txt data's runs, the
     # ranks' steps and epochs of phase 31, the virtual-scan journey of
     # phase 32, phase 33's mesh sampling, dress rehearsal, visualize runs
-    # and demos); the affine tail runs on no model path, so its phase-16
-    # launches count
+    # and demos, phase 34's FPS calls at any size, its mesh sampling and
+    # its three_nn and scatter over 65537 clouds); the affine tail runs on
+    # no model path, so its phase-16 launches count
     runs = [fit["counts"], seg["launches"][SEM], seg["launches"][PART],
             *msg["launches"].values(), *fused["launches"].values(),
             fused_fit, seg_fit, resume, protocols, journeys, graphed,
-            graph_resume, remat, normals, *scale_out, standins, surface]
+            graph_resume, remat, normals, *scale_out, standins, surface,
+            fps_any]
     launches = {k: launches[k] + sum(r[k] for r in runs) for k in REPLACES}
     launches["fused_affine"] += affine_launches
     check(all(launches[k] > 0 for k in REPLACES),

@@ -1,4 +1,4 @@
-// Farthest point sampling, (B, N, 3) f32 -> (B, npoint) int32.
+// Farthest point sampling, (B, N, 3) f32 -> (B, npoint) int32, at any N.
 //
 // Replaces pointnet2_tpu/ops/pallas/fps.py:fps_pallas (kernel body
 // _fps_kernel). Same semantics: the seed is index 0, each step selects the
@@ -6,22 +6,53 @@
 // the lowest index wins a tie, the initial min distance is 1e38.
 //
 // Bound on this card: latency. The npoint-1 selections form a serial chain;
-// each one is a distance update over the cloud and a block-wide argmax. The
+// each one is a distance update over the cloud and an argmax over it. The
 // bytes (one read of xyz, one write of idx) and the operations (~10 per point
-// per step) are far below what the card could do in that time. The design
-// therefore keeps everything on chip and makes one step as short as it can:
-// one CTA per cloud, the cloud's xyz in shared memory (12 KB at N=1024),
-// each thread's points and their running min distance in registers, and one
-// __syncthreads a step. Each warp reduces its (distance, index) pairs with
-// two redux.sync (the largest distance's bits, then the lowest index holding
-// them: the bits of non-negative floats order as their values) and writes
-// its partial into a shared buffer chosen by the step's parity; after the
-// barrier every warp reduces all the partials itself, so every thread knows
-// the step's pick without a second exchange. The parity keeps step s+1's
-// writes off step s's buffer: a warp reaches step s+2's writes only after
-// step s+1's barrier, which no warp passes before every warp has read step
-// s's partials. Clouds run as independent CTAs, several per SM.
+// per step) are far below what the card could do in that time. Two routes
+// split at kCtaPoints = 16384 points:
+//
+// N <= 16384, fps_kernel (every model's SA layers): one CTA per cloud, the
+// cloud's xyz in shared memory (12 KB at N=1024), each thread's points and
+// their running min distance in registers, and one __syncthreads a step.
+// Each warp reduces its (distance, index) pairs with two redux.sync (the
+// largest distance's bits, then the lowest index holding them: the bits of
+// non-negative floats order as their values) and writes its partial into a
+// shared buffer chosen by the step's parity; after the barrier every warp
+// reduces all the partials itself, so every thread knows the step's pick
+// without a second exchange. The parity keeps step s+1's writes off step
+// s's buffer: a warp reaches step s+2's writes only after step s+1's
+// barrier, which no warp passes before every warp has read step s's
+// partials. Clouds run as independent CTAs, several per SM.
+//
+// N > 16384, fps_cluster_kernel: one thread-block cluster of C CTAs per
+// cloud, C the smallest of 2, 4, 8, 16 with ceil(N / C) <= 16384. CTA r
+// owns the contiguous slice [r*S, min(N, (r+1)*S)), S = ceil(N / C). Up to
+// 16 x 16384 = 262144 points its 1024 threads hold the slice's points and
+// running minima in registers, laid out as in fps_kernel; above that (C =
+// 16) in a scratch of 16 bytes a point in device memory (x, y, z, min),
+// which the wrapper allocates and each thread walks from L2 every step.
+// No CTA holds the cloud: the picked point's coordinates travel with the
+// winning partial. A step: the distance update (sq_dist, as above); the
+// warps' partials (bits, idx, x, y, z) through a __syncthreads; warp 0
+// reduces them and writes the CTA's partial into its slot for the step's
+// parity; cluster.sync() (barrier.cluster arrive.release / wait.acquire);
+// then warp 0 of every CTA reads the C slots through distributed shared
+// memory, reduces them by the same rule and hands the pick and its
+// coordinates to its CTA through shared memory and a second __syncthreads
+// (one remote read of each slot a CTA: with every warp reading the C
+// slots a C=16 step took 13.2 us on an H100, with warp 0 alone 5.1); CTA
+// 0 writes the pick. The parity argument carries over to the cluster
+// barrier: a CTA writes step s+2's slot only after step s+1's cluster
+// barrier, which no CTA passes before every CTA has read step s's slots.
+// One more cluster.sync() before exit keeps every CTA's shared memory
+// alive while another may still read it. Ties: slices ascend by index and
+// each thread's points ascend, and every merge keeps (largest bits,
+// lowest index), so the pick is the lowest-index argmax over the whole
+// cloud, as in fps_plain.
 
+#include <cooperative_groups.h>
+
+#include <atomic>
 #include <climits>
 
 #include "common.cuh"
@@ -119,18 +150,215 @@ cudaError_t launch(const float* xyz, int* out, int b, int n, int npoint,
   return cudaGetLastError();
 }
 
+
+// --- N > kCtaPoints: one thread-block cluster per cloud ---------------------
+
+constexpr int kClusterBlock = 1024;
+constexpr int kSlicePerThread = 16;
+constexpr int kCtaPoints = kClusterBlock * kSlicePerThread;  // 16384
+constexpr int kMaxCluster = 16;
+
+namespace cg = cooperative_groups;
+
+struct Partial {
+  unsigned bits;
+  int idx;
+  float x, y, z;
+};
+
+// warp_argmax, and the winner's coordinates from the lane that holds its
+// index (some lane does: the merged index is one of the lanes' own)
+__device__ __forceinline__ void warp_argmax_xyz(Partial& p) {
+  const int mine = p.idx;
+  warp_argmax(p.bits, p.idx);
+  const int src = __ffs(__ballot_sync(0xffffffffu, mine == p.idx)) - 1;
+  p.x = __shfl_sync(0xffffffffu, p.x, src);
+  p.y = __shfl_sync(0xffffffffu, p.y, src);
+  p.z = __shfl_sync(0xffffffffu, p.z, src);
+}
+
+// point k of the slice is a candidate: a strict > while k ascends keeps the
+// lowest index among a thread's ties; the first real point replaces the
+// (0, INT_MAX) sentinel whatever its distance
+__device__ __forceinline__ void consider(Partial& p, float d, int k, float x,
+                                         float y, float z) {
+  const unsigned b = __float_as_uint(d);
+  if (b > p.bits || p.idx == INT_MAX) p = {b, k, x, y, z};
+}
+
+// kScratch: the slice's points and minima in `scratch` (B, N) float4, else
+// in registers. The cluster is the CTAs blockIdx.x / C * C + [0, C).
+template <bool kScratch>
+__global__ void __launch_bounds__(kClusterBlock, 1)
+    fps_cluster_kernel(const float* __restrict__ xyz, int* __restrict__ out,
+                       float4* __restrict__ scratch, int n, int slice,
+                       int npoint) {
+  constexpr int kWarps = kClusterBlock / 32;
+  static_assert(kWarps == 32, "warp 0 reduces one partial a lane");
+  __shared__ Partial s_warp[2][kWarps];
+  __shared__ Partial s_cta[2];   // this CTA's partial, read by the cluster
+  __shared__ Partial s_pick[2];  // the step's pick, from warp 0
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const size_t b = blockIdx.x / csize;
+  const float* cloud = xyz + b * n * 3;
+  int* dst = out + b * npoint;
+  const int lo = rank * slice;
+  const int len = max(0, min(n - lo, slice));
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+
+  constexpr int kRegs = kScratch ? 1 : kSlicePerThread;  // points a thread
+  float px[kRegs], py[kRegs], pz[kRegs], dmin[kRegs];
+  float4* mine = kScratch ? scratch + b * n + lo : nullptr;
+  if constexpr (kScratch) {
+    for (int k = t; k < len; k += kClusterBlock) {
+      const float* q = cloud + 3 * static_cast<size_t>(lo + k);
+      mine[k] = make_float4(q[0], q[1], q[2], 1e38f);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRegs; ++j) {
+      const int k = t + j * kClusterBlock;
+      const bool real = k < len;
+      const float* q = cloud + 3 * static_cast<size_t>(lo + k);
+      px[j] = real ? q[0] : 0.f;
+      py[j] = real ? q[1] : 0.f;
+      pz[j] = real ? q[2] : 0.f;
+      dmin[j] = 1e38f;
+    }
+  }
+  if (rank == 0 && t == 0) dst[0] = 0;
+
+  float lx = cloud[0], ly = cloud[1], lz = cloud[2];
+  for (int s = 1; s < npoint; ++s) {
+    Partial best = {0u, INT_MAX, 0.f, 0.f, 0.f};
+    if constexpr (kScratch) {
+      // each thread rereads and updates only its own points: no barrier
+      for (int k = t; k < len; k += kClusterBlock) {
+        const float4 q = mine[k];
+        const float d = fminf(q.w, sq_dist(q.x, q.y, q.z, lx, ly, lz));
+        if (d != q.w) reinterpret_cast<float*>(mine + k)[3] = d;
+        consider(best, d, lo + k, q.x, q.y, q.z);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kRegs; ++j) {
+        const int k = t + j * kClusterBlock;
+        if (k < len) {
+          dmin[j] = fminf(dmin[j], sq_dist(px[j], py[j], pz[j], lx, ly, lz));
+          consider(best, dmin[j], lo + k, px[j], py[j], pz[j]);
+        }
+      }
+    }
+    warp_argmax_xyz(best);
+    const int p = s & 1;
+    if (lane == 0) s_warp[p][warp] = best;
+    __syncthreads();
+    if (warp == 0) {
+      Partial w = s_warp[p][lane];
+      warp_argmax_xyz(w);
+      if (lane == 0) s_cta[p] = w;
+    }
+    cluster.sync();  // the CTAs' partials of step s are written
+    if (warp == 0) {  // one remote read a CTA's slot, not one a warp
+      Partial c = {0u, INT_MAX, 0.f, 0.f, 0.f};
+      if (lane < csize) c = *cluster.map_shared_rank(&s_cta[p], lane);
+      warp_argmax_xyz(c);
+      if (lane == 0) s_pick[p] = c;
+    }
+    __syncthreads();
+    const Partial c = s_pick[p];
+    lx = c.x;
+    ly = c.y;
+    lz = c.z;
+    if (rank == 0 && t == 0) dst[s] = c.idx;
+  }
+  cluster.sync();  // no CTA leaves while another reads its partials
+}
+
+// C: the smallest of 2, 4, 8, 16 whose slices fit a CTA's registers, 16
+// above that (the scratch route)
+int cluster_size(int n) {
+  int c = 2;
+  while (c < kMaxCluster && (n - 1) / c + 1 > kCtaPoints) c *= 2;
+  return c;
+}
+
+// whether a cluster of c CTAs of this kernel can be resident at all:
+// cudaOccupancyMaxActiveClusters, asked once per device and configuration
+// (0 unknown, 1 yes, else the error to return)
+constexpr int kMaxDevices = 64;
+std::atomic<int> cluster_ok[kMaxDevices][2][5];
+
+template <bool kScratch>
+cudaError_t launch_cluster(const float* xyz, int* out, float4* scratch,
+                           int b, int n, int npoint, cudaStream_t st) {
+  const int c = cluster_size(n);
+  const int slice = (n - 1) / c + 1;  // ceil(n / c) without overflow
+  if (static_cast<long long>(b) * c > 0x7fffffff) return cudaErrorInvalidValue;
+  auto kernel = fps_cluster_kernel<kScratch>;
+  if (c > 8) {  // 16 CTAs: above the portable cluster size
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(b) * c);
+  cfg.blockDim = dim3(kClusterBlock);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  int log2c = 0;
+  while ((1 << log2c) < c) ++log2c;
+  std::atomic<int>* ok =
+      dev < kMaxDevices ? &cluster_ok[dev][kScratch][log2c] : nullptr;
+  int state = ok != nullptr ? ok->load() : 0;
+  if (state == 0) {
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    state = e != cudaSuccess ? static_cast<int>(e)
+            : clusters > 0   ? 1
+                             : static_cast<int>(cudaErrorLaunchOutOfResources);
+    if (ok != nullptr) ok->store(state);
+  }
+  if (state != 1) return static_cast<cudaError_t>(state);
+  e = cudaLaunchKernelEx(&cfg, kernel, xyz, out, scratch, n, slice, npoint);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 }  // namespace
 
-// Largest N the kernel takes: 1024 threads x 16 points each.
-extern "C" int pn2_fps_max_points() { return 1024 * 16; }
-
-extern "C" int pn2_fps(const void* xyz, void* out, int b, int n, int npoint,
-                       void* stream) {
+// scratch: (b, n, 4) f32, x, y, z and the running minimum of each point,
+// for clouds above kMaxCluster * kCtaPoints = 262144 points (the wrapper's
+// sampling.fps_scratch); below that it may be null.
+extern "C" int pn2_fps(const void* xyz, void* out, void* scratch, int b,
+                       int n, int npoint, void* stream) {
   const float* x = static_cast<const float*>(xyz);
   int* o = static_cast<int*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b <= 0 || npoint <= 0) return cudaSuccess;
-  if (n <= 0 || n > pn2_fps_max_points()) return cudaErrorInvalidValue;
+  if (n <= 0) return cudaErrorInvalidValue;
+  if (n > kCtaPoints) {
+    if (n <= kMaxCluster * kCtaPoints) {
+      return launch_cluster<false>(x, o, nullptr, b, n, npoint, st);
+    }
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    return launch_cluster<true>(x, o, static_cast<float4*>(scratch), b, n,
+                                npoint, st);
+  }
   // threads a cloud by measurement on an H100 (fewer points a thread won
   // up to 1024 threads; the reduction is two redux.sync whatever the warps)
   if (n <= 256) return launch<256, 1>(x, o, b, n, npoint, st);

@@ -338,8 +338,7 @@ extern "C" int pn2_scatter_rows(const void* g, const void* idx, void* out,
                                 int k, int n, int c, int itemsize,
                                 void* stream) {
   if (b <= 0 || n <= 0 || c <= 0) return cudaSuccess;  // empty output
-  if (k < 0 || b > 65535 || n == 0x7fffffff ||
-      (itemsize != 4 && itemsize != 2)) {
+  if (k < 0 || n == 0x7fffffff || (itemsize != 4 && itemsize != 2)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -348,6 +347,21 @@ extern "C" int pn2_scatter_rows(const void* g, const void* idx, void* out,
   int* of = static_cast<int*>(off);
   int* pm = static_cast<int*>(perm);
   const int chunks = (k + kChunk - 1) / kChunk;
+  constexpr int kMaxGridY = 65535;
+  if (b > kMaxGridY) {  // the clouds sit on gridDim.y: 65535 at a time
+    for (int b0 = 0; b0 < b; b0 += kMaxGridY) {
+      const size_t rows = static_cast<size_t>(b0) * k;
+      const int err = pn2_scatter_rows(
+          static_cast<const char*>(g) + rows * c * itemsize, ix + rows,
+          static_cast<char*>(out) +
+              static_cast<size_t>(b0) * n * c * itemsize,
+          cnt + static_cast<size_t>(b0) * (n + 1) * chunks,
+          of + static_cast<size_t>(b0) * (n + 1), pm + rows,
+          b - b0 < kMaxGridY ? b - b0 : kMaxGridY, k, n, c, itemsize, stream);
+      if (err != cudaSuccess) return err;
+    }
+    return cudaSuccess;
+  }
   cudaError_t err;
   if (chunks == 0) {  // K = 0: every row's span is empty
     err = cudaMemsetAsync(of, 0, sizeof(int) * static_cast<size_t>(b) *

@@ -227,6 +227,8 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
+constexpr int kMaxGridY = 65535;
+
 template <int Q>
 cudaError_t launch(const float* xyz1, const float* xyz2, float* dist,
                    int* idx, int b, int n, int m, cudaStream_t st) {
@@ -244,16 +246,27 @@ extern "C" int pn2_three_nn_q(const void* xyz1, const void* xyz2, void* dist,
                               void* idx, int b, int n, int m, int q,
                               void* stream) {
   if (b <= 0 || n <= 0) return cudaSuccess;
-  if (m <= 0 || b > 65535) return cudaErrorInvalidValue;
+  if (m <= 0) return cudaErrorInvalidValue;
   if (q == 0) q = static_cast<long long>(b) * n >= kWide ? kQWide : 1;
+  if (q != 1 && q != kQWide) return cudaErrorInvalidValue;
   const auto* x1 = static_cast<const float*>(xyz1);
   const auto* x2 = static_cast<const float*>(xyz2);
   auto* d = static_cast<float*>(dist);
   auto* i = static_cast<int*>(idx);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (q == 1) return launch<1>(x1, x2, d, i, b, n, m, st);
-  if (q == kQWide) return launch<kQWide>(x1, x2, d, i, b, n, m, st);
-  return cudaErrorInvalidValue;
+  // the clouds sit on gridDim.y: launches of at most 65535 of them, each at
+  // its clouds' offsets
+  for (int b0 = 0; b0 < b; b0 += kMaxGridY) {
+    const int nb = b - b0 < kMaxGridY ? b - b0 : kMaxGridY;
+    const size_t o1 = static_cast<size_t>(b0) * n * 3;
+    const size_t o2 = static_cast<size_t>(b0) * m * 3;
+    const cudaError_t e =
+        q == 1 ? launch<1>(x1 + o1, x2 + o2, d + o1, i + o1, nb, n, m, st)
+               : launch<kQWide>(x1 + o1, x2 + o2, d + o1, i + o1, nb, n, m,
+                                st);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 extern "C" int pn2_three_nn(const void* xyz1, const void* xyz2, void* dist,

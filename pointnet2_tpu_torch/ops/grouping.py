@@ -495,17 +495,17 @@ def scatter_rows_kernel(g: torch.Tensor, idx: torch.Tensor, n: int,
     bf16, idx (B, K) contiguous int32 -> (B, n, C) in g's dtype, each
     element summed in f32 in ascending k: bit for bit
     :func:`scatter_rows_plain` on CPU copies, the same bits from launch to
-    launch; indices outside [0, n) add nothing. With ``return_csr`` also
-    the kernel's CSR (off, perm), as :func:`scatter_csr_plain` gives it."""
+    launch; indices outside [0, n) add nothing; any B (the passes run on
+    at most 65535 clouds at a time). With ``return_csr`` also the kernel's
+    CSR (off, perm), as :func:`scatter_csr_plain` gives it."""
     _check_cuda(g, "g", (torch.float32, torch.bfloat16), 3)
     _check_cuda(idx, "idx", (torch.int32,), 2)
     B, K, C = g.shape
     if tuple(idx.shape) != (B, K) or idx.device != g.device:
         raise ValueError(f"idx {tuple(idx.shape)} does not index g "
                          f"{tuple(g.shape)} on {g.device}")
-    if n < 0 or B > 65535 or n >= 2 ** 31 - 1:
-        raise ValueError(f"need 0 <= n < 2**31 - 1 and B <= 65535, got "
-                         f"n={n}, B={B}")
+    if n < 0 or n >= 2 ** 31 - 1:
+        raise ValueError(f"need 0 <= n < 2**31 - 1, got n={n}")
     out = torch.empty((B, n, C), dtype=g.dtype, device=g.device)
     bufs = scatter_buffers(idx, n)
     if out.numel() > 0:

@@ -81,15 +81,16 @@ def launch_three_nn(xyz1, xyz2, dist, idx) -> None:
 
 def three_nn_kernel(xyz1: torch.Tensor, xyz2: torch.Tensor):
     """CUDA 3-NN (csrc/three_nn.cu): xyz1 (B,N,3), xyz2 (B,M,3) contiguous
-    f32 on one card, M >= 1, B <= 65535 -> (dist (B,N,3) f32, idx (B,N,3)
-    int32), bit for bit as :func:`three_nn_plain`."""
+    f32 on one card, M >= 1 -> (dist (B,N,3) f32, idx (B,N,3) int32), bit
+    for bit as :func:`three_nn_plain`; any B (launches of at most 65535
+    clouds, one count a call)."""
     _check_cuda(xyz1, "xyz1", (torch.float32,), 3)
     _check_cuda(xyz2, "xyz2", (torch.float32,), 3)
     _check_shapes(xyz1, xyz2)
     B, N, _ = xyz1.shape
-    if xyz1.device != xyz2.device or B > 65535:
-        raise ValueError(f"three_nn takes both clouds on one device and B <= "
-                         f"65535, got {xyz1.device}, {xyz2.device}, B={B}")
+    if xyz1.device != xyz2.device:
+        raise ValueError(f"three_nn takes both clouds on one device, got "
+                         f"{xyz1.device}, {xyz2.device}")
     dist = torch.empty((B, N, 3), dtype=torch.float32, device=xyz1.device)
     idx = torch.empty((B, N, 3), dtype=torch.int32, device=xyz1.device)
     if B * N == 0:

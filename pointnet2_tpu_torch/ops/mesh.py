@@ -8,12 +8,13 @@ subset with farthest point sampling.
 
 On CUDA tensors the corner gather and the reduction run the port's
 kernels: the row gather (csrc/gather.cu) and FPS (csrc/fps.cu), which
-takes clouds of at most 16384 points and raises above that (the JAX
-package's FPS answers any size). The categorical draw is ``torch.cumsum``
-+ ``torch.searchsorted`` on every device. The draws come from an explicit
-``torch.Generator``, or are given as ``uniforms=(r, u, v)``, the three
-(B, n_samples) uniform tensors of ``jax.random.split(key, 3)`` in the JAX
-package, so the same surface points can be drawn on both sides.
+answers any number of draws, as the JAX package's FPS does (above 16384
+points on its thread-block-cluster route). The categorical draw is
+``torch.cumsum`` + ``torch.searchsorted`` on every device. The draws come
+from an explicit ``torch.Generator``, or are given as ``uniforms=(r, u,
+v)``, the three (B, n_samples) uniform tensors of ``jax.random.split(key,
+3)`` in the JAX package, so the same surface points can be drawn on both
+sides.
 """
 
 from __future__ import annotations

@@ -13,9 +13,10 @@ Port of pointnet2_tpu/ops/sampling.py:33-167:
   search, plain PyTorch on every device (no Pallas kernel in the JAX
   package either). No gradient.
 
-FPS runs its CUDA kernel on CUDA tensors and its plain PyTorch version on
-CPU tensors (``config.use_kernel``); ``fps_kernel.launches`` counts the
-kernel's launches.
+FPS runs its CUDA kernel on CUDA tensors, at any cloud size (one CTA a
+cloud up to 16384 points, a thread-block cluster above: ``fps_route``),
+and its plain PyTorch version on CPU tensors (``config.use_kernel``);
+``fps_kernel.launches`` counts the kernel's launches, one a call.
 """
 
 from __future__ import annotations
@@ -58,33 +59,73 @@ def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return out
 
 
-def launch_fps(xyz: torch.Tensor, out: torch.Tensor) -> None:
-    """Launch csrc/fps.cu on checked, preallocated buffers (no launch
-    count: :func:`fps_kernel` counts)."""
+# csrc/fps.cu's routes: one CTA a cloud up to CTA_POINTS points, else a
+# thread-block cluster of C CTAs (fps_route), whose slices sit in
+# registers up to MAX_CLUSTER * CTA_POINTS points and above that in a
+# scratch of 16 bytes a point
+CTA_POINTS = 1024 * 16
+MAX_CLUSTER = 16
+_INT32_MAX = 2 ** 31 - 1
+
+
+def fps_route(n: int) -> tuple[str, int]:
+    """The route csrc/fps.cu takes for clouds of n points and its CTAs a
+    cloud: ("cta", 1) up to 16384 points; ("cluster", C) with C the
+    smallest of 2, 4, 8, 16 such that ceil(n / C) <= 16384; ("scratch",
+    16) above 16 x 16384 = 262144 points."""
+    if n <= CTA_POINTS:
+        return "cta", 1
+    if n > MAX_CLUSTER * CTA_POINTS:
+        return "scratch", MAX_CLUSTER
+    c = 2
+    while -(-n // c) > CTA_POINTS:
+        c *= 2
+    return "cluster", c
+
+
+def fps_scratch(xyz: torch.Tensor) -> torch.Tensor | None:
+    """The scratch route's (B, N, 4) f32 buffer (x, y, z and the running
+    minimum of each point), or None where the route needs none."""
+    B, N, _ = xyz.shape
+    if fps_route(N)[0] != "scratch":
+        return None
+    return torch.empty((B, N, 4), dtype=torch.float32, device=xyz.device)
+
+
+def launch_fps(xyz: torch.Tensor, out: torch.Tensor,
+               scratch: torch.Tensor | None = None) -> None:
+    """Launch csrc/fps.cu on checked, preallocated buffers (``scratch``
+    from :func:`fps_scratch`; no launch count: :func:`fps_kernel`
+    counts)."""
     B, N, _ = xyz.shape
     fn = _build.bind("fps", "pn2_fps",
-                     [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                      + [ctypes.c_void_p])
     with torch.cuda.device(xyz.device):
-        err = fn(xyz.data_ptr(), out.data_ptr(), B, N, out.shape[1],
-                 _stream(xyz))
+        err = fn(xyz.data_ptr(), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), B, N,
+                 out.shape[1], _stream(xyz))
     _build.check("fps", err, "fps launch")
 
 
 def fps_kernel(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """CUDA FPS (csrc/fps.cu): xyz (B, N, 3) contiguous f32 with
-    1 <= N <= 16384 -> (B, npoint) int32."""
+    1 <= N < 2**31 -> (B, npoint) int32, bit for bit :func:`fps_plain`."""
     _check_cuda(xyz, "xyz", (torch.float32,), 3)
     B, N, c = xyz.shape
-    if c != 3 or not 1 <= N <= 1024 * 16:
-        raise ValueError(f"fps takes (B, N, 3) with 1 <= N <= 16384, got "
+    if c != 3 or not 1 <= N <= _INT32_MAX:
+        raise ValueError(f"fps takes (B, N, 3) with 1 <= N < 2**31, got "
                          f"{tuple(xyz.shape)}")
-    if npoint < 1:
-        raise ValueError(f"npoint must be >= 1, got {npoint}")
+    if not 1 <= npoint <= _INT32_MAX:
+        raise ValueError(f"npoint must be in [1, 2**31), got {npoint}")
+    ctas = fps_route(N)[1]
+    if B * ctas > _INT32_MAX:
+        raise ValueError(f"fps takes at most 2**31 - 1 CTAs, got B={B} "
+                         f"clouds of {ctas}")
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
     if B == 0:
         return out
-    launch_fps(xyz, out)
+    launch_fps(xyz, out, fps_scratch(xyz))
     fps_kernel.launches += 1
     return out
 

@@ -56,11 +56,17 @@ def _plain(fn, *args):
 @pytest.mark.parametrize("B,N,npoint", [(2, 1024, 512), (3, 100, 17),
                                         (1, 40, 64), (2, 5000, 64),
                                         (2, 8192, 1024), (2, 4096, 64),
-                                        (1, 16384, 100)])
+                                        (1, 16384, 100), (1, 16385, 64),
+                                        (2, 20000, 256), (2, 65536, 512),
+                                        (1, 180000, 2048), (1, 262144, 64),
+                                        (1, 262145, 64), (1, 1000000, 32)])
 def test_fps_kernel_bit_identical(dev, rs, B, N, npoint):
     """(2, 8192, 1024) is sem_seg SA1's shape at B=2; at N=4096 the cloud
     alone fills the 48 KB of shared memory a block has without the
-    opt-in, and the partials beside it need the opt-in."""
+    opt-in, and the partials beside it need the opt-in. Above 16384
+    points the cluster route: C = 2 (16385, 20000), 4 (65536) and 16
+    (a whole ScanNet room of 180000; 262144, its registers' edge); above
+    262144 the scratch route (262145; a lidar-sized 1000000)."""
     xyz = torch.from_numpy(rs.rand(B, N, 3).astype(np.float32)).to(dev)
     before = ops.fps_kernel.launches
     got = ops.farthest_point_sample(xyz, npoint)
@@ -93,6 +99,63 @@ def test_fps_kernel_ties(dev):
     torch.testing.assert_close(ops.farthest_point_sample(xyz, 40),
                                _plain(ops.farthest_point_sample, xyz, 40),
                                rtol=0, atol=0)
+
+
+def _far_copies(rs, n: int, at) -> np.ndarray:
+    """A cloud of n points in the unit cube with one far point copied to
+    each index of ``at``: the first pick ties across those indices."""
+    xyz = rs.rand(1, n, 3).astype(np.float32)
+    xyz[0, list(at)] = 5.0
+    return xyz
+
+
+@pytest.mark.parametrize("side,npoint", [(26, 200), (40, 256), (64, 64),
+                                         (70, 48)])
+def test_fps_cluster_ties_across_slices(dev, rs, monkeypatch, side,
+                                        npoint):
+    """Integer lattices of 17576 (C=2), 64000 (C=4), 262144 (C=16) and
+    343000 points (the scratch route), whose equal distances straddle
+    the slices; and one far point copied into the last, the second and
+    the third slice of a 50000-point cloud (C=4, S=12500), where the
+    lowest copy, in slice 1, must win. Bit for bit fps_plain, one launch
+    a call, and the kernel route never reaches fps_plain."""
+    from pointnet2_tpu_torch.ops import sampling
+
+    g = np.stack(np.meshgrid(*[np.arange(float(side))] * 3, indexing="ij"),
+                 -1).reshape(1, -1, 3).astype(np.float32)
+    far = _far_copies(rs, 50000, (45000, 13000, 26000))
+    for cloud in (g, far):
+        xyz = torch.from_numpy(cloud).to(dev)
+        want = sampling.fps_plain(xyz, npoint)
+        before = ops.fps_kernel.launches
+        with monkeypatch.context() as m:
+            m.setattr(sampling, "fps_plain", None)  # any call would raise
+            got = ops.farthest_point_sample(xyz, npoint)
+        assert ops.fps_kernel.launches == before + 1
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert int(got[0, 1]) == 13000
+
+
+def test_fps_cluster_identical_points(dev):
+    """40000 identical points (C=4): every distance is 0 after the seed,
+    so every pick is index 0, over slices that hold only ties."""
+    same = torch.full((2, 40000, 3), -0.5, device=dev)
+    got = ops.farthest_point_sample(same, 64)
+    assert not bool(got.any())
+    torch.testing.assert_close(got, _plain(ops.farthest_point_sample, same,
+                                           64), rtol=0, atol=0)
+
+
+def test_fps_scratch_route_needs_its_scratch(dev):
+    """Above 262144 points the launch without the wrapper's scratch is
+    refused by the C entry point, and the refusal raises."""
+    from pointnet2_tpu_torch.ops import sampling
+
+    xyz = torch.zeros((1, 262145, 3), device=dev)
+    out = torch.empty((1, 4), dtype=torch.int32, device=dev)
+    assert sampling.fps_route(262145) == ("scratch", 16)
+    with pytest.raises(RuntimeError, match="fps launch"):
+        sampling.launch_fps(xyz, out, None)
 
 
 @pytest.mark.parametrize("B,N,M,radius,nsample",
@@ -156,8 +219,12 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(dev):
         ops.gather_rows_kernel(torch.zeros(1, 3, 8, device=dev).transpose(1, 2),
                                torch.zeros(1, 2, dtype=torch.int32,
                                            device=dev))
-    with pytest.raises(ValueError):
-        ops.fps_kernel(torch.zeros(1, 20000, 3, device=dev), 4)
+    # N above one CTA's 16384 points answers (the cluster route), as JAX's
+    # FPS does
+    big = torch.rand((1, 20000, 3), device=dev)
+    torch.testing.assert_close(ops.fps_kernel(big, 4),
+                               _plain(ops.farthest_point_sample, big, 4),
+                               rtol=0, atol=0)
 
 
 def test_predictor_on_card_matches_cpu(dev, rs):
@@ -214,6 +281,17 @@ def test_scatter_kernel_matches_plain_and_is_deterministic(dev, rs, dtype, B,
     assert torch.equal(off.cpu(), woff) and torch.equal(perm.cpu(), wperm)
     view = torch.int16 if dtype == torch.bfloat16 else torch.int32
     assert torch.equal(got.view(view), again.view(view))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_kernel_more_clouds_than_one_grid_row(dev, rs, dtype):
+    """B = 65537 clouds, past gridDim.y's 65535: two launches of each pass
+    at their clouds' offsets, bit for bit the plain version, one count."""
+    g, idx = _scatter_inputs(rs, dev, 65537, 8, 5, 3, dtype)
+    before = ops.scatter_rows_kernel.launches
+    got = ops.scatter_rows(g, idx, 5)
+    assert ops.scatter_rows_kernel.launches == before + 1
+    _check_scatter(got, g, idx, 5)
 
 
 def test_scatter_kernel_edge_cases(dev):
@@ -616,6 +694,14 @@ def test_three_nn_kernel_far_from_the_origin(dev, rs, centre):
         np.float32)).to(dev)
     xyz2 = torch.from_numpy((centre + rs.rand(2, 500, 3)).astype(
         np.float32)).to(dev)
+    _three_nn_bitwise(xyz1, xyz2)
+
+
+def test_three_nn_kernel_more_clouds_than_one_grid_row(dev, rs):
+    """B = 65537 clouds, past gridDim.y's 65535: two launches at their
+    clouds' offsets, bit for bit the plain version, one count."""
+    xyz1 = torch.from_numpy(rs.rand(65537, 4, 3).astype(np.float32)).to(dev)
+    xyz2 = torch.from_numpy(rs.rand(65537, 5, 3).astype(np.float32)).to(dev)
     _three_nn_bitwise(xyz1, xyz2)
 
 
