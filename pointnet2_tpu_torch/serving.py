@@ -53,6 +53,7 @@ import torch
 from pointnet2_tpu_torch import config
 from pointnet2_tpu_torch.convert import flax_to_torch
 from pointnet2_tpu_torch.models import get_spec
+from pointnet2_tpu_torch.utils.profiling import span
 
 _DEFAULT_BUCKETS = (1, 4, 16, 64)
 
@@ -155,51 +156,77 @@ class Predictor:
         pad = np.broadcast_to(a[:1], (bucket - b,) + a.shape[1:])
         return np.concatenate([a, pad], axis=0)
 
+    def _padded_rows(self, b: int) -> int:
+        """The rows ``b`` rows run as: each chunk of the largest bucket or
+        less padded to its bucket."""
+        top = self._buckets[-1]
+        rest = b % top
+        return b - rest + (self._bucket_for(rest) if rest else 0)
+
     @torch.inference_mode()
     def _run_padded(self, points: np.ndarray,
                     cls_label: np.ndarray | None) -> np.ndarray:
         b = points.shape[0]
-        inputs = [self._pad(points)]
-        if cls_label is not None:
-            inputs.append(self._pad(cls_label))
+        inputs = [points] if cls_label is None else [points, cls_label]
         n = len(self._replicas)
-        shard = inputs[0].shape[0] // n
+        shard = self._bucket_for(b) // n
         outs = []
         for i, model in enumerate(self._replicas):
             dev = next(model.parameters()).device
-            args = [torch.from_numpy(np.ascontiguousarray(
-                a[i * shard:(i + 1) * shard])).to(dev) for a in inputs]
-            outs.append(model(*args).float())
-        return np.concatenate([o.cpu().numpy() for o in outs])[:b]
+            with span("predictor.upload", rows=shard):
+                if i == 0:
+                    inputs = [self._pad(a) for a in inputs]
+                args = [torch.from_numpy(np.ascontiguousarray(
+                    a[i * shard:(i + 1) * shard])).to(dev) for a in inputs]
+            with span("predictor.forward"):
+                outs.append(model(*args).float())
+        host = []
+        for o in outs:
+            with span("predictor.fetch"):
+                host.append(o.cpu().numpy())
+        with span("predictor.assemble"):
+            return np.concatenate(host)[:b]
 
     def __call__(self, points, cls_label=None) -> np.ndarray:
         """points: (B, N, C) float; cls_label: (B,) int, the object
         category, for a ``part_seg_one_hot`` model (ignored by the others).
         Returns float32 logits, (B, K) for a classifier and (B, N, K) for a
-        segmentation model."""
+        segmentation model.
+
+        Spans (utils/profiling.py, while a profiler records):
+        ``predictor.request`` (counts ``rows`` and ``padded_rows``, the
+        rows with their bucket's padding) around ``predictor.upload`` (pad,
+        copy to the card, a shard at a time, count ``rows``),
+        ``predictor.forward`` (the host's dispatch of the model),
+        ``predictor.fetch`` (the wait for the card and the copy of a
+        shard's logits to the host) and ``predictor.assemble`` (the shards
+        and chunks put together)."""
         points = np.asarray(points, np.float32)
         b = points.shape[0]
-        if self.task == "part_seg_one_hot":
-            if cls_label is None:
-                raise ValueError("part_seg_one_hot needs cls_label")
-            cls_label = np.asarray(cls_label, np.int32)
-            if cls_label.shape != (b,):
-                raise ValueError(f"cls_label must be ({b},), got "
-                                 f"{cls_label.shape}")
-        else:
-            cls_label = None
-        if b == 0:
-            per_point = () if self.task == "cls" else points.shape[1:2]
-            return np.zeros((0, *per_point, self._model.num_classes),
-                            np.float32)
-        max_bucket = self._buckets[-1]
-        if b <= max_bucket:
-            return self._run_padded(points, cls_label)
-        return np.concatenate([
-            self._run_padded(points[s:s + max_bucket],
-                             None if cls_label is None
-                             else cls_label[s:s + max_bucket])
-            for s in range(0, b, max_bucket)], axis=0)
+        with span("predictor.request", rows=b,
+                  padded_rows=self._padded_rows(b)):
+            if self.task == "part_seg_one_hot":
+                if cls_label is None:
+                    raise ValueError("part_seg_one_hot needs cls_label")
+                cls_label = np.asarray(cls_label, np.int32)
+                if cls_label.shape != (b,):
+                    raise ValueError(f"cls_label must be ({b},), got "
+                                     f"{cls_label.shape}")
+            else:
+                cls_label = None
+            if b == 0:
+                per_point = () if self.task == "cls" else points.shape[1:2]
+                return np.zeros((0, *per_point, self._model.num_classes),
+                                np.float32)
+            max_bucket = self._buckets[-1]
+            if b <= max_bucket:
+                return self._run_padded(points, cls_label)
+            parts = [self._run_padded(points[s:s + max_bucket],
+                                      None if cls_label is None
+                                      else cls_label[s:s + max_bucket])
+                     for s in range(0, b, max_bucket)]
+            with span("predictor.assemble"):
+                return np.concatenate(parts, axis=0)
 
     def predict_proba(self, points, cls_label=None) -> np.ndarray:
         logits = self(points, cls_label)

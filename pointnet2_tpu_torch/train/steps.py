@@ -83,6 +83,7 @@ from pointnet2_tpu_torch.data.augment_device import (
 from pointnet2_tpu_torch.nn.layers import RematTape, cross_replica, remat_tape
 from pointnet2_tpu_torch.parallel.mesh import collective
 from pointnet2_tpu_torch.train.state import TrainState, upload_scalars
+from pointnet2_tpu_torch.utils.profiling import span
 
 AUGMENTATIONS: dict[str, Callable | None] = {
     "none": None,
@@ -255,7 +256,12 @@ class TrainMultiStep:
     replays it. The kernel wrappers' launch counters count each replay's
     launches, as recorded at capture. On the CPU the K steps run eagerly.
     The graph reads the state's tensors where they are at capture: restore
-    a checkpoint before the first call."""
+    a checkpoint before the first call.
+
+    Spans (utils/profiling.py, while a profiler records): ``step.capture``
+    (warm-up and capture), ``step.stage`` (the batches through pinned
+    memory into the graph's buffers; the caller's own ``step.stage``
+    counts the batches) and ``step.replay`` (count ``steps``, K)."""
 
     def __init__(self, state: TrainState, loss_fn: Callable,
                  bn_momentum_fn: Callable, augment_fn: Callable | None = None,
@@ -293,7 +299,8 @@ class TrainMultiStep:
         graphed = self.graphs.get(key)
         if graphed is None:
             t0 = time.perf_counter()
-            graphed = self.graphs[key] = _Graphed(self, batches)
+            with span("step.capture"):
+                graphed = self.graphs[key] = _Graphed(self, batches)
             self.capture_s[key] = time.perf_counter() - t0
         return graphed.replay(batches)
 
@@ -381,9 +388,11 @@ class _Graphed:
             gen.set_state(gen_state)
 
     def replay(self, batches: list[dict]) -> dict:
-        self.load(batches)
-        self.graph.replay()
         K = len(batches)
+        with span("step.stage"):
+            self.load(batches)
+        with span("step.replay", steps=K):
+            self.graph.replay()
         self.owner.state.step += K
         self.owner.state.optimizer.count += K
         for k, n in self.launches.items():

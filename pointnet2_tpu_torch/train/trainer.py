@@ -114,6 +114,7 @@ from pointnet2_tpu_torch.train.steps import (
 )
 from pointnet2_tpu_torch.train.watchdog import Watchdog
 from pointnet2_tpu_torch.utils.prefetch import Prefetcher
+from pointnet2_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -293,51 +294,81 @@ class Trainer:
     def train_epoch(self, state: TrainState, dataset, epoch: int):
         """One epoch: K = ``steps_per_call`` batches a call of the K-step
         step, the remainder (fewer than K) as single steps, as JAX's
-        buffer-and-flush loop (trainer.py:208-246)."""
-        losses, accs, n = [], [], 0
-        K = self.config.steps_per_call
-        buf: list[dict] = []
+        buffer-and-flush loop (trainer.py:208-246). While a profiler
+        records, the epoch's spans (utils/profiling.py) name its parts:
+        ``trainer.epoch`` (counts ``steps``, ``examples``),
+        ``trainer.sync_batches`` (the ranks agree on the batch count),
+        ``trainer.batch_wait`` (each wait for the next host batch, count
+        ``blocked`` when none was ready), ``step.stage`` (a call's K
+        batches in the step's layout, count ``batches``), ``step.eager``
+        (a remainder step, its upload included) and ``trainer.epoch_end``
+        (the read-back of the losses, and the log)."""
+        with span("trainer.epoch") as epoch_span:
+            losses, accs, n = [], [], 0
+            K = self.config.steps_per_call
+            buf: list[dict] = []
 
-        def flush():
-            if len(buf) == K and K > 1:
-                metrics = self.multi_step(state)(
-                    [local_rows(self.mesh, self._host_view(b)) for b in buf])
-                losses.append(metrics["loss"])
-                accs.append(metrics["accuracy"])
-            else:
-                for b in buf:
-                    metrics = run_one_step(
-                        state, self._to_device(b), self.loss_fn,
-                        self.bn_schedule, self.augment_fn, self.generator,
-                        self.task, remat=self.config.remat, mesh=self.mesh)
-                    losses.append(metrics["loss"].reshape(1))
-                    accs.append(metrics["accuracy"].reshape(1))
-            buf.clear()
-            self._beat()
+            def flush():
+                if len(buf) == K and K > 1:
+                    with span("step.stage", batches=K):
+                        views = [local_rows(self.mesh, self._host_view(b))
+                                 for b in buf]
+                    metrics = self.multi_step(state)(views)
+                    losses.append(metrics["loss"])
+                    accs.append(metrics["accuracy"])
+                else:
+                    for b in buf:
+                        with span("step.eager"):
+                            metrics = run_one_step(
+                                state, self._to_device(b), self.loss_fn,
+                                self.bn_schedule, self.augment_fn,
+                                self.generator, self.task,
+                                remat=self.config.remat, mesh=self.mesh)
+                        losses.append(metrics["loss"].reshape(1))
+                        accs.append(metrics["accuracy"].reshape(1))
+                buf.clear()
+                self._beat()
 
-        num_steps = multihost.sync_num_batches(dataset.num_batches(), "min")
-        loader = Prefetcher(dataset.epoch(augment=self.config.host_augment),
-                            depth=self.config.prefetch)
-        t0 = time.time()
-        try:
-            for _, batch in zip(range(num_steps), loader):
-                n += batch["nvalid"]
-                buf.append(batch)
-                if len(buf) == K:
-                    flush()
-            flush()
-        finally:
-            loader.close()
-        # one device->host fetch per epoch, not one per step
-        loss = float(torch.cat(losses).mean()) if losses else float("nan")
-        acc = float(torch.cat(accs).mean()) if accs else float("nan")
-        dt = time.time() - t0
-        self.log(f"epoch {epoch}: train loss {loss:.4f} acc {acc:.4f} "
-                 f"({n / max(dt, 1e-9):.1f} ex/s)")
-        self.log_metrics(epoch=epoch, split="train", loss=loss, accuracy=acc,
-                         examples_per_sec=n / max(dt, 1e-9), step=state.step,
-                         learning_rate=float(self.lr_schedule(state.step)),
-                         bn_momentum=float(self.bn_schedule(state.step)))
+            with span("trainer.sync_batches"):
+                num_steps = multihost.sync_num_batches(
+                    dataset.num_batches(), "min")
+            loader = Prefetcher(
+                dataset.epoch(augment=self.config.host_augment),
+                depth=self.config.prefetch)
+            t0 = time.time()
+            steps = 0
+            try:
+                # no batch is asked of the loader past num_steps: every
+                # rank runs the same number of steps
+                for _ in range(num_steps):
+                    with span("trainer.batch_wait",
+                              blocked=int(loader.waiting())):
+                        batch = next(loader, None)
+                    if batch is None:
+                        break
+                    steps += 1
+                    n += batch["nvalid"]
+                    buf.append(batch)
+                    if len(buf) == K:
+                        flush()
+                flush()
+            finally:
+                loader.close()
+            epoch_span.add(steps=steps, examples=int(n))
+            with span("trainer.epoch_end"):
+                # one device->host fetch per epoch, not one per step
+                loss = (float(torch.cat(losses).mean()) if losses
+                        else float("nan"))
+                acc = (float(torch.cat(accs).mean()) if accs
+                       else float("nan"))
+                dt = time.time() - t0
+                self.log(f"epoch {epoch}: train loss {loss:.4f} acc "
+                         f"{acc:.4f} ({n / max(dt, 1e-9):.1f} ex/s)")
+                self.log_metrics(
+                    epoch=epoch, split="train", loss=loss, accuracy=acc,
+                    examples_per_sec=n / max(dt, 1e-9), step=state.step,
+                    learning_rate=float(self.lr_schedule(state.step)),
+                    bn_momentum=float(self.bn_schedule(state.step)))
         return state
 
     def eval_epoch(self, state: TrainState, dataset, epoch: int) -> float:

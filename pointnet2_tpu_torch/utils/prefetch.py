@@ -80,6 +80,10 @@ class Prefetcher(Iterator):
     def __iter__(self) -> "Prefetcher":
         return self
 
+    def waiting(self) -> bool:
+        """Whether a ``next()`` now would wait: no item is queued."""
+        return self._q.empty()
+
     def __next__(self):
         if self._stop.is_set():
             raise StopIteration

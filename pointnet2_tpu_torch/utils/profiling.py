@@ -6,13 +6,15 @@ beyond ad-hoc time.time() loops, tf_ops/grouping/tf_grouping.py:98-101):
 - :func:`trace`: ``torch.profiler`` around a block, writing a Chrome trace
   (``trace.json``, loadable in Perfetto or chrome://tracing) with the
   device's kernels when a card is present;
-- :class:`StepTimer`: rolling per-step wall-time stats for train loops;
+- :func:`span`: the program's own spans (``Trainer``, ``TrainMultiStep``,
+  ``Predictor``), recorded only while a torch profiler records: each
+  lands in the Chrome trace as a ``user_annotation``, on the clock of the
+  device's kernels, and in an in-memory record that :func:`spans` and
+  :func:`span_stats` read;
 - :func:`time_fn`: median wall time of a call, fenced by
   ``torch.cuda.synchronize`` when the result is on the card;
 - :func:`time_op_loop`: the per-iteration device time of back-to-back
-  launches between CUDA events (wall time on the CPU);
-- :func:`compiled_cost`: the flop count of a call, from
-  ``torch.utils.flop_counter.FlopCounterMode``.
+  launches between CUDA events (wall time on the CPU).
 
 The peak rates name the card the port targets (H100 SXM, NVIDIA data
 sheet): the figures ``PERF.md`` uses for its bounds.
@@ -22,8 +24,9 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
-from collections import deque
+from typing import NamedTuple
 
 import torch
 
@@ -37,7 +40,9 @@ H100_HBM_TBPS = 3.35
 def trace(logdir: str):
     """Profile the enclosed block with ``torch.profiler`` (CPU, and CUDA
     when a card is present) and write ``<logdir>/trace.json``, a Chrome
-    trace. Yields the profiler (``key_averages()`` and the rest).
+    trace. Yields the profiler (``key_averages()`` and the rest). The
+    span record (:func:`spans`) is cleared first, so it holds the block's
+    spans alone.
 
     On the card a profiler window can lose its first kernels, so one
     warm-up step (a one-element kernel) runs inside the profiler's
@@ -45,6 +50,7 @@ def trace(logdir: str):
     from torch.profiler import ProfilerActivity, profile, schedule
 
     os.makedirs(logdir, exist_ok=True)
+    clear_spans()
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if cuda else [])
@@ -64,26 +70,113 @@ def trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-class StepTimer:
-    """Rolling window of step durations -> steps/sec, examples/sec."""
+class SpanRecord(NamedTuple):
+    """One closed span: ``parent`` is the name of the span open around it
+    on the same thread (None at the top); ``counts`` the counts it carried."""
 
-    def __init__(self, window: int = 50):
-        self._times = deque(maxlen=window)
-        self._last = None
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: str | None
+    thread: int
+    counts: dict
 
-    def tick(self) -> None:
-        now = time.perf_counter()
-        if self._last is not None:
-            self._times.append(now - self._last)
-        self._last = now
 
-    @property
-    def mean_step_time(self) -> float:
-        return sum(self._times) / len(self._times) if self._times else 0.0
+_RECORD: list[SpanRecord] = []
+_OPEN = threading.local()  # .stack: the spans open on this thread
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
-    def steps_per_sec(self) -> float:
-        m = self.mean_step_time
-        return 1.0 / m if m > 0 else 0.0
+
+class _Off:
+    """The one context every span returns while no profiler records."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def add(self, **counts) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "counts", "parent", "start", "fn")
+
+    def __init__(self, name: str, counts: dict):
+        self.name, self.counts = name, counts
+
+    def add(self, **counts) -> None:
+        """Counts known only inside the span, summed into its own."""
+        for k, v in counts.items():
+            self.counts[k] = self.counts.get(k, 0) + v
+
+    def __enter__(self):
+        self.fn = torch.profiler.record_function(self.name)
+        self.fn.__enter__()
+        stack = _OPEN.__dict__.setdefault("stack", [])
+        self.parent = stack[-1].name if stack else None
+        stack.append(self)
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        _OPEN.stack.pop()
+        _RECORD.append(SpanRecord(self.name, self.start, end, self.parent,
+                                  threading.get_ident(), self.counts))
+        self.fn.__exit__(*exc)
+        return False
+
+
+def span(name: str, **counts):
+    """``with span("predictor.upload", rows=64) as s: ...``: a span of the
+    program, and the counts of the work it did (``s.add(steps=5)`` adds
+    counts known only inside it).
+
+    While no torch profiler records it costs one flag read and returns a
+    shared no-op context. While one records (:func:`trace`, or any
+    ``torch.profiler.profile`` in its recorded step) the span enters
+    ``record_function(name)``, so it lands in the Chrome trace beside the
+    device's work, and its host times go into the record that
+    :func:`spans` returns. It never synchronises the card."""
+    if not _profiler_enabled():
+        return _OFF
+    return _Span(name, counts)
+
+
+def spans() -> list[SpanRecord]:
+    """Every span closed since the record was last cleared, in the order
+    they closed."""
+    return list(_RECORD)
+
+
+def clear_spans() -> None:
+    _RECORD.clear()
+
+
+def span_stats() -> dict:
+    """{name: {"count", "total_s", "self_s", "counts"}} over the record:
+    how often the span ran, its summed duration, that less the part its
+    child spans cover, and its summed counts."""
+    record, out = spans(), {}
+    for r in record:
+        st = out.setdefault(r.name, {"count": 0, "total_s": 0.0,
+                                     "self_s": 0.0, "counts": {}})
+        dur = (r.end_ns - r.start_ns) * 1e-9
+        st["count"] += 1
+        st["total_s"] += dur
+        st["self_s"] += dur
+        for k, v in r.counts.items():
+            st["counts"][k] = st["counts"].get(k, 0) + v
+    for r in record:
+        if r.parent in out:
+            out[r.parent]["self_s"] -= (r.end_ns - r.start_ns) * 1e-9
+    return out
+
 
 
 def _on_card(out) -> bool:
@@ -119,21 +212,6 @@ def time_fn(fn, *args, warmup: int = 1, iters: int = 5) -> float:
     times.sort()
     return times[len(times) // 2]
 
-
-def compiled_cost(fn, *args, **kwargs) -> dict | None:
-    """{"flops": n} of one call fn(*args, **kwargs), counted by
-    ``FlopCounterMode`` (matrix products and convolutions, the operators it
-    knows), or None where it counted nothing. The call runs once, and its
-    exceptions reach the caller. The port's hand-written kernels are
-    launched through ctypes, outside PyTorch's dispatcher, so their work
-    is not counted, and no bytes are counted: the JAX package's XLA cost
-    model has no counterpart here."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    with FlopCounterMode(display=False) as counter:
-        fn(*args, **kwargs)
-    flops = float(counter.get_total_flops())
-    return {"flops": flops} if flops > 0 else None
 
 
 def time_op_loop(op, x, iters: int = 50, warmup: bool = True,

@@ -1548,6 +1548,31 @@ def test_graphed_steps_equal_single_steps_on_card(dev, tmp_path, fused,
     assert counts == {k: 6 * n // 5 for k, n in per5.items()}
 
 
+def test_graphed_epoch_spans_on_card(dev, tmp_path):
+    """The same K=3 epoch under a profiler records one capture, one replay
+    of 3 steps, the call's two stages (its host views, counted, then the
+    graph's buffers) and the two eager steps, and ends bit for bit where
+    the untraced epoch ends."""
+    from chip_smoke import snapshot_diff
+    from pointnet2_tpu_torch.utils import profiling
+
+    want, _, _ = _small_epoch(tmp_path, "untraced", 3, False)
+    profiling.clear_spans()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        got, _, _ = _small_epoch(tmp_path, "traced", 3, False)
+    stats = profiling.span_stats()
+    _, names = snapshot_diff(torch, want, got)
+    assert not names, names
+    assert {k: v["count"] for k, v in stats.items()
+            if k.startswith("step.")} == {"step.capture": 1,
+                                          "step.replay": 1,
+                                          "step.stage": 2, "step.eager": 2}
+    assert stats["step.replay"]["counts"] == {"steps": 3}
+    assert stats["step.stage"]["counts"] == {"batches": 3}
+    assert stats["trainer.epoch"]["counts"] == {"steps": 5, "examples": 20}
+
+
 @pytest.mark.parametrize("remat", ["full", "dots", "dots_nobatch"])
 def test_remat_equals_none_on_card(dev, tmp_path, remat):
     """An epoch under each remat policy, the fused chain on, ends bit for

@@ -1,10 +1,9 @@
 """The port's profiling helpers (``utils/profiling.py``) and its three demos
 (``pointnet2_tpu_torch.examples``), on the CPU at reduced sizes.
 
-- ``StepTimer``, ``time_fn`` and ``time_op_loop`` time what they are
-  given; ``compiled_cost`` counts 2n^3 flops for an n x n matmul and None
-  where nothing is counted; ``trace`` writes a Chrome trace naming the ops
-  it saw.
+- ``time_fn`` and ``time_op_loop`` time what they are given, beside the
+  H100 peaks the module names; ``trace`` writes a Chrome trace naming the
+  ops it saw (its spans: tests/test_torch_tracing.py).
 - The mesh demo's reduced cloud is the farthest-point subset of its dense
   one, all on the icosahedron's surface; the interpolation demo's colours
   equal JAX's three_nn + three_interpolate on the same points within 1e-5;
@@ -46,17 +45,6 @@ def one_thread():
 # ---------------------------------------------------------------------------
 
 
-def test_step_timer():
-    t = profiling.StepTimer(window=3)
-    assert t.steps_per_sec() == 0.0
-    for _ in range(5):
-        t.tick()
-        time.sleep(0.002)
-    assert len(t._times) == 3
-    assert 0.002 <= t.mean_step_time < 0.5
-    assert t.steps_per_sec() == pytest.approx(1.0 / t.mean_step_time)
-
-
 def test_time_fn_and_op_loop():
     calls = []
 
@@ -71,14 +59,6 @@ def test_time_fn_and_op_loop():
     per = profiling.time_op_loop(lambda t: t @ t, torch.ones(64, 64),
                                  iters=10, repeats=3)
     assert 0 < per < 0.5
-
-
-@pytest.mark.parametrize("n", [16, 128])
-def test_compiled_cost_counts_a_matmul(n):
-    a, b = torch.randn(n, n), torch.randn(n, n)
-    assert profiling.compiled_cost(torch.matmul, a, b) == {
-        "flops": 2.0 * n ** 3}
-    assert profiling.compiled_cost(torch.add, a, b) is None
     assert profiling.H100_BF16_TFLOPS == 989.0
 
 
