@@ -21,9 +21,16 @@ Port of pointnet2_tpu/serving.py:42-337:
 - ``num_devices=N`` (pointnet2_tpu/serving.py:60-100) keeps one replica of
   the model on each of ``cuda:0`` .. ``cuda:N-1``; buckets round up to
   multiples of N, each padded batch is cut into N row shards, each shard
-  runs on its card (all launched before any is read back) and the shards
-  are put back in order. With ``device="cpu"`` the N shards run one after
-  another on the CPU.
+  runs on its card (all launched before any is read back) and each shard
+  copies its rows into its own rows of the result. With ``device="cpu"``
+  the N shards run one after another on the CPU;
+- a request's logits land straight in its result, allocated once with its
+  final shape: page-locked host memory when the model is on a card (from
+  PyTorch's caching host allocator, to which the block returns when the
+  caller drops the array), ordinary memory on the CPU. Only a shard's real
+  rows cross the bus, with no host copy after them. The span
+  ``predictor.fetch`` counts ``pinned_rows``, the rows that landed in
+  page-locked memory.
 
 Usage::
 
@@ -164,8 +171,11 @@ class Predictor:
         return b - rest + (self._bucket_for(rest) if rest else 0)
 
     @torch.inference_mode()
-    def _run_padded(self, points: np.ndarray,
-                    cls_label: np.ndarray | None) -> np.ndarray:
+    def _run_padded(self, points: np.ndarray, cls_label: np.ndarray | None,
+                    out: torch.Tensor) -> np.ndarray:
+        """Run up to the largest bucket's rows, padded to their bucket, and
+        copy each shard's real rows straight into its rows of ``out``, the
+        (b, ...) float32 rows these land in; returns them as numpy."""
         b = points.shape[0]
         inputs = [points] if cls_label is None else [points, cls_label]
         n = len(self._replicas)
@@ -180,12 +190,18 @@ class Predictor:
                     a[i * shard:(i + 1) * shard])).to(dev) for a in inputs]
             with span("predictor.forward"):
                 outs.append(model(*args).float())
-        host = []
-        for o in outs:
-            with span("predictor.fetch"):
-                host.append(o.cpu().numpy())
+        pinned = out.is_pinned()
+        for i, o in enumerate(outs):
+            lo, hi = min(i * shard, b), min((i + 1) * shard, b)
+            with span("predictor.fetch") as s:
+                if hi > lo:
+                    # the bucket's padding is sliced off on the card
+                    out[lo:hi].copy_(o[:hi - lo], non_blocking=True)
+                    if o.is_cuda:
+                        torch.cuda.current_stream(o.device).synchronize()
+                s.add(pinned_rows=hi - lo if pinned else 0)
         with span("predictor.assemble"):
-            return np.concatenate(host)[:b]
+            return out.numpy()
 
     def __call__(self, points, cls_label=None) -> np.ndarray:
         """points: (B, N, C) float; cls_label: (B,) int, the object
@@ -193,14 +209,24 @@ class Predictor:
         Returns float32 logits, (B, K) for a classifier and (B, N, K) for a
         segmentation model.
 
+        The result is allocated once, with its final shape, and every
+        shard of every chunk copies its real rows straight into its own
+        rows of it. With the model on a card it is page-locked host memory
+        from PyTorch's caching host allocator: the copy out runs at the
+        bus's rate, and the block returns to that cache when the caller
+        drops the array, to be handed out again with no new allocation.
+        Each call returns memory of its own: no later call writes it.
+
         Spans (utils/profiling.py, while a profiler records):
         ``predictor.request`` (counts ``rows`` and ``padded_rows``, the
         rows with their bucket's padding) around ``predictor.upload`` (pad,
         copy to the card, a shard at a time, count ``rows``),
         ``predictor.forward`` (the host's dispatch of the model),
         ``predictor.fetch`` (the wait for the card and the copy of a
-        shard's logits to the host) and ``predictor.assemble`` (the shards
-        and chunks put together)."""
+        shard's real rows into the result; counts ``pinned_rows``, the rows
+        that landed in page-locked memory: all of them on a card, none on
+        the CPU) and ``predictor.assemble`` (the result handed out, once a
+        run and once more around a chunked request)."""
         points = np.asarray(points, np.float32)
         b = points.shape[0]
         with span("predictor.request", rows=b,
@@ -214,19 +240,22 @@ class Predictor:
                                      f"{cls_label.shape}")
             else:
                 cls_label = None
+            per_point = () if self.task == "cls" else points.shape[1:2]
+            shape = (b, *per_point, self._model.num_classes)
             if b == 0:
-                per_point = () if self.task == "cls" else points.shape[1:2]
-                return np.zeros((0, *per_point, self._model.num_classes),
-                                np.float32)
+                return np.zeros(shape, np.float32)
+            out = torch.empty(shape, dtype=torch.float32,
+                              pin_memory=self.device.type == "cuda")
             max_bucket = self._buckets[-1]
             if b <= max_bucket:
-                return self._run_padded(points, cls_label)
-            parts = [self._run_padded(points[s:s + max_bucket],
-                                      None if cls_label is None
-                                      else cls_label[s:s + max_bucket])
-                     for s in range(0, b, max_bucket)]
+                return self._run_padded(points, cls_label, out)
+            for s in range(0, b, max_bucket):
+                self._run_padded(points[s:s + max_bucket],
+                                 None if cls_label is None
+                                 else cls_label[s:s + max_bucket],
+                                 out[s:s + max_bucket])
             with span("predictor.assemble"):
-                return np.concatenate(parts, axis=0)
+                return out.numpy()
 
     def predict_proba(self, points, cls_label=None) -> np.ndarray:
         logits = self(points, cls_label)

@@ -237,6 +237,48 @@ def test_predictor_on_card_matches_cpu(dev, rs):
     np.testing.assert_allclose(gpu(pts), cpu(pts), rtol=1e-4, atol=1e-4)
 
 
+def test_predictor_results_land_in_page_locked_memory(dev, rs):
+    """bf16 sem_seg requests of 16 blocks and of 65 (above the largest
+    bucket, 64): each result is page-locked, equals the model's own float32
+    logits bit for bit, and shares no memory with the other live result;
+    ``pinned_rows`` counts every row served. After a warm-up request, ten
+    more make no new page-locked allocation: dropped results go back to
+    PyTorch's host cache and are handed out again."""
+    from pointnet2_tpu_torch.utils import profiling
+
+    pred = Predictor("pointnet2_sem_seg")
+    small, big = (rs.rand(b, 8192, 3).astype(np.float32) for b in (16, 65))
+
+    def own(x):
+        with torch.inference_mode():
+            return pred.model(torch.from_numpy(x).to(dev)).float().cpu() \
+                .numpy()
+
+    profiling.clear_spans()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            got_small, got_big = pred(small), pred(big)
+        fetch = profiling.span_stats()["predictor.fetch"]
+    finally:
+        profiling.clear_spans()
+    assert fetch["counts"] == {"pinned_rows": 16 + 65}
+    for got in (got_small, got_big):
+        assert torch.from_numpy(got).is_pinned()
+        assert got.dtype == np.float32 and got.flags.c_contiguous
+    np.testing.assert_array_equal(got_small, own(small))
+    np.testing.assert_array_equal(
+        got_big, np.concatenate([own(big[:64]), own(big[64:])]))
+    assert not np.shares_memory(got_small, got_big)
+
+    stats = getattr(torch.cuda, "host_memory_stats", lambda: {})
+    pred(small)
+    before = stats().get("num_host_alloc")
+    for _ in range(10):
+        pred(small)
+    assert stats().get("num_host_alloc") == before
+
+
 # ---------------------------------------------------------------------------
 # the scatter-add kernel and the train path
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
 """The port's serving Predictor held against the JAX Predictor on the CPU,
-on the same (converted) variables and the same numpy clouds."""
+on the same (converted) variables and the same numpy clouds; and its
+results against the model's own outputs, bit for bit, each in memory of
+its own."""
 
 import jax
 import jax.numpy as jnp
@@ -11,6 +13,7 @@ from pointnet2_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
 from pointnet2_tpu.serving import Predictor as JaxPredictor
 from pointnet2_tpu_torch import Predictor, flax_to_torch
 from pointnet2_tpu_torch.models import get_model
+from pointnet2_tpu_torch.utils import profiling
 
 N = 128
 # f32 agreement (see test_torch_model): matmul summation order only
@@ -133,3 +136,58 @@ def test_bf16_predictor_close_to_f32(rng, variables, predictors):
 def test_unknown_model_lists_ported():
     with pytest.raises(KeyError, match="pointnet2_cls_ssg"):
         Predictor("pointnet3_cls", device="cpu")
+
+
+def _model_rows(pred, pts, devices):
+    """The model's own float32 logits for ``pts``, run as the Predictor
+    runs them: chunks of the largest bucket, each padded with copies of its
+    first row to its bucket and cut into ``devices`` shards."""
+    top, want = pred._buckets[-1], []
+    with torch.inference_mode():
+        for s in range(0, len(pts), top):
+            chunk = pts[s:s + top]
+            k, bucket = len(chunk), pred._bucket_for(len(chunk))
+            padded = np.concatenate(
+                [chunk, np.repeat(chunk[:1], bucket - k, axis=0)])
+            shard = bucket // devices
+            want.append(np.concatenate([pred.model(torch.from_numpy(
+                padded[i * shard:(i + 1) * shard])).float().numpy()
+                for i in range(devices)])[:k])
+    return np.concatenate(want)
+
+
+@pytest.mark.parametrize("name,n,classes", [("pointnet_cls_basic", 32, 4),
+                                            ("pointnet2_sem_seg", 128, 21)])
+@pytest.mark.parametrize("rows,devices", [
+    (3, 1),  # padded to the bucket of 4
+    (9, 1),  # above the largest bucket: chunks of 4, 4 and 1
+    (3, 2),  # two shards of 2 rows, the second padded
+])
+def test_results_are_the_models_rows_in_memory_of_their_own(
+        name, n, classes, rows, devices):
+    """Each result is C-contiguous float32 (b, ...) and equals the model's
+    own outputs bit for bit; the next call, on other inputs, leaves it as
+    it was and shares no memory with it; on the CPU no row lands in
+    page-locked memory."""
+    pred = Predictor(name, device="cpu", dtype=None, buckets=(2, 4),
+                     num_devices=devices, num_classes=classes)
+    rs = np.random.RandomState(rows)
+    first, second = (rs.rand(rows, n, 3).astype(np.float32)
+                     for _ in range(2))
+    got = pred(first)
+    want = _model_rows(pred, first, devices)
+    per_point = () if name == "pointnet_cls_basic" else (n,)
+    assert got.shape == (rows, *per_point, classes)
+    assert got.dtype == np.float32 and got.flags.c_contiguous
+    np.testing.assert_array_equal(got, want)
+    profiling.clear_spans()
+    try:
+        with torch.profiler.profile():
+            other = pred(second)
+        fetch = profiling.span_stats()["predictor.fetch"]
+    finally:
+        profiling.clear_spans()
+    np.testing.assert_array_equal(got, want)
+    assert not np.shares_memory(got, other)
+    np.testing.assert_array_equal(other, _model_rows(pred, second, devices))
+    assert fetch["counts"] == {"pinned_rows": 0}
